@@ -1,0 +1,260 @@
+"""Host input pipeline: frame providers, training batches, scoring chunks.
+
+Port of ``action_detection_tpu/data/pipeline.py`` (training batches and
+scoring chunks; the prefetching loader of the training CLI comes with it).
+Providers return uint8 numpy arrays, not PIL images: the synthetic provider
+makes its pixels with the same ``zlib.crc32`` key and ``RandomState.randint``
+draws as the reference, so at the THUMOS scale size (340x256 frames, scale
+size 256) the pixels are equal to the JAX package's without PIL. Decoding a
+JPEG (:class:`DirectoryFrameProvider`) or resizing a frame
+(:func:`~.transforms.scale_frame`) imports PIL inside the function that
+needs it.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from .ssn_dataset import SSNDataset
+from .transforms import oversample_crops, scale_frame, stack_images
+
+
+class DirectoryFrameProvider:
+    """Loads extracted JPEG frames from per-video directories.
+
+    ``image_tmpl``: 'img_{:05d}.jpg' (RGB) or '{}_{:05d}.jpg' (flow, formatted
+    with 'x'/'y' + index).
+    """
+
+    def __init__(self, root: str = "", image_tmpl: str = "img_{:05d}.jpg",
+                 modality: str = "RGB"):
+        self.root = root
+        self.image_tmpl = image_tmpl
+        self.modality = modality
+
+    def load(self, video_id: str, idx: int) -> List[np.ndarray]:
+        import os
+
+        from PIL import Image
+
+        directory = os.path.join(self.root, video_id)
+        if self.modality in ("RGB", "RGBDiff"):
+            with Image.open(os.path.join(
+                    directory, self.image_tmpl.format(idx))) as img:
+                return [np.asarray(img.convert("RGB"))]
+        out = []
+        for axis in ("x", "y"):
+            with Image.open(os.path.join(
+                    directory, self.image_tmpl.format(axis, idx))) as img:
+                out.append(np.asarray(img.convert("L")))
+        return out
+
+
+class SyntheticFrameProvider:
+    """Deterministic pseudo-random uint8 frames keyed by (video_id, index)."""
+
+    def __init__(self, width: int = 340, height: int = 256,
+                 modality: str = "RGB", seed: int = 0):
+        self.width = width
+        self.height = height
+        self.modality = modality
+        self.seed = seed
+
+    def load(self, video_id: str, idx: int) -> List[np.ndarray]:
+        import zlib
+
+        # stable across processes (builtin hash() is salted per process)
+        key = zlib.crc32(f"{self.seed}/{video_id}/{int(idx)}".encode())
+        rng = np.random.RandomState(key)
+        if self.modality in ("RGB", "RGBDiff"):
+            return [rng.randint(0, 256, size=(self.height, self.width, 3),
+                                dtype=np.uint8)]
+        x = rng.randint(0, 256, size=(self.height, self.width), dtype=np.uint8)
+        y = rng.randint(0, 256, size=(self.height, self.width), dtype=np.uint8)
+        return [x, y]
+
+
+def frames_per_segment(modality: str, new_length: int) -> int:
+    """Frames fetched per segment: RGBDiff needs new_length+1 raw frames."""
+    return new_length + 1 if modality == "RGBDiff" else new_length
+
+
+def load_proposal_frames(provider, video_id: str, frame_indices: Sequence[int],
+                         frame_cnt: int, new_length: int = 1) -> List:
+    """Frames for segment starts ``p``: ``min(frame_cnt, p + x)``, x < n."""
+    n = frames_per_segment(provider.modality, new_length)
+    frames = []
+    for p in frame_indices:
+        for x in range(n):
+            frames.extend(provider.load(video_id,
+                                        min(int(frame_cnt), int(p) + x)))
+    return frames
+
+
+def assemble_train_batch(dataset: SSNDataset, video_indices: Sequence[int],
+                         provider, augmentation: Callable,
+                         rng: np.random.RandomState,
+                         random_shift: bool = True) -> Dict[str, np.ndarray]:
+    """Build one static-shape uint8 training batch.
+
+    ``augmentation(frames, rng)`` maps one proposal's uint8 frame group to
+    its crops (e.g. ``Compose([GroupScale, GroupCenterCrop,
+    GroupRandomHorizontalFlip])``). Returns frames (B*P, S, H, W, C) uint8,
+    scaling (B*P, 2) f32, labels (B*P,) i64, reg_targets (B*P, 2) f32 and
+    prop_type (B*P,) i64.
+    """
+    all_frames, all_scaling, all_labels, all_reg, all_type = \
+        [], [], [], [], []
+    S = dataset.body_seg + 2 * dataset.aug_seg
+    L = dataset.new_length
+    for vi in video_indices:
+        sample = dataset.get_training_sample(vi, rng, random_shift=random_shift)
+        for i in range(sample.frame_indices.shape[0]):
+            vid = sample.frame_video_ids[i]
+            frame_cnt = dataset.video_dict[vid].num_frames
+            frames = load_proposal_frames(provider, vid,
+                                          sample.frame_indices[i], frame_cnt,
+                                          L)
+            stacked = stack_images(augmentation(frames, rng))
+            H, W, c_total = stacked.shape
+            # regroup to (S, H, W, C_in): C_in = channels per segment
+            all_frames.append(stacked.reshape(H, W, S, c_total // S)
+                              .transpose(2, 0, 1, 3))
+        all_scaling.append(sample.scaling)
+        all_labels.append(sample.labels)
+        all_reg.append(sample.reg_targets)
+        all_type.append(sample.prop_type)
+    return {"frames": np.stack(all_frames).astype(np.uint8),
+            "scaling": np.concatenate(all_scaling),
+            "labels": np.concatenate(all_labels),
+            "reg_targets": np.concatenate(all_reg),
+            "prop_type": np.concatenate(all_type)}
+
+
+def make_decode_pool(threads: Optional[int] = None
+                     ) -> Optional[ThreadPoolExecutor]:
+    """Thread pool for parallel frame decode on the scoring path.
+
+    Returns None for threads <= 1 (synchronous decode).
+    """
+    import os
+
+    if threads is None:
+        threads = min(8, 2 * (os.cpu_count() or 1))
+    if threads <= 1:
+        return None
+    return ThreadPoolExecutor(max_workers=threads)
+
+
+def iter_windowed_decode(jobs: Sequence, load_one: Callable,
+                         executor: Optional[ThreadPoolExecutor],
+                         window: int) -> Iterator:
+    """Yield ``load_one(job)`` for each job in order, decoding up to ``window``
+    jobs ahead on ``executor``. Synchronous when executor is None."""
+    if executor is None:
+        for job in jobs:
+            yield load_one(job)
+        return
+    futures: dict = {}
+    n = len(jobs)
+    for j in range(n):
+        for k in range(j, min(j + window, n)):
+            if k not in futures:
+                futures[k] = executor.submit(load_one, jobs[k])
+        yield futures.pop(j).result()
+
+
+def pad_chunk_ticks(chunk: np.ndarray, host_crops: int,
+                    batch_ticks: int) -> np.ndarray:
+    """Pad a crop-major ``(host_crops * n_ticks, ...)`` chunk to the static
+    ``batch_ticks`` tick count (zero ticks appended per crop block)."""
+    n_ticks = chunk.shape[0] // host_crops
+    if n_ticks == batch_ticks:
+        return chunk
+    c = chunk.reshape(host_crops, n_ticks, *chunk.shape[1:])
+    c = np.pad(c, ((0, 0), (0, batch_ticks - n_ticks))
+               + ((0, 0),) * (c.ndim - 2))
+    return c.reshape(host_crops * batch_ticks, *chunk.shape[1:])
+
+
+def load_scaled_stack(provider, video_id: str, tick, frame_cnt: int,
+                      scale_size: int, new_length: int = 1) -> np.ndarray:
+    """Decode + rescale one tick to a stacked uint8 ``(H_s, W_s, c_in)``."""
+    frames = load_proposal_frames(provider, video_id, [tick], frame_cnt,
+                                  new_length)
+    return stack_images([scale_frame(f, scale_size) for f in frames])
+
+
+def iter_scaled_frame_chunks(provider, video_id: str, frame_ticks: np.ndarray,
+                             frame_cnt: int, scale_size: int,
+                             new_length: int = 1, batch_ticks: int = 32,
+                             executor: Optional[ThreadPoolExecutor] = None
+                             ) -> Iterator[np.ndarray]:
+    """Yield uint8 arrays ``(n_ticks, H_s, W_s, C_in)`` of scale-size frames.
+
+    The host only decodes + rescales; the 10-crop oversample happens on the
+    device. Per-tick work fans out on ``executor`` with a bounded in-flight
+    window so long videos don't pile decoded frames in host RAM.
+    """
+    def load_one(tick) -> np.ndarray:
+        return load_scaled_stack(provider, video_id, tick, frame_cnt,
+                                 scale_size, new_length)
+
+    n = len(frame_ticks)
+    arrays = iter_windowed_decode(list(frame_ticks), load_one, executor,
+                                  window=4 * batch_ticks)
+    for lo in range(0, n, batch_ticks):
+        yield np.stack([next(arrays) for _ in range(min(batch_ticks, n - lo))])
+
+
+def oversample_tick(provider, video_id: str, tick, frame_cnt: int,
+                    crop_size: int, scale_size: int,
+                    new_length: int = 1) -> np.ndarray:
+    """One tick's 10 oversample crops as ``(10, crop, crop, C_in)`` uint8.
+
+    The ``iter_test_frame_batches`` layout at ``batch_ticks=1`` with the
+    10-crop transform: the crop group is stacked along channels, then split
+    into per-crop stacks of ``C_in`` channels.
+    """
+    frames = load_proposal_frames(provider, video_id, [tick], frame_cnt,
+                                  new_length)
+    stacked = stack_images(oversample_crops(frames, crop_size, scale_size))
+    H, W, c_total = stacked.shape
+    c_in = c_total // 10
+    return stacked.reshape(H, W, 10, c_in).transpose(2, 0, 1, 3)
+
+
+def collect_calibration_frames(dataset, provider, crop_size: int,
+                               scale_size: int, new_length: int = 1,
+                               max_videos: int = 8) -> Optional[np.ndarray]:
+    """10-crop oversampled first ticks of up to ``max_videos`` test videos,
+    spread across the list, for int8 calibration.
+
+    Zero-tick videos are skipped and replaced by the next unseen index;
+    returns None when every video is empty. Same selection policy as the
+    JAX package's ``collect_calibration_frames`` with the 10-crop transform.
+    """
+    n_vids = len(dataset.video_list)
+    if n_vids == 0:
+        return None
+    target = min(max_videos, n_vids)
+    spread = list(dict.fromkeys(
+        np.linspace(0, n_vids - 1, target).astype(int).tolist()))
+    seen = set(spread)
+    order = spread + [i for i in range(n_vids) if i not in seen]
+    chunks: List[np.ndarray] = []
+    for i in order:
+        if len(chunks) == target:
+            break
+        s = dataset.get_test_sample(i)
+        if len(s.frame_ticks) == 0:
+            continue
+        chunks.append(oversample_tick(provider, s.video_id, s.frame_ticks[0],
+                                      s.num_frames, crop_size, scale_size,
+                                      new_length))
+    if not chunks:
+        return None
+    return np.concatenate(chunks, axis=0)

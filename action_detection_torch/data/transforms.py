@@ -1,0 +1,229 @@
+"""Frame transforms: host crop geometry and device-side normalization (torch).
+
+Port of ``action_detection_tpu/data/transforms.py`` without the resizing
+training crops:
+
+* **Host**: :func:`fill_fix_offset` (copied as is), :func:`scale_frame` (the
+  ``GroupScale`` rule on uint8 arrays), :func:`oversample_crops` (the
+  ``GroupOverSample`` 10-crop on uint8 arrays by slicing and flipping, which
+  is bit-identical to PIL's crop + ``FLIP_LEFT_RIGHT``) and the group
+  transforms ``GroupScale``, ``GroupCenterCrop``,
+  ``GroupRandomHorizontalFlip`` and ``Compose`` on uint8 arrays, with the
+  reference's RandomState draws.
+* **Device**: normalization, the 10-crop oversample of normalized frames and
+  the flip-source pair of the shared-stem path, on torch tensors of any
+  device. Layout stays NHWC, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def fill_fix_offset(more_fix_crop: bool, image_w: int, image_h: int,
+                    crop_w: int, crop_h: int) -> List[Tuple[int, int]]:
+    """The 5 (or 13) fixed crop anchor offsets of the TSN augmentation."""
+    w_step = (image_w - crop_w) // 4
+    h_step = (image_h - crop_h) // 4
+    ret = [(0, 0), (4 * w_step, 0), (0, 4 * h_step), (4 * w_step, 4 * h_step),
+           (2 * w_step, 2 * h_step)]
+    if more_fix_crop:
+        ret += [(0, 2 * h_step), (4 * w_step, 2 * h_step),
+                (2 * w_step, 4 * h_step), (2 * w_step, 0),
+                (1 * w_step, 1 * h_step), (3 * w_step, 1 * h_step),
+                (1 * w_step, 3 * h_step), (3 * w_step, 3 * h_step)]
+    return ret
+
+
+def scale_frame(img: np.ndarray, size: int) -> np.ndarray:
+    """``GroupScale(size)`` on one ``(H, W)`` or ``(H, W, 3)`` uint8 frame.
+
+    Frames whose smaller edge already equals ``size`` pass through untouched
+    (the THUMOS scoring geometry: 340x256 frames at scale size 256). Any
+    other size needs PIL's bilinear resampling for parity with the reference,
+    so PIL is imported here and only here.
+    """
+    h, w = img.shape[:2]
+    if (w <= h and w == size) or (h <= w and h == size):
+        return img
+    from PIL import Image
+
+    if w < h:
+        new = (size, int(size * h / w))
+    else:
+        new = (int(size * w / h), size)
+    mode = "L" if img.ndim == 2 else "RGB"
+    return np.asarray(Image.fromarray(img, mode).resize(new, Image.BILINEAR))
+
+
+def stack_images(imgs) -> np.ndarray:
+    """``Stack()``: one ``(H, W, C_total)`` uint8 array from a frame group."""
+    if imgs[0].ndim == 2:
+        return np.stack(imgs, axis=2)
+    return np.concatenate(imgs, axis=2)
+
+
+def oversample_crops(img_group, crop_size: int,
+                     scale_size: Optional[int]) -> List[np.ndarray]:
+    """``GroupOverSample(crop_size, scale_size)`` on uint8 arrays.
+
+    Returns the group in the reference order: for each of the 5 offsets,
+    every frame cropped, then every frame flipped (gray flow-x planes,
+    the even images of a flow group, inverted as ``ImageOps.invert`` does).
+    """
+    if scale_size:
+        img_group = [scale_frame(img, scale_size) for img in img_group]
+    image_h, image_w = img_group[0].shape[:2]
+    out = []
+    for o_w, o_h in fill_fix_offset(False, image_w, image_h, crop_size,
+                                    crop_size):
+        normal, flipped = [], []
+        for i, img in enumerate(img_group):
+            crop = img[o_h:o_h + crop_size, o_w:o_w + crop_size]
+            normal.append(crop)
+            flip = crop[:, ::-1]
+            if img.ndim == 2 and i % 2 == 0:
+                flip = 255 - flip
+            flipped.append(np.ascontiguousarray(flip))
+        out.extend(normal)
+        out.extend(flipped)
+    return out
+
+
+class GroupScale:
+    """Rescale so the smaller edge equals ``size`` (:func:`scale_frame`)."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img_group, rng=None):
+        return [scale_frame(img, self.size) for img in img_group]
+
+
+class GroupCenterCrop:
+    def __init__(self, size):
+        # (height, width), the reference's convention
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+
+    def __call__(self, img_group, rng=None):
+        th, tw = self.size
+        out = []
+        for img in img_group:
+            h, w = img.shape[:2]
+            x1 = int(round((w - tw) / 2.0))
+            y1 = int(round((h - th) / 2.0))
+            out.append(img[y1:y1 + th, x1:x1 + tw])
+        return out
+
+
+class GroupRandomHorizontalFlip:
+    """Flip the whole group with p=0.5; invert flow-x images when flipping."""
+
+    def __init__(self, is_flow: bool = False):
+        self.is_flow = is_flow
+
+    def __call__(self, img_group, rng: np.random.RandomState):
+        if rng.rand() >= 0.5:
+            return img_group
+        ret = [np.ascontiguousarray(img[:, ::-1]) for img in img_group]
+        if self.is_flow:
+            for i in range(0, len(ret), 2):
+                ret[i] = 255 - ret[i]
+        return ret
+
+
+class Compose:
+    """Chain group transforms, threading the shared RandomState through."""
+
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, img_group, rng: np.random.RandomState):
+        for t in self.transforms:
+            img_group = t(img_group, rng)
+        return img_group
+
+
+def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,
+                    div255: bool = False, channels_per_image: int = 3,
+                    dtype: torch.dtype = None) -> torch.Tensor:
+    """Device-side normalization of stacked uint8 frames ``(..., H, W, C)``.
+
+    ``bgr`` reverses the channel order within each image's channel group
+    (the Caffe-port ``Stack(roll=True)``). Returns float32 (or ``dtype``).
+    """
+    dtype = dtype or torch.float32
+    x = frames.to(dtype)
+    if div255:
+        x = x / 255.0
+    c_total = x.shape[-1]
+    n_img = c_total // channels_per_image
+    if bgr and channels_per_image == 3:
+        x = x.reshape(x.shape[:-1] + (n_img, channels_per_image))
+        x = x.flip(-1)
+        x = x.reshape(x.shape[:-2] + (c_total,))
+    mean = torch.as_tensor(mean, dtype=dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=dtype, device=x.device)
+    mean = mean.repeat(c_total // mean.shape[0])
+    std = std.repeat(c_total // std.shape[0])
+    return (x - mean) / std
+
+
+def preprocess_frames(frames: torch.Tensor, spec, modality: str = "RGB",
+                      new_length: int = 1,
+                      dtype: torch.dtype = None) -> torch.Tensor:
+    """Device-side preprocessing (NHWC): normalize with the backbone's
+    input statistics. RGBDiff's frame differences come with a later slice."""
+    if modality == "RGBDiff":
+        raise ValueError("RGBDiff is not in the port yet (Flow/RGBDiff slice)")
+    channels = 1 if modality == "Flow" else 3
+    return normalize_stack(frames, spec.mean, spec.std, bgr=spec.bgr,
+                           div255=spec.div255, channels_per_image=channels,
+                           dtype=dtype)
+
+
+def device_normed_pair(frames: torch.Tensor, spec, modality: str = "RGB",
+                       new_length: int = 1, dtype: torch.dtype = None):
+    """Normalized frames + the flip SOURCE tensor.
+
+    ``flip_src`` equals ``xn`` except for Flow, whose flow-x planes are
+    inverted on flip: the inverted planes are normalized from
+    ``255 - frames`` directly, which is elementwise and bit-identical to the
+    host path's invert-then-normalize.
+    """
+    xn = preprocess_frames(frames, spec, modality, new_length, dtype=dtype)
+    if modality == "Flow":
+        inv = preprocess_frames(255 - frames, spec, modality, new_length,
+                                dtype=dtype)
+        is_x = (torch.arange(xn.shape[-1], device=xn.device) % 2 == 0)
+        flip_src = torch.where(is_x, inv, xn)
+    else:
+        flip_src = xn
+    return xn, flip_src
+
+
+def device_oversample_normed(frames: torch.Tensor, spec,
+                             modality: str = "RGB", new_length: int = 1,
+                             crop_size: Optional[int] = None,
+                             dtype: torch.dtype = None) -> torch.Tensor:
+    """Normalize the N scale-size frames, THEN cut the 10 crops.
+
+    Normalization is elementwise in the pixel value, so it commutes exactly
+    with cropping and flipping. Returns ``(10*N, crop, crop, C')`` in the
+    ``GroupOverSample`` order [o0, o0-flip, o1, o1-flip, ...].
+    """
+    crop_size = crop_size or spec.input_size
+    xn, flip_src = device_normed_pair(frames, spec, modality, new_length,
+                                      dtype=dtype)
+    _, H, W, _ = xn.shape
+    groups = []
+    for o_w, o_h in fill_fix_offset(False, W, H, crop_size, crop_size):
+        crop = xn[:, o_h:o_h + crop_size, o_w:o_w + crop_size, :]
+        flip = flip_src[:, o_h:o_h + crop_size,
+                        o_w:o_w + crop_size, :].flip(2)
+        groups.extend((crop, flip))
+    out = torch.stack(groups, dim=0)
+    return out.reshape((-1,) + tuple(out.shape[2:]))

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``action_detection_torch/csrc/*.cu`` compile with nvcc into
+one shared library with a plain C interface, bound with ctypes. The build
+runs at first use into ``action_detection_torch/_build/`` (listed in
+.gitignore), named by a hash of the sources and flags so an edited source
+rebuilds. A missing nvcc or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {
+    # x, w, scale, bias, out, N, H, W, C, x_pix_stride, O, KH, KW, stride,
+    # pad, Ho, Wo, out_bf16, stream
+    "adt_int8_conv": [_P] * 5 + [_I] * 13 + [_P],
+    # x, out, N, H, W, C, Ho, Wo, k, stride, pad_lo, stream
+    "adt_int8_max_pool": [_P] * 2 + [_I] * 9 + [_P],
+    "adt_int8_avg_pool": [_P] * 2 + [_I] * 9 + [_P],
+    # x, y, dy, dx, N, H, W, C, Ho, Wo, kh, kw, sh, sw, pad_top, pad_left,
+    # is_bf16, stream
+    "adt_max_pool_bwd": [_P] * 4 + [_I] * 13 + [_P],
+}
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError("nvcc not found (neither on PATH nor under "
+                       f"{cuda_home}/bin): the CUDA kernels cannot be built")
+
+
+def build_library() -> tuple:
+    """Compile the kernels if this source hash has no library yet.
+
+    Returns ``(path, seconds spent compiling)``; 0.0 when it was built.
+    """
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"libadt_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.isfile(path):
+        return path, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in srcs if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library with every entry point's signature set."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,501 @@
+"""Int8 end-to-end BNInception for scoring (torch port).
+
+Port of ``action_detection_tpu/models/backbones/bn_inception_int8.py``, the
+scoring path's deployed default:
+
+* **Host scale algebra** (numpy, copied): :func:`fold_bn`,
+  :func:`quantize_backbone`, :func:`quantize_backbone_e2e`, ``_ScaleOps``
+  and ``_fuse_entry_convs``. Every conv's weights absorb its input's
+  per-channel activation scales and quantize per output channel; the
+  epilogue ``m = sw/so``, ``bq = bias/so`` requantizes each conv's output to
+  its own calibrated scale.
+* **One topology walk** (:func:`_walk_stem`, :func:`_walk_trunk`, copied)
+  interpreted by several ops faces, so branch order and pool choices are
+  written once.
+* **Runtime faces on torch tensors**: ``_StemBf16Ops`` (the hybrid stem in
+  bf16 on cuDNN, quantized once at its output) and ``_E2EOps`` (int8
+  activations end to end through the hand-written kernels K1-K3 of
+  ``kernels/int8.py``, with the fused branch-entry conv).
+* **Calibration faces**: ``_PerLayerOps`` (dynamic per-tensor scales, bf16
+  activations, int8 convs through K1's bf16 epilogue) and
+  :func:`calibrate_e2e`.
+
+The port keeps only the hybrid stem (bf16 stem, one quantization at its
+output), which is the only stem the JAX package's defaults reach.
+
+Runtime trees hold torch tensors: conv weights ``wq`` repacked to
+``(O, KH, KW, C)`` int8 for K1, ``m``/``bq`` float32, the stem's folded
+kernels bf16 OIHW (see :func:`tensor_tree`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...kernels.int8 import int8_avg_pool, int8_conv, int8_max_pool
+from .bn_inception import (_INCEPTION_CFG, max_pool, pool_pads,
+                           stem_feature_hw)
+
+QuantizedParams = Dict[str, Any]
+STEM_CONVS = ("conv1_7x7_s2", "conv2_3x3_reduce", "conv2_3x3")
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def fold_bn(state_dict: Mapping[str, Any], eps: float = 1e-5) -> dict:
+    """Fold frozen BN into each conv: w' = w * g/sqrt(v+eps),
+    b' = (b-m)*g/sqrt(v+eps) + beta.
+
+    ``state_dict``: the backbone's (``<layer>.weight`` ...). Returns
+    {layer_name: {"kernel": (H,W,I,O), "bias": (O,)}} numpy float32 for every
+    conv that has a sibling ``<name>_bn`` — the JAX package's layout, so the
+    algebra below is the JAX package's, operation for operation.
+    """
+    out = {}
+    for key, value in state_dict.items():
+        if not key.endswith(".weight"):
+            continue
+        name = key[:-len(".weight")]
+        bn = name + "_bn"
+        if bn + ".running_var" not in state_dict:
+            continue
+        kernel = _host(value)
+        if kernel.ndim != 4:
+            continue
+        g = _host(state_dict[bn + ".weight"])
+        beta = _host(state_dict[bn + ".bias"])
+        m = _host(state_dict[bn + ".running_mean"])
+        v = _host(state_dict[bn + ".running_var"])
+        inv = g / np.sqrt(v + eps)
+        w = kernel.transpose(2, 3, 1, 0) * inv
+        b = (_host(state_dict[name + ".bias"]) - m) * inv + beta
+        out[name] = {"kernel": w, "bias": b}
+    return out
+
+
+def quantize_backbone(state_dict: Mapping[str, Any],
+                      folded: dict = None) -> QuantizedParams:
+    """BN-fold then per-output-channel int8-quantize every conv (the
+    calibration pass's per-layer tree)."""
+    folded = folded if folded is not None else fold_bn(state_dict)
+    q: QuantizedParams = {}
+    for name, leaf in folded.items():
+        w = leaf["kernel"]
+        sw = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0        # (O,)
+        sw = np.where(sw == 0, 1.0, sw)
+        wq = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
+        q[name] = {"wq": _pack_wq(wq),
+                   "sw": torch.from_numpy(np.asarray(sw, np.float32)),
+                   "bias": torch.from_numpy(np.asarray(leaf["bias"],
+                                                       np.float32))}
+    return q
+
+
+# ---------------------------------------------------------------------------
+# Single topology walk, interpreted through an ops interface.
+# ---------------------------------------------------------------------------
+
+
+def _walk_stem(ops, x):
+    x = ops.conv(x, "conv1_7x7_s2", stride=2, pad=3)
+    x = ops.max_pool(x, 3, 2, ceil=True)
+    x = ops.conv(x, "conv2_3x3_reduce")
+    x = ops.conv(x, "conv2_3x3", pad=1)
+    return ops.max_pool(x, 3, 2, ceil=True)
+
+
+def _entry_names(name: str, c1) -> list:
+    """A module's branch-ENTRY convs: the 1x1s that all consume the module
+    input (same tensor, same input scales) — fusible into one conv."""
+    return (([f"{name}_1x1"] if c1 is not None else [])
+            + [f"{name}_3x3_reduce", f"{name}_double_3x3_reduce"])
+
+
+def _walk_trunk(ops, x):
+    for (name, c1, _c3r, _c3, _d3r, _d31, _d32, _proj, pool, stride) \
+            in _INCEPTION_CFG:
+        heads = ops.entry(x, name, _entry_names(name, c1))
+        branches = list(heads[:1]) if c1 is not None else []
+        i = 1 if c1 is not None else 0
+        b3 = ops.conv(heads[i], f"{name}_3x3", stride=stride, pad=1)
+        branches.append(b3)
+        bd = ops.conv(heads[i + 1], f"{name}_double_3x3_1", pad=1)
+        bd = ops.conv(bd, f"{name}_double_3x3_2", stride=stride, pad=1)
+        branches.append(bd)
+        if stride == 1:
+            bp = (ops.avg_pool(x, 3, 1, 1) if pool == "avg"
+                  else ops.max_pool(x, 3, 1, pad=1))
+            branches.append(ops.conv(bp, f"{name}_pool_proj"))
+        else:
+            # stride-2 modules: passthrough ceil-mode max pool branch
+            branches.append(ops.max_pool(x, 3, 2, ceil=True))
+        x = ops.concat(branches)
+    return x
+
+
+class _EntryDefault:
+    """Default branch-entry behavior: the entry convs run separately."""
+
+    def entry(self, x, module, names):
+        return [self.conv(x, n) for n in names]
+
+
+# ---------------------------------------------------------------------------
+# Host scale algebra (numpy; 'tensors' are per-channel scale vectors)
+# ---------------------------------------------------------------------------
+
+
+def quantize_backbone_e2e(state_dict: Mapping[str, Any],
+                          out_maxes: Dict[str, float],
+                          folded: dict = None) -> QuantizedParams:
+    """BN-fold + int8-quantize with input-scale folding for e2e activations.
+
+    ``out_maxes``: {"input": max|normalized input|, conv_name: max post-ReLU
+    conv output} from :func:`_e2e_output_maxes`. The stem (conv1..conv2_3x3)
+    stays bf16 on its folded weights (``__stem__``) and is quantized once at
+    its output (``__stem_scale__``); the trunk's convs absorb their input
+    scales and quantize per output channel. ``__feat_scale__`` is the final
+    concat's per-channel scale vector, applied after global average pooling.
+    Returns the runtime tensor tree (:func:`tensor_tree`) on the CPU.
+    """
+    folded = folded if folded is not None else fold_bn(state_dict)
+    s = {k: max(float(v), 1e-8) / 127.0 for k, v in out_maxes.items()}
+    qe: Dict[str, Any] = {}
+    ops = _ScaleOps(folded, s, qe)
+
+    qe["__stem__"] = {name: {"kernel": folded[name]["kernel"],
+                             "bias": folded[name]["bias"]}
+                      for name in STEM_CONVS}
+    qe["__stem_scale__"] = np.asarray(s["conv2_3x3"], np.float32)
+    sx = np.full(folded["conv2_3x3"]["kernel"].shape[3], s["conv2_3x3"])
+    sx = _walk_trunk(ops, sx)
+
+    qe["__input_scale__"] = np.asarray(s["input"], np.float32)
+    qe["__feat_scale__"] = np.asarray(sx, np.float32)
+    qe["__entry__"] = _fuse_entry_convs(qe, (
+        (name, _entry_names(name, c1))
+        for (name, c1, *_r) in _INCEPTION_CFG))
+    return tensor_tree(qe)
+
+
+def _fuse_entry_convs(qe: QuantizedParams, groups) -> Dict[str, dict]:
+    """Concat each module's entry-conv tensors along the output-channel axis.
+
+    Exact by construction: the entry convs share the input (hence the same
+    folded input scales), accumulate in s32, and the requantizing epilogue is
+    per output channel — so conv+split is bit-identical to the separate
+    convs. The per-conv entries stay in the tree: they carry the split
+    shapes.
+    """
+    return {
+        module: {
+            "wq": np.concatenate([qe[n]["wq"] for n in names], axis=3),
+            "m": np.concatenate([qe[n]["m"] for n in names]),
+            "bq": np.concatenate([qe[n]["bq"] for n in names]),
+        }
+        for module, names in groups}
+
+
+class _ScaleOps(_EntryDefault):
+    """Host scale algebra: 'tensors' are per-channel activation scale vectors.
+
+    ``conv`` absorbs its input scales into the weights, int8-quantizes them
+    per output channel into ``out``, and returns the conv's own (uniform)
+    output scale vector; pools are scale-preserving per channel.
+    """
+
+    def __init__(self, folded: dict, s: Dict[str, float],
+                 out: QuantizedParams):
+        self.folded = folded
+        self.s = s
+        self.out = out
+
+    def conv(self, sx, name, stride=1, pad=0):
+        w = np.asarray(self.folded[name]["kernel"], np.float64)
+        sx_vec = np.broadcast_to(np.asarray(sx, np.float64), (w.shape[2],))
+        w = w * sx_vec[None, None, :, None]
+        sw = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0
+        sw = np.where(sw == 0, 1.0, sw)
+        wq = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
+        so = self.s[name]
+        self.out[name] = {"wq": wq,
+                          "m": np.asarray(sw / so, np.float32),
+                          "bq": np.asarray(
+                              np.asarray(self.folded[name]["bias"],
+                                         np.float64) / so, np.float32)}
+        return np.full(w.shape[3], so)
+
+    def max_pool(self, sx, kernel, stride, ceil=False, pad=0):
+        return sx
+
+    def avg_pool(self, sx, kernel, stride, pad):
+        return sx
+
+    def concat(self, parts):
+        return np.concatenate([np.atleast_1d(p) for p in parts])
+
+
+def _pack_wq(wq: np.ndarray) -> torch.Tensor:
+    """HWIO int8 -> (O, KH, KW, C) contiguous, the layout K1 reads."""
+    return torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 0, 1, 2)))
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def tensor_tree(qe: Dict[str, Any]) -> QuantizedParams:
+    """A numpy e2e tree in the JAX package's layout -> runtime tensors.
+
+    Conv entries: ``wq`` HWIO int8 -> (O, KH, KW, C) int8, ``m``/``bq``
+    float32. ``__stem__``: folded HWIO float32 -> bf16 OIHW (rounded to
+    nearest even, as ``jnp.asarray(..., bfloat16)`` does). Scalars and the
+    feature scale stay float32.
+    """
+    def layer(v):
+        return {"wq": _pack_wq(np.asarray(v["wq"], np.int8)),
+                "m": _f32(v["m"]), "bq": _f32(v["bq"])}
+
+    out: QuantizedParams = {}
+    for k, v in qe.items():
+        if k == "__stem__":
+            out[k] = {n: {"kernel": _f32(f["kernel"]).permute(3, 2, 0, 1)
+                          .contiguous().to(torch.bfloat16),
+                          "bias": _f32(f["bias"]).to(torch.bfloat16)}
+                      for n, f in v.items()}
+        elif k == "__entry__":
+            out[k] = {mod: layer(f) for mod, f in v.items()}
+        elif k.startswith("__"):
+            out[k] = _f32(v)
+        else:
+            out[k] = layer(v)
+    return out
+
+
+def tree_to(tree, device) -> Any:
+    """Move every tensor of a (nested dict) tree to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Runtime faces (torch tensors)
+# ---------------------------------------------------------------------------
+
+
+class _E2EOps(_EntryDefault):
+    """int8 NHWC activations end to end, through kernels K1-K3."""
+
+    def __init__(self, qe: QuantizedParams):
+        self.qe = qe
+
+    def conv(self, xq, name, stride=1, pad=0):
+        layer = self.qe[name]
+        return int8_conv(xq, layer["wq"], layer["m"], layer["bq"],
+                         stride=stride, pad=pad)
+
+    def entry(self, xq, module, names):
+        # branch-entry fusion: one conv over the concatenated 1x1 weights,
+        # bit-identical to the separate convs (shared input scales, exact
+        # s32 sums, per-output-channel epilogue); the split heads are
+        # channel slices that K1 reads in place
+        fz = self.qe.get("__entry__")
+        if fz is None or module not in fz:
+            return super().entry(xq, module, names)
+        f = fz[module]
+        y = int8_conv(xq, f["wq"], f["m"], f["bq"])
+        return torch.split(y, [int(self.qe[n]["wq"].shape[0])
+                               for n in names], dim=-1)
+
+    def max_pool(self, x, kernel, stride, ceil=False, pad=0):
+        return int8_max_pool(x, kernel, stride,
+                             pool_pads(x.shape[1], x.shape[2], kernel, stride,
+                                       ceil, pad))
+
+    def avg_pool(self, x, kernel, stride, pad):
+        return int8_avg_pool(x, kernel, stride, pad)
+
+    def concat(self, parts):
+        return torch.cat(parts, dim=-1)
+
+
+class _StemBf16Ops:
+    """bf16 folded-weight stem on NCHW-logical tensors (cuDNN on the card).
+
+    ``stem`` maps each stem conv to ``{"kernel": OIHW, "bias": (O,)}``
+    (any float dtype; rounded to bf16 here). ``output_maxes``, when given,
+    records each conv's post-ReLU max.
+    """
+
+    def __init__(self, stem: dict, output_maxes: Dict[str, Any] = None):
+        self.stem = stem
+        self.output_maxes = output_maxes
+
+    def conv(self, h, name, stride=1, pad=0):
+        f = self.stem[name]
+        y = F.conv2d(h, f["kernel"].to(torch.bfloat16), stride=stride,
+                     padding=pad)
+        out = torch.clamp_min(
+            y + f["bias"].to(torch.bfloat16).view(1, -1, 1, 1), 0)
+        if self.output_maxes is not None:
+            self.output_maxes[name] = out.amax().float()
+        return out
+
+    def max_pool(self, x, kernel, stride, ceil=False, pad=0):
+        return max_pool(x, kernel, stride, ceil=ceil, pad=pad)
+
+
+def _stem_bf16(stem: dict, x: torch.Tensor,
+               output_maxes: Dict[str, Any] = None) -> torch.Tensor:
+    """NHWC float frames -> the bf16 stem output, NCHW-logical."""
+    h = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    if h.is_cuda:
+        h = h.contiguous(memory_format=torch.channels_last)
+    return _walk_stem(_StemBf16Ops(stem, output_maxes), h)
+
+
+def _e2e_stem_quantized(qe: QuantizedParams, x: torch.Tensor) -> torch.Tensor:
+    """Normalized NHWC frames -> int8 NHWC trunk input, at any spatial size:
+    the bf16 folded stem, quantized once at its output."""
+    h = _stem_bf16(qe["__stem__"], x)
+    hq = torch.clamp(torch.round(h.float() / qe["__stem_scale__"]), 0, 127)
+    return hq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+
+
+def _e2e_trunk(qe: QuantizedParams, h: torch.Tensor) -> torch.Tensor:
+    """int8 trunk input (N, h, w, 192) -> (N, 1024) f32 features."""
+    h = _walk_trunk(_E2EOps(qe), h)
+    return h.float().mean(dim=(1, 2)) * qe["__feat_scale__"]
+
+
+def bninception_int8_e2e_features(qe: QuantizedParams,
+                                  x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) normalized frames -> (N, 1024) features, int8 end to end
+    from the stem output to the final concat; one dequantization after the
+    global average pool."""
+    return _e2e_trunk(qe, _e2e_stem_quantized(qe, x))
+
+
+def bninception_int8_e2e_features_sharedstem(
+        qe: QuantizedParams, xn: torch.Tensor, flip_src: torch.Tensor,
+        crop_size: int) -> torch.Tensor:
+    """Shared-stem 10-crop features: the stem runs once per FRAME (+ once per
+    flipped frame) and the 10 crop windows are sliced from the stride-8
+    trunk-input grid (see ``quantize.sharedstem_crop_windows``).
+
+    Returns (10*N, 1024) f32 features, crop-major in exactly
+    ``device_oversample_normed``'s crop order.
+    """
+    from .quantize import sharedstem_crop_windows
+
+    h = sharedstem_crop_windows(lambda x: _e2e_stem_quantized(qe, x),
+                                stem_feature_hw, xn, flip_src, crop_size)
+    return _e2e_trunk(qe, h)
+
+
+# ---------------------------------------------------------------------------
+# Calibration
+# ---------------------------------------------------------------------------
+
+
+class _PerLayerOps(_EntryDefault):
+    """bf16 NHWC activations, per-layer int8 convs with dynamic scales.
+
+    The calibration face: each conv quantizes its input with a per-tensor
+    scale ``max|x|/127`` and runs K1 with the bf16 epilogue
+    ``bf16(max(y*(sx*sw) + b, 0))``; ``output_maxes`` records each conv's
+    post-ReLU max.
+    """
+
+    def __init__(self, q: QuantizedParams,
+                 output_maxes: Dict[str, Any] = None):
+        self.q = q
+        self.output_maxes = output_maxes
+
+    def conv(self, x, name, stride=1, pad=0):
+        layer = self.q[name]
+        sx = torch.clamp_min(x.abs().amax().float() / 127.0, 1e-8)
+        xq = torch.clamp(torch.round(x.float() / sx), -127, 127) \
+            .to(torch.int8)
+        out = int8_conv(xq, layer["wq"], sx * layer["sw"], layer["bias"],
+                        stride=stride, pad=pad, out_dtype=torch.bfloat16)
+        if self.output_maxes is not None:
+            # post-ReLU, so max == |max|
+            self.output_maxes[name] = out.amax().float()
+        return out
+
+    def max_pool(self, x, kernel, stride, ceil=False, pad=0):
+        return max_pool(x.permute(0, 3, 1, 2), kernel, stride, ceil=ceil,
+                        pad=pad).permute(0, 2, 3, 1)
+
+    def avg_pool(self, x, kernel, stride, pad):
+        return _avg_pool_bf16(x, kernel, stride, pad)
+
+    def concat(self, parts):
+        return torch.cat(parts, dim=-1)
+
+
+def _avg_pool_bf16(x: torch.Tensor, kernel: int, stride: int,
+                   pad: int) -> torch.Tensor:
+    """Count-include-pad average pool of a bf16 NHWC tensor with the JAX
+    package's rounding: the window sum accumulates IN bf16, cell by cell in
+    row-major window order (what ``reduce_window(add)`` on bf16 computes),
+    then one bf16 division by the window size."""
+    N, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    Ho = (H + 2 * pad - kernel) // stride + 1
+    Wo = (W + 2 * pad - kernel) // stride + 1
+    acc = torch.zeros((N, Ho, Wo, C), dtype=x.dtype, device=x.device)
+    for ky in range(kernel):
+        for kx in range(kernel):
+            acc = acc + xp[:, ky:ky + stride * (Ho - 1) + 1:stride,
+                           kx:kx + stride * (Wo - 1) + 1:stride, :]
+    return acc / float(kernel * kernel)
+
+
+def _e2e_output_maxes(q: QuantizedParams, x: torch.Tensor,
+                      stem: dict) -> Dict[str, float]:
+    """Calibration pass: each conv's post-ReLU OUTPUT max (+ the input max).
+
+    The stem runs in bf16 on its folded weights, as the hybrid runtime does,
+    so conv2_3x3's max is measured on the tensor the runtime quantizes; the
+    trunk runs the per-layer dynamic-scale int8 forward. One host transfer
+    at the end.
+    """
+    maxes: Dict[str, Any] = {"input": x.abs().amax().float()}
+    h = _stem_bf16(stem, x, output_maxes=maxes)
+    h = h.permute(0, 2, 3, 1).contiguous()
+    _walk_trunk(_PerLayerOps(q, output_maxes=maxes), h)
+    names = list(maxes)
+    values = torch.stack([maxes[n] for n in names]).cpu().tolist()
+    return dict(zip(names, values))
+
+
+def calibrate_e2e(state_dict: Mapping[str, Any],
+                  sample_frames: torch.Tensor) -> QuantizedParams:
+    """Calibrate + build the e2e-quantized backbone in one step.
+
+    ``sample_frames``: representative NORMALIZED NHWC frames on the device
+    the calibration pass should run on (multi-video spread: an activation
+    exceeding its calibrated max saturates at 127). Returns the runtime tree
+    on the CPU.
+    """
+    folded = fold_bn(state_dict)      # folded once, shared below
+    dev = sample_frames.device
+    q0 = tree_to(quantize_backbone(state_dict, folded=folded), dev)
+    stem = {k: {"kernel": _f32(folded[k]["kernel"]).permute(3, 2, 0, 1)
+                .contiguous().to(dev),
+                "bias": _f32(folded[k]["bias"]).to(dev)}
+            for k in STEM_CONVS}
+    with torch.no_grad():
+        maxes = _e2e_output_maxes(q0, sample_frames, stem)
+    return quantize_backbone_e2e(state_dict, maxes, folded=folded)

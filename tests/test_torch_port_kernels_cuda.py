@@ -1,0 +1,125 @@
+"""The port's CUDA kernels K1-K3 and A1 against their plain torch versions.
+
+These need a card (a CUDA kernel has no CPU mode): each case carries the
+``cuda`` marker and skips where torch sees no CUDA device. The file imports
+torch and the port only, so it runs on a machine without jax:
+
+    python -m pytest tests/test_torch_port_kernels_cuda.py -m cuda
+"""
+
+import pytest
+import torch
+
+from action_detection_torch.kernels import int8 as k
+from action_detection_torch.kernels import pool_bwd as a1
+from action_detection_torch.models.backbones.bn_inception import pool_pads
+
+CONV_CASES = [  # (N, H, W, C, O, k, stride, pad)
+    (2, 9, 9, 32, 24, 1, 1, 0),
+    (2, 9, 9, 16, 40, 3, 1, 1),
+    (2, 10, 11, 8, 12, 3, 2, 1),
+    (1, 7, 7, 64, 20, 3, 2, 1),
+    (3, 28, 28, 192, 192, 1, 1, 0),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1-K3 and A1 are CUDA kernels "
+                    "with no CPU mode (chip_smoke.py checks them on the card)")
+    return torch.device("cuda")
+
+
+def _conv_inputs(case):
+    N, H, W, C, O, kk, stride, pad = case
+    g = torch.Generator().manual_seed(sum(case))
+    x = torch.randint(0, 128, (N, H, W, C), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (O, kk, kk, C), generator=g,
+                      dtype=torch.int8)
+    m = torch.rand(O, generator=g) * 4.0 / (kk * kk * C * 64)
+    b = torch.randn(O, generator=g) * 20
+    return x, w, m, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+def test_cuda_conv_matches_plain(cuda_device, case, out_dtype):
+    x, w, m, b = _conv_inputs(case)
+    stride, pad = case[6], case[7]
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad, out_dtype)
+    before = k.int8_conv.launches
+    got = k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)), stride,
+                      pad, out_dtype)
+    torch.cuda.synchronize()
+    assert k.int8_conv.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_reads_channel_slice(cuda_device):
+    x, w, m, b = _conv_inputs((2, 9, 9, 32, 24, 3, 1, 1))
+    xs = x.to(cuda_device)[..., 8:16]
+    got = k.int8_conv(xs, w[..., :8].contiguous().to(cuda_device),
+                      m.to(cuda_device), b.to(cuda_device), 1, 1)
+    ref = k.int8_conv_plain(x[..., 8:16], w[..., :8], m, b, 1, 1)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(kernel=3, stride=2, ceil=True),
+                                dict(kernel=3, stride=1, pad=1)])
+def test_cuda_max_pool_matches_plain(cuda_device, kw):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(-128, 128, (2, 9, 11, 24), generator=g,
+                      dtype=torch.int8)
+    args = (kw["kernel"], kw["stride"], pool_pads(9, 11, **kw))
+    before = k.int8_max_pool.launches
+    got = k.int8_max_pool(x.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert k.int8_max_pool.launches == before + 1
+    assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, *args))
+
+
+@pytest.mark.cuda
+def test_cuda_avg_pool_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randint(-128, 128, (2, 10, 13, 24), generator=g,
+                      dtype=torch.int8)
+    before = k.int8_avg_pool.launches
+    got = k.int8_avg_pool(x.to(cuda_device), 3, 1, 1)
+    torch.cuda.synchronize()
+    assert k.int8_avg_pool.launches == before + 1
+    assert torch.equal(got.cpu(), k.int8_avg_pool_plain(x, 3, 1, 1))
+
+
+A1_CASES = [  # kernel, stride, padding, H, W
+    ((3, 3), (2, 2), ((0, 1), (0, 1)), 15, 15),
+    ((3, 3), (2, 2), ((0, 2), (0, 1)), 11, 17),
+    ((3, 3), (1, 1), ((1, 1), (1, 1)), 9, 9),
+    ((2, 2), (3, 3), ((0, 0), (0, 0)), 13, 13),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [40, 6])   # 4-channel and scalar path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", A1_CASES)
+def test_cuda_max_pool_bwd_matches_plain(cuda_device, case, dtype, channels):
+    """First-match routing on tied inputs, float32 sums rounded once."""
+    from action_detection_torch.ops.pooling import _reduce_max
+
+    kernel, stride, pad, H, W = case
+    g = torch.Generator().manual_seed(H * W)
+    x = (torch.randint(0, 8, (3, H, W, channels), generator=g) / 4.0
+         ).to(dtype)
+    y = _reduce_max(x, kernel, stride, pad).contiguous()
+    dy = torch.randn(y.shape, generator=g).to(dtype)
+    ref = a1.max_pool_bwd_plain(x, dy, kernel, stride, pad)
+    before = a1.max_pool_bwd.launches
+    got = a1.max_pool_bwd(x.to(cuda_device), y.to(cuda_device),
+                          dy.to(cuda_device), kernel, stride, pad)
+    torch.cuda.synchronize()
+    assert a1.max_pool_bwd.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), ref)
