@@ -1,245 +1,388 @@
 // A1: the max-pool backward, NHWC, float32 or bfloat16.
 //
-// Replaces: action_detection_tpu/ops/pool_bwd_pallas.py,
-//   max_pool_bwd_pallas (the Pallas kernel _pool_bwd_kernel), which the JAX
-//   package reaches through ops/pooling.py:max_pool_2d for strided float
-//   pools. Semantics are XLA SelectAndScatter's: dy of each window routes to
-//   the FIRST position of the window (row-major) whose value equals the
-//   window max; padding never matches. Contributions that land on one input
-//   position are summed in float32 and rounded once to the storage dtype.
+// Replaces: action_detection_tpu/ops/pool_bwd_pallas.py:max_pool_bwd_pallas
+//   (the Pallas kernel _pool_bwd_kernel), which the JAX package reaches
+//   through ops/pooling.py:max_pool_2d for strided float pools. Semantics
+//   are XLA SelectAndScatter's: dy of each window routes to the window's
+//   FIRST cell, row-major, whose value equals the window max y. A padding
+//   cell never matches: it is excluded by index, never by value. Each input
+//   cell sums its contributions in float32 from 0.0f, in ascending (oy, ox)
+//   order of the windows that cover it, and rounds once to the storage
+//   dtype. No atomics: two runs give the same bits.
 //
-// What bounds it on the card: dx is written once and x, y and dy are read
-// from L1/L2 several times (a 3x3 stride-2 window covers an input position
-// from at most 2x2 windows, each of which rescans its 9 cells to find its
-// first match), so it is memory- and latency-bound. The Pallas kernel needs
-// a residue-class (space-to-depth) layout because Mosaic has no strided
-// vector access; on the GPU a plain gather does: one thread per INPUT
-// element (consecutive threads on consecutive channels, so a warp's loads
-// and stores are contiguous runs) visits the windows that cover it, in a
-// fixed order, and keeps a float32 sum. No atomics, so the result is
-// deterministic, and no scratch buffer. A thread skips a window at once
-// when its own value differs from the window max, so the rescan runs only
-// for the (rare) positions that hold a max. The index math is what costs:
-// 64-bit division is a long instruction sequence and made the first
-// version of this kernel slower than torch's own backward. So the element
-// index is split into (n, h, w, c) with 32-bit div/mod whenever the
-// tensors allow it, and when C % 4 == 0 (every BNInception pool) a thread
-// takes 4 channels with one 16-byte (float) or 8-byte (bf16) access per
-// tensor, which divides the index work and the memory transactions by 4.
-// Each channel still sums its windows in the same order, so both paths
-// give the same bits.
+// What bounds it on this card: bytes. A backward has to read x, y and dy
+// and write dx, |x| + |y| + |dy| + |dx|: 9.25 GB at the training step's
+// stem pool 1, (1152,112,112,64) float32, or 2.76 ms at 3.35 TB/s, against a
+// few compares and adds per element. So every byte should cross HBM once,
+// and the rest happens in shared memory:
+// - A block owns a tile of input cells of one image (tile_h rows x tile_w
+//   columns x a slab of channels) and every window that covers them,
+//   including a halo of windows on the low side. blockIdx is (tile, slab,
+//   image), the tile fastest, so the halo that a neighbouring block reads
+//   too comes from L2. Images go in gridDim.z, up to 65,535 per launch.
+// - Stage: x of the tile's windows, and y and dy of the windows, go into
+//   shared memory with 16-byte cp.async copies (4 float or 8 bfloat16
+//   channels each). Only cells inside the image are copied.
+// - Phase 1: a thread takes (window, channel vector), scans the window's
+//   cells in shared memory and writes each channel's first-match offset
+//   ky*kw + kx (255: none) as one byte into shared memory. A window's first
+//   match is computed once, not once per input that holds the max.
+// - Phase 2: a thread takes (owned cell, channel vector), walks the windows
+//   that cover the cell in (oy, ox) order (row and column tables made once
+//   per block), adds dy wherever the window's offset is the cell's own, and
+//   stores dx with one 16-byte store. x is not read again.
+// The tile arithmetic is kernels/pool_bwd.py:pool_bwd_plan, which passes its
+// integers here (struct Plan). Divisions happen once per block; a thread
+// walks its cells and windows by adding and subtracting, never by splitting
+// a flat index with div/mod. Channel counts that are not a multiple of the
+// vector, or tensors that are not 16-byte aligned, run the same kernel with
+// one channel per access and plain loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-
-struct BwdShape {
+// kernels/pool_bwd.py:PLAN_FIELDS, in the same order
+struct Plan {
   int N, H, W, C, Ho, Wo, kh, kw, sh, sw, pad_top, pad_left;
+  int is_bf16, vec;            // vec: channels per access (16 bytes, or 1)
+  int slab, slabs;             // channels per block, slabs per image
+  int tile_h, tile_w;          // owned input rows / columns per tile
+  int tiles_h, tiles_w;
+  int win_h, win_w;            // most windows a tile resolves, per axis
+  int xs_h, xs_w;              // most x rows / columns a tile stages
+  int block_x, block_y;        // threads: channel vectors x cell lanes
+  int smem, y_off, dy_off, fm_off, cov_off;   // bytes
 };
+
+constexpr int kThreads = 256;
+constexpr int kNoMatch = 255;
+constexpr int kMaxImagesPerLaunch = 65535;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-// 4 consecutive channels in one access
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  uint2 r;
-  *reinterpret_cast<__nv_bfloat162*>(&r.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&r.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = r;
-}
-
-// Is (h, w) the first cell of window (iy0, ix0), row-major, whose value
-// equals the window max m? xc points at this channel of image n. The scan
-// stops at (h, w) at the latest, since x[h, w] == m there.
-template <typename T, typename I>
-__device__ __forceinline__ bool first_match(const T* xc, float m, int h,
-                                            int w, int iy0, int ix0,
-                                            const BwdShape& s) {
-  for (int ky = 0; ky < s.kh; ++ky) {
-    const int iy = iy0 + ky;
-    if (iy < 0 || iy >= s.H) continue;
-    for (int kx = 0; kx < s.kw; ++kx) {
-      const int ix = ix0 + kx;
-      if (ix < 0 || ix >= s.W) continue;
-      if (iy == h && ix == w) return true;
-      if (to_f32(xc[((I)iy * (I)s.W + ix) * (I)s.C]) == m) return false;
-    }
-  }
-  return false;
-}
-
-// The output windows (oy0..oy1, ox0..ox1) that cover input (h, w):
-// oy*sh - pad_top <= h <= oy*sh - pad_top + kh - 1.
-struct Cover {
-  int oy0, oy1, ox0, ox1;
-};
-__device__ __forceinline__ Cover covering(int h, int w, const BwdShape& s) {
-  const int hp = h + s.pad_top, wp = w + s.pad_left;
-  return {hp >= s.kh ? (hp - s.kh) / s.sh + 1 : 0, min(hp / s.sh, s.Ho - 1),
-          wp >= s.kw ? (wp - s.kw) / s.sw + 1 : 0, min(wp / s.sw, s.Wo - 1)};
-}
-
-// One thread per input element. I: 32-bit when the tensors have fewer
-// than 2^31 elements, else 64-bit.
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
-max_pool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                    const T* __restrict__ dy, T* __restrict__ dx, BwdShape s,
-                    I total) {
-  const I C = s.C, W = s.W, H = s.H;
-  for (I idx = (I)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (I)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % C);
-    I t = idx / C;
-    const int w = (int)(t % W);
-    t /= W;
-    const int h = (int)(t % H);
-    const I n = t / H;
-    const float xv = to_f32(x[idx]);
-    const Cover cv = covering(h, w, s);
-    const T* xc = x + n * H * W * C + c;
-    float acc = 0.0f;
-    for (int oy = cv.oy0; oy <= cv.oy1; ++oy) {
-      for (int ox = cv.ox0; ox <= cv.ox1; ++ox) {
-        const I o = ((n * (I)s.Ho + oy) * (I)s.Wo + ox) * C + c;
-        const float m = to_f32(y[o]);
-        if (xv == m && first_match<T, I>(xc, m, h, w, oy * s.sh - s.pad_top,
-                                         ox * s.sw - s.pad_left, s)) {
-          acc += to_f32(dy[o]);
-        }
-      }
-    }
-    dx[idx] = from_f32<T>(acc);
-  }
-}
-
-// One thread per 4 channels of one input pixel (C % 4 == 0, aligned).
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
-max_pool_bwd_vec4_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                         const T* __restrict__ dy, T* __restrict__ dx,
-                         BwdShape s, I total4) {
-  const I C = s.C, C4 = s.C / 4, W = s.W, H = s.H;
-  for (I q = (I)blockIdx.x * blockDim.x + threadIdx.x; q < total4;
-       q += (I)gridDim.x * blockDim.x) {
-    const int c = (int)(q % C4) * 4;
-    I t = q / C4;
-    const int w = (int)(t % W);
-    t /= W;
-    const int h = (int)(t % H);
-    const I n = t / H;
-    float xv[4];
-    load4(x + q * 4, xv);
-    const Cover cv = covering(h, w, s);
-    const T* xc = x + n * H * W * C + c;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int oy = cv.oy0; oy <= cv.oy1; ++oy) {
-      for (int ox = cv.ox0; ox <= cv.ox1; ++ox) {
-        const I o = ((n * (I)s.Ho + oy) * (I)s.Wo + ox) * C + c;
-        float m[4];
-        load4(y + o, m);
-        if (xv[0] != m[0] && xv[1] != m[1] && xv[2] != m[2] &&
-            xv[3] != m[3]) {
-          continue;
-        }
-        float d[4];
-        load4(dy + o, d);
+// VEC channels of one cell as float32: one 16-byte access, or VEC == 1.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_f32(const T* p, float (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (xv[j] == m[j] &&
-              first_match<T, I>(xc + j, m[j], h, w, oy * s.sh - s.pad_top,
-                                ox * s.sw - s.pad_left, s)) {
-            acc[j] += d[j];
-          }
-        }
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(T) == 4) {
+        v[j] = __uint_as_float(w[j]);
+      } else {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+        v[2 * j] = f.x;
+        v[2 * j + 1] = f.y;
       }
     }
-    store4(dx + q * 4, acc);
-  }
-}
-
-unsigned grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 32;  // grid-stride beyond a few waves
-  return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
-template <typename T>
-void launch(const void* x, const void* y, const void* dy, void* dx,
-            const BwdShape& s, cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* yp = static_cast<const T*>(y);
-  const T* dyp = static_cast<const T*>(dy);
-  T* dxp = static_cast<T*>(dx);
-  const long long total = (long long)s.N * s.H * s.W * s.C;
-  const long long out_total = (long long)s.N * s.Ho * s.Wo * s.C;
-  const bool narrow = total < (1LL << 31) && out_total < (1LL << 31);
-  const uintptr_t bytes = 4 * sizeof(T);
-  const bool vec = s.C % 4 == 0 &&
-      ((uintptr_t)x | (uintptr_t)y | (uintptr_t)dy | (uintptr_t)dx) % bytes
-          == 0;
-  if (vec && narrow) {
-    max_pool_bwd_vec4_kernel<T, unsigned>
-        <<<grid_for(total / 4), kThreads, 0, st>>>(xp, yp, dyp, dxp, s,
-                                                   (unsigned)(total / 4));
-  } else if (vec) {
-    max_pool_bwd_vec4_kernel<T, long long>
-        <<<grid_for(total / 4), kThreads, 0, st>>>(xp, yp, dyp, dxp, s,
-                                                   total / 4);
-  } else if (narrow) {
-    max_pool_bwd_kernel<T, unsigned><<<grid_for(total), kThreads, 0, st>>>(
-        xp, yp, dyp, dxp, s, (unsigned)total);
   } else {
-    max_pool_bwd_kernel<T, long long><<<grid_for(total), kThreads, 0, st>>>(
-        xp, yp, dyp, dxp, s, total);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = to_f32(p[j]);
   }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_f32(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(T) == 4) {
+        w[j] = __float_as_uint(v[j]);
+      } else {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        w[j] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) from_f32(p + j, v[j]);
+  }
+}
+
+// Global -> shared: a 16-byte cp.async, or plain copies for VEC == 1.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage(T* s, const T* g) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(s));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                 "l"(__cvta_generic_to_global(g))
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) s[j] = g[j];
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// VEC first-match offsets, one byte each
+template <int VEC>
+__device__ __forceinline__ void store_offsets(unsigned char* p,
+                                              const int (&o)[VEC]) {
+  if constexpr (VEC == 1) {
+    p[0] = static_cast<unsigned char>(o[0]);
+  } else {
+    uint32_t w[VEC / 4];
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) {
+      w[i] = o[4 * i] | (o[4 * i + 1] << 8) | (o[4 * i + 2] << 16) |
+             (o[4 * i + 3] << 24);
+    }
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    }
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_offsets(const unsigned char* p,
+                                             int (&o)[VEC]) {
+  if constexpr (VEC == 1) {
+    o[0] = p[0];
+  } else {
+    uint32_t w[VEC / 4];
+    if constexpr (VEC == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      const uint2 r = *reinterpret_cast<const uint2*>(p);
+      w[0] = r.x;
+      w[1] = r.y;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) o[j] = (w[j >> 2] >> ((j & 3) * 8)) & 0xff;
+  }
+}
+
+// A flat index start, start + step, ... over a row-major range with nb
+// columns, walked as (a, b) by subtraction. nb <= 0: an empty walk.
+struct Walk {
+  int a, b;
+  __device__ Walk(int start, int nb) : a(0), b(start) {
+    if (nb <= 0) {
+      a = INT_MAX;
+    } else {
+      wrap(nb);
+    }
+  }
+  __device__ void next(int step, int nb) {
+    b += step;
+    wrap(nb);
+  }
+  __device__ void wrap(int nb) {
+    while (b >= nb) {
+      b -= nb;
+      ++a;
+    }
+  }
+};
+
+// The first window that covers input index lo: max(0, ceil((lo+pad-k+1)/s))
+__device__ __forceinline__ int first_window(int lo, int pad, int k, int s) {
+  const int num = lo + pad - k + 1;
+  return num <= 0 ? 0 : (num + s - 1) / s;
+}
+
+// (first, last) of the tile's nw windows (window w starts at shared index
+// w*s) that cover shared index l; first > last when none does.
+__device__ __forceinline__ int2 cover(int l, int nw, int s, int k) {
+  int first = nw, last = -1;
+  for (int w = 0; w < nw; ++w) {
+    const int d = l - w * s;
+    if (d >= 0 && d < k) {
+      first = min(first, w);
+      last = w;
+    }
+  }
+  return make_int2(first, last);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+max_pool_bwd_tiled(const T* __restrict__ x, const T* __restrict__ y,
+                   const T* __restrict__ dy, T* __restrict__ dx, const Plan p,
+                   int n0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ys = reinterpret_cast<T*>(smem + p.y_off);
+  T* dys = reinterpret_cast<T*>(smem + p.dy_off);
+  unsigned char* fms = smem + p.fm_off;
+  int2* row_cover = reinterpret_cast<int2*>(smem + p.cov_off);
+  int2* col_cover = row_cover + p.tile_h;
+
+  // The block: its owned cells [r0, r1) x [c0, c1), its windows
+  // [oy0, oy0 + nwy) x [ox0, ox0 + nwx), whose first cell sits at shared
+  // (0, 0) = image (xr, xc), and its channels [ch0, ch0 + nv * VEC).
+  const int ty = blockIdx.x / p.tiles_w, tx = blockIdx.x - ty * p.tiles_w;
+  const int r0 = ty * p.tile_h, r1 = min(r0 + p.tile_h, p.H);
+  const int c0 = tx * p.tile_w, c1 = min(c0 + p.tile_w, p.W);
+  const int oy0 = first_window(r0, p.pad_top, p.kh, p.sh);
+  const int ox0 = first_window(c0, p.pad_left, p.kw, p.sw);
+  const int nwy =
+      max(min(p.Ho - 1, (r1 - 1 + p.pad_top) / p.sh) - oy0 + 1, 0);
+  const int nwx =
+      max(min(p.Wo - 1, (c1 - 1 + p.pad_left) / p.sw) - ox0 + 1, 0);
+  const int xr = oy0 * p.sh - p.pad_top, xc = ox0 * p.sw - p.pad_left;
+  const int ch0 = blockIdx.y * p.slab;
+  const int nv = min(p.slab, p.C - ch0) / VEC;
+  const long long img = static_cast<long long>(n0) + blockIdx.z;
+  const T* xn = x + img * p.H * p.W * p.C + ch0;
+  const T* yn = y + img * p.Ho * p.Wo * p.C + ch0;
+  const T* dyn = dy + img * p.Ho * p.Wo * p.C + ch0;
+  T* dxn = dx + img * p.H * p.W * p.C + ch0;
+
+  const int v = threadIdx.x, lane = threadIdx.y, lanes = blockDim.y;
+  const int cv = v * VEC;   // this thread's channels within the slab
+
+  // Stage x of every in-image cell of the windows, and y, dy of the windows
+  if (v < nv && nwy > 0) {
+    const int sy0 = max(xr, 0), sy1 = min(xr + (nwy - 1) * p.sh + p.kh, p.H);
+    const int sx0 = max(xc, 0), sx1 = min(xc + (nwx - 1) * p.sw + p.kw, p.W);
+    for (Walk it(lane, sx1 - sx0); it.a < sy1 - sy0; it.next(lanes, sx1 - sx0)) {
+      const int iy = sy0 + it.a, ix = sx0 + it.b;
+      stage<T, VEC>(xs + ((iy - xr) * p.xs_w + ix - xc) * p.slab + cv,
+                    xn + (iy * p.W + ix) * p.C + cv);
+    }
+    for (Walk it(lane, nwx); it.a < nwy; it.next(lanes, nwx)) {
+      const int g = ((oy0 + it.a) * p.Wo + ox0 + it.b) * p.C + cv;
+      const int s = (it.a * p.win_w + it.b) * p.slab + cv;
+      stage<T, VEC>(ys + s, yn + g);
+      stage<T, VEC>(dys + s, dyn + g);
+    }
+  }
+  // the cover tables need no memory: make them while the copies fly
+  const int tid = lane * blockDim.x + v, nthreads = blockDim.x * lanes;
+  for (int i = tid; i < r1 - r0; i += nthreads) {
+    row_cover[i] = cover(r0 + i - xr, nwy, p.sh, p.kh);
+  }
+  for (int i = tid; i < c1 - c0; i += nthreads) {
+    col_cover[i] = cover(c0 + i - xc, nwx, p.sw, p.kw);
+  }
+  stage_wait();
+  __syncthreads();
+
+  // Phase 1: each window's first-match offset per channel. The scan runs
+  // backwards, so the match written last is the first in row-major order;
+  // cells outside the image are skipped by index.
+  if (v < nv) {
+    for (Walk it(lane, nwx); it.a < nwy; it.next(lanes, nwx)) {
+      const int top = xr + it.a * p.sh, left = xc + it.b * p.sw;
+      const int ky0 = max(0, -top), ky1 = min(p.kh, p.H - top);
+      const int kx0 = max(0, -left), kx1 = min(p.kw, p.W - left);
+      const int w = (it.a * p.win_w + it.b) * p.slab + cv;
+      float m[VEC];
+      load_f32<T, VEC>(ys + w, m);
+      int off[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) off[j] = kNoMatch;
+      for (int ky = ky1 - 1; ky >= ky0; --ky) {
+        const T* row =
+            xs + ((it.a * p.sh + ky) * p.xs_w + it.b * p.sw) * p.slab + cv;
+        for (int kx = kx1 - 1; kx >= kx0; --kx) {
+          float xv[VEC];
+          load_f32<T, VEC>(row + kx * p.slab, xv);
+          const int o = ky * p.kw + kx;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) off[j] = xv[j] == m[j] ? o : off[j];
+        }
+      }
+      store_offsets<VEC>(fms + w, off);
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: each owned cell gathers dy from the windows whose first match
+  // it is, in (oy, ox) order, in float32 from 0.0f.
+  if (v < nv) {
+    for (Walk it(lane, c1 - c0); it.a < r1 - r0; it.next(lanes, c1 - c0)) {
+      const int2 rc = row_cover[it.a], cc = col_cover[it.b];
+      const int ly = r0 + it.a - xr, lx = c0 + it.b - xc;
+      float acc[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+      for (int wy = rc.x; wy <= rc.y; ++wy) {
+        const int orow = (ly - wy * p.sh) * p.kw + lx;
+        for (int wx = cc.x; wx <= cc.y; ++wx) {
+          const int o = orow - wx * p.sw;
+          const int w = (wy * p.win_w + wx) * p.slab + cv;
+          int off[VEC];
+          load_offsets<VEC>(fms + w, off);
+          float d[VEC];
+          load_f32<T, VEC>(dys + w, d);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[j] += off[j] == o ? d[j] : 0.0f;
+        }
+      }
+      store_f32<T, VEC>(dxn + ((r0 + it.a) * p.W + c0 + it.b) * p.C + cv,
+                        acc);
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch(const void* x, const void* y, const void* dy, void* dx,
+           const Plan& p, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      max_pool_bwd_tiled<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 block(p.block_x, p.block_y);
+  for (int n0 = 0; n0 < p.N; n0 += kMaxImagesPerLaunch) {
+    const int images = p.N - n0 < kMaxImagesPerLaunch ? p.N - n0
+                                                      : kMaxImagesPerLaunch;
+    const dim3 grid(p.tiles_h * p.tiles_w, p.slabs, images);
+    max_pool_bwd_tiled<T, VEC><<<grid, block, p.smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<const T*>(dy), static_cast<T*>(dx), p, n0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 }  // namespace
 
-// x, dx: (N, H, W, C); y, dy: (N, Ho, Wo, C); all contiguous, one dtype
-// (bf16 when is_bf16, else float32). Window (oy, ox) starts at
-// (oy * sh - pad_top, ox * sw - pad_left). Return the launch's cudaError_t.
+// x, dx: (N, H, W, C); y, dy: (N, Ho, Wo, C); all contiguous, one dtype.
+// plan: the nplan integers of kernels/pool_bwd.py:pool_bwd_plan. Returns
+// the launch's cudaError_t.
 extern "C" int adt_max_pool_bwd(const void* x, const void* y, const void* dy,
-                                void* dx, int N, int H, int W, int C, int Ho,
-                                int Wo, int kh, int kw, int sh, int sw,
-                                int pad_top, int pad_left, int is_bf16,
+                                void* dx, const int* plan, int nplan,
                                 void* stream) {
-  BwdShape s{N, H, W, C, Ho, Wo, kh, kw, sh, sw, pad_top, pad_left};
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch<__nv_bfloat16>(x, y, dy, dx, s, st);
-  } else {
-    launch<float>(x, y, dy, dx, s, st);
+  Plan p;
+  if (nplan != static_cast<int>(sizeof(Plan) / sizeof(int))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return (int)cudaGetLastError();
+  memcpy(&p, plan, sizeof p);
+  if (p.block_x * p.block_y > kThreads) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (p.is_bf16) {
+    if (p.vec == 8) return launch<__nv_bfloat16, 8>(x, y, dy, dx, p, st);
+    if (p.vec == 1) return launch<__nv_bfloat16, 1>(x, y, dy, dx, p, st);
+  } else {
+    if (p.vec == 4) return launch<float, 4>(x, y, dy, dx, p, st);
+    if (p.vec == 1) return launch<float, 1>(x, y, dy, dx, p, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,9 +33,8 @@ SIGNATURES = {
     # x, out, N, H, W, C, Ho, Wo, k, stride, pad_lo, stream
     "adt_int8_max_pool": [_P] * 2 + [_I] * 9 + [_P],
     "adt_int8_avg_pool": [_P] * 2 + [_I] * 9 + [_P],
-    # x, y, dy, dx, N, H, W, C, Ho, Wo, kh, kw, sh, sw, pad_top, pad_left,
-    # is_bf16, stream
-    "adt_max_pool_bwd": [_P] * 4 + [_I] * 13 + [_P],
+    # x, y, dy, dx, plan (kernels/pool_bwd.py:PLAN_FIELDS), len(plan), stream
+    "adt_max_pool_bwd": [_P] * 4 + [ctypes.POINTER(_I), _I, _P],
 }
 
 

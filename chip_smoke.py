@@ -17,7 +17,8 @@ before the final line):
               shapes (640 crops), and A1 (max-pool backward) at every
               BNInception max pool of the training step (1,152 images),
               each held EXACTLY equal to its plain torch version on the same
-              inputs; median ms of both.
+              inputs; median ms of both. A1 also launches twice on the same
+              inputs (equal bits) and prints GB/s of |x|+|y|+|dy|+|dx|.
 4. main     — the port's ``ssn_test`` CLI in-process, at full BNInception
               224^2 width with the int8-e2e shared-stem default, on 2
               synthetic THUMOS14 videos of 1,560 frames with seeded random
@@ -58,6 +59,7 @@ SLICE_N = 640     # 64 ticks x 10 crops: one scoring step
 TRAIN_VIDEOS = 16     # -b 16, the training CLI's default batch
 TRAIN_N = TRAIN_VIDEOS * 8 * 9   # x 8 proposals x 9 segments = 1,152 images
 TRAIN_STEPS = 4
+HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
 TPU_SRC = "action_detection_tpu/models/backbones/bn_inception_int8.py"
 
 
@@ -109,7 +111,7 @@ def check_kernels(card: str) -> list:
     rows = {"int8_conv": [], "int8_max_pool": [], "int8_avg_pool": [],
             "max_pool_bwd": []}
 
-    def record(name, label, got, ref, fn, plain):
+    def record(name, label, got, ref, fn, plain, nbytes=None):
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.equal(got, ref):
@@ -118,8 +120,12 @@ def check_kernels(card: str) -> list:
         ms = _time_ms(fn, reps=10)
         plain_ms = _time_ms(plain, reps=3)
         rows[name].append((label, err, ms, plain_ms))
+        rate = ""
+        if nbytes:   # bytes the op must move, over the card's HBM peak
+            gbs = nbytes / ms / 1e6
+            rate = f", {gbs:.0f} GB/s = {gbs / HBM_GBS:.1%} of 3.35 TB/s"
         print(f"kernel {name}[{label}]: equal, max|d|={err} {ms:.3f} ms "
-              f"(plain {plain_ms:.3f} ms) on {card}", flush=True)
+              f"(plain {plain_ms:.3f} ms){rate} on {card}", flush=True)
 
     # K1: the 3a fused entry conv, a 3a 3x3 reading its slice of the entry
     # output in place, the 3c 3x3 s2, a 4e 3x3 s2, the 5b fused entry conv
@@ -189,12 +195,21 @@ def check_kernels(card: str) -> list:
         geo = ((3, 3), (stride, stride), pads)
         y = _reduce_max(x, *geo).contiguous()
         dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
-        record("max_pool_bwd", label, a1.max_pool_bwd(x, y, dy, *geo),
-               a1.max_pool_bwd_plain(x, dy, *geo),
+        got = a1.max_pool_bwd(x, y, dy, *geo)
+        again = a1.max_pool_bwd(x, y, dy, *geo)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(got.view(bits), again.view(bits)):
+            raise AssertionError(f"max_pool_bwd[{label}]: two launches on "
+                                 "the same inputs differ")
+        del again
+        # |x| + |y| + |dy| + |dx|: every byte across HBM once
+        nbytes = 2 * (x.numel() + y.numel()) * x.element_size()
+        record("max_pool_bwd", label, got, a1.max_pool_bwd_plain(x, dy, *geo),
                lambda x=x, y=y, dy=dy, geo=geo: a1.max_pool_bwd(x, y, dy,
                                                                 *geo),
-               lambda x=x, dy=dy, geo=geo: a1.max_pool_bwd_plain(x, dy, *geo))
-        del x, y, dy
+               lambda x=x, dy=dy, geo=geo: a1.max_pool_bwd_plain(x, dy, *geo),
+               nbytes)
+        del x, y, dy, got
     torch.cuda.empty_cache()
     return rows
 

@@ -123,3 +123,49 @@ def test_cuda_max_pool_bwd_matches_plain(cuda_device, case, dtype, channels):
     torch.cuda.synchronize()
     assert a1.max_pool_bwd.launches == before + 1
     assert got.dtype == dtype and torch.equal(got.cpu(), ref)
+
+
+CEIL_S2 = ((3, 3), (2, 2))
+A1_TILE_CASES = [  # N, H, W, C, kernel, stride, padding
+    (2, 57, 57, 6) + CEIL_S2 + (pool_pads(57, 57, 3, 2, ceil=True),),
+    (2, 57, 57, 40) + CEIL_S2 + (pool_pads(57, 57, 3, 2, ceil=True),),
+    (2, 57, 57, 200) + CEIL_S2 + (pool_pads(57, 57, 3, 2, ceil=True),),
+    (1, 112, 112, 40) + CEIL_S2 + (pool_pads(112, 112, 3, 2, ceil=True),),
+    (2, 20, 19, 40, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    (2, 30, 29, 40, (2, 2), (3, 3), ((0, 0), (0, 0))),
+    # more blocks than one wave of the card (4x4 tiles x 2 slabs x 300)
+    (300, 57, 57, 40) + CEIL_S2 + (pool_pads(57, 57, 3, 2, ceil=True),),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["relu", "all_equal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", A1_TILE_CASES)
+def test_cuda_max_pool_bwd_across_tiles(cuda_device, case, dtype, inputs):
+    """Several tiles per axis with a ragged last one, partial channel slabs
+    and a scalar-channel C, all-tied windows, random non-integer dy (the
+    order of the float32 sums counts): equal to the plain version on the
+    card, and two launches give the same bits."""
+    from action_detection_torch.ops.pooling import _reduce_max
+
+    N, H, W, C, kernel, stride, pad = case
+    g = torch.Generator(device=cuda_device).manual_seed(H * W + C)
+    if inputs == "all_equal":
+        x = torch.full((N, H, W, C), 0.5, device=cuda_device, dtype=dtype)
+    else:
+        x = torch.relu(torch.randn(N, H, W, C, generator=g,
+                                   device=cuda_device)).to(dtype)
+    y = _reduce_max(x, kernel, stride, pad).contiguous()
+    dy = torch.randn(y.shape, generator=g, device=cuda_device).to(dtype)
+    before = a1.max_pool_bwd.launches
+    got = a1.max_pool_bwd(x, y, dy, kernel, stride, pad)
+    again = a1.max_pool_bwd(x, y, dy, kernel, stride, pad)
+    ref = a1.max_pool_bwd_plain(x, dy, kernel, stride, pad)
+    torch.cuda.synchronize()
+    assert a1.max_pool_bwd.launches == before + 2
+    assert torch.equal(got, ref)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
