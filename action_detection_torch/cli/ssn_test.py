@@ -4,7 +4,9 @@ Usage: python -m action_detection_torch.cli.ssn_test <dataset> <modality>
        <weights.pt> <save_scores> [flags]
 
 Same flags and defaults logic as the JAX CLI: int8 end to end with the
-shared stem is the default for BNInception. The device is explicit
+shared stem is the default for BNInception and InceptionV3, for RGB and Flow
+(``new_length`` 5: 10-channel x/y stacks, frames read from
+``<flow_pref>{x,y}_NNNNN.jpg``). The device is explicit
 (``--device``, default ``cuda``); with no card, a CUDA run raises instead of
 continuing on the CPU. What this slice does not cover yet raises a
 ``SystemExit`` naming the slice it comes with.
@@ -41,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8", action="store_true", default=None,
                         help="int8-quantize the backbone, activation scales "
                              "calibrated across test videos. DEFAULT ON for "
-                             "BNInception; --no_int8 opts out")
+                             "BNInception and InceptionV3; --no_int8 opts out")
     parser.add_argument("--no_int8", dest="int8", action="store_false",
                         help="force the float backbone")
     parser.add_argument("--int8_mode", choices=["e2e", "perlayer"],
@@ -88,10 +90,10 @@ def _check_slice(args) -> None:
     """Refuse, by name, what this slice of the port does not cover."""
     from ..models.backbones import PORTED_ARCHS
 
-    if args.modality != "RGB":
-        raise _not_yet(f"modality {args.modality}", "Flow/RGBDiff")
+    if args.modality == "RGBDiff":
+        raise _not_yet("modality RGBDiff", "RGBDiff")
     if args.arch not in PORTED_ARCHS:
-        raise _not_yet(f"backbone {args.arch}", "InceptionV3/ResNet/VGG")
+        raise _not_yet(f"backbone {args.arch}", "ResNet/VGG")
     if args.int8_mode == "perlayer":
         raise _not_yet("--int8_mode perlayer", "remaining-CLI-surface")
     if args.pack:
@@ -167,8 +169,9 @@ def main(argv=None):
     if args.synthetic_data:
         provider = SyntheticFrameProvider(modality=args.modality)
     else:
-        provider = DirectoryFrameProvider(args.data_root, "img_{:05d}.jpg",
-                                          args.modality)
+        tmpl = ("img_{:05d}.jpg" if args.modality == "RGB"
+                else args.flow_pref + "{}_{:05d}.jpg")
+        provider = DirectoryFrameProvider(args.data_root, tmpl, args.modality)
 
     calibration_frames = None
     if use_int8:

@@ -2,7 +2,11 @@
 //
 // Replaces: action_detection_tpu/models/backbones/bn_inception_int8.py,
 //   _conv_i8_e2e (the int8-e2e runtime conv; XLA lowers it on the TPU) and
-//   _conv_int8 (the dynamic-scale calibration conv).
+//   _conv_int8 (the dynamic-scale calibration conv), and
+//   action_detection_tpu/models/backbones/inception_v3_int8.py,
+//   _ForwardOps._conv_layer (the same epilogue on 1x7/7x1/1x3/3x1/5x5
+//   kernels, each axis padded on its own: pad_h rows above and below,
+//   pad_w columns left and right).
 //
 // Epilogues (chosen by out_bf16):
 //   int8 (runtime):    clip(rint(max(y * scale[o] + bias[o], 0)), 0, 127)
@@ -42,7 +46,7 @@ constexpr int kThreads = 256;
 
 struct ConvShape {
   int N, H, W, C, x_pix_stride;
-  int O, KH, KW, stride, pad;
+  int O, KH, KW, stride, pad_h, pad_w;
   int Ho, Wo;
 };
 
@@ -81,8 +85,8 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int oy = (int)(t % s.Ho);
     const long long n = t / s.Ho;
     a_base[i] = n * s.H;
-    a_iy0[i] = oy * s.stride - s.pad;
-    a_ix0[i] = ox * s.stride - s.pad;
+    a_iy0[i] = oy * s.stride - s.pad_h;
+    a_ix0[i] = ox * s.stride - s.pad_w;
   }
 
   const int tx = tid & 15;  // 4 output channels each
@@ -162,14 +166,15 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 // x: (N, H, W, C) int8 NHWC, pixels x_pix_stride elements apart, 4-byte
 // aligned; w: (O, KH, KW, C) int8 contiguous; scale, bias: (O,) f32;
-// out: (N, Ho, Wo, O) int8, or bf16 when out_bf16. Returns the launch's
-// cudaError_t.
+// zero padding pad_h / pad_w on both sides of each axis; out: (N, Ho, Wo, O)
+// int8, or bf16 when out_bf16. Returns the launch's cudaError_t.
 extern "C" int adt_int8_conv(const void* x, const void* w, const float* scale,
                              const float* bias, void* out, int N, int H,
                              int W, int C, int x_pix_stride, int O, int KH,
-                             int KW, int stride, int pad, int Ho, int Wo,
-                             int out_bf16, void* stream) {
-  ConvShape s{N, H, W, C, x_pix_stride, O, KH, KW, stride, pad, Ho, Wo};
+                             int KW, int stride, int pad_h, int pad_w, int Ho,
+                             int Wo, int out_bf16, void* stream) {
+  ConvShape s{N, H, W, C, x_pix_stride, O, KH, KW, stride, pad_h, pad_w,
+              Ho, Wo};
   const long long M = (long long)N * Ho * Wo;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((O + kBN - 1) / kBN));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -5,10 +5,10 @@ scoring chunks; the prefetching loader of the training CLI comes with it).
 Providers return uint8 numpy arrays, not PIL images: the synthetic provider
 makes its pixels with the same ``zlib.crc32`` key and ``RandomState.randint``
 draws as the reference, so at the THUMOS scale size (340x256 frames, scale
-size 256) the pixels are equal to the JAX package's without PIL. Decoding a
-JPEG (:class:`DirectoryFrameProvider`) or resizing a frame
-(:func:`~.transforms.scale_frame`) imports PIL inside the function that
-needs it.
+size 256) the pixels are equal to the JAX package's without PIL; other scale
+sizes resize with :func:`~.transforms.scale_frame`, bit-exact with PIL.
+Decoding a JPEG (:class:`DirectoryFrameProvider`) is the one place that
+imports PIL, inside the function that needs it.
 """
 
 from __future__ import annotations

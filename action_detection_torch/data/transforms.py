@@ -4,7 +4,9 @@ Port of ``action_detection_tpu/data/transforms.py`` without the resizing
 training crops:
 
 * **Host**: :func:`fill_fix_offset` (copied as is), :func:`scale_frame` (the
-  ``GroupScale`` rule on uint8 arrays), :func:`oversample_crops` (the
+  ``GroupScale`` rule on uint8 arrays, resizing through
+  :func:`resize_bilinear`, a numpy twin of PIL's bilinear resize),
+  :func:`oversample_crops` (the
   ``GroupOverSample`` 10-crop on uint8 arrays by slicing and flipping, which
   is bit-identical to PIL's crop + ``FLIP_LEFT_RIGHT``) and the group
   transforms ``GroupScale``, ``GroupCenterCrop``,
@@ -17,6 +19,7 @@ training crops:
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,25 +41,88 @@ def fill_fix_offset(more_fix_crop: bool, image_w: int, image_h: int,
     return ret
 
 
+_PRECISION_BITS = 22     # Pillow's fixed-point coefficient bits for 8-bit data
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    triangle filter: per output index the first input index and the
+    fixed-point weights ``(out, ksize)`` (zero past each window's end)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    xmins = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(1.0 - abs((x + xmin - center + 0.5) * ss), 0.0)
+             for x in range(xmax)]
+        ww = 0.0
+        for v in w:        # Pillow's order of the sum
+            ww += v
+        kk[xx, :xmax] = [v / ww for v in w] if ww != 0.0 else w
+        xmins[xx] = xmin
+    # round half away from zero into 22 fractional bits
+    fixed = np.trunc(kk * (1 << _PRECISION_BITS)
+                     + np.where(kk < 0, -0.5, 0.5)).astype(np.int32)
+    return xmins, fixed
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of Pillow's two-pass convolution resize along
+    ``axis``: integer sums from ``1 << 21``, shifted and clipped to uint8.
+    The triangle filter's weights are non-negative, so every sum fits in
+    int32, as in Pillow's own loop."""
+    in_size = img.shape[axis]
+    xmins, k = _bilinear_coeffs(in_size, out_size)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int32)
+    for j in range(k.shape[1]):
+        idx = np.minimum(xmins + j, in_size - 1)
+        acc += np.take(img, idx, axis=axis) * k[:, j].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``Image.resize((width, height), BILINEAR)`` on a uint8 ``(H, W)``
+    (mode L) or ``(H, W, C)`` (mode RGB) array, bit-exact with Pillow.
+
+    Pillow's structure: convolution with the triangle filter, whose support
+    widens by ``max(1, in/out)``; window ``[int(c - s + 0.5), int(c + s +
+    0.5))`` around ``c = (i + 0.5) * in/out``, clamped to the image; weights
+    normalized to sum 1, then fixed point with 22 fractional bits; the
+    horizontal pass first into a uint8 intermediate, then the vertical pass.
+    An axis whose size does not change is not resampled.
+    """
+    out = img
+    if width != img.shape[1]:
+        out = _resample_axis(out, width, axis=1)
+    if height != img.shape[0]:
+        out = _resample_axis(out, height, axis=0)
+    return out
+
+
 def scale_frame(img: np.ndarray, size: int) -> np.ndarray:
     """``GroupScale(size)`` on one ``(H, W)`` or ``(H, W, 3)`` uint8 frame.
 
     Frames whose smaller edge already equals ``size`` pass through untouched
     (the THUMOS scoring geometry: 340x256 frames at scale size 256). Any
-    other size needs PIL's bilinear resampling for parity with the reference,
-    so PIL is imported here and only here.
+    other size goes through :func:`resize_bilinear`, bit-exact with the
+    reference's PIL bilinear resize (InceptionV3's scale size 341).
     """
     h, w = img.shape[:2]
     if (w <= h and w == size) or (h <= w and h == size):
         return img
-    from PIL import Image
-
     if w < h:
-        new = (size, int(size * h / w))
-    else:
-        new = (int(size * w / h), size)
-    mode = "L" if img.ndim == 2 else "RGB"
-    return np.asarray(Image.fromarray(img, mode).resize(new, Image.BILINEAR))
+        return resize_bilinear(img, size, int(size * h / w))
+    return resize_bilinear(img, int(size * w / h), size)
 
 
 def stack_images(imgs) -> np.ndarray:

@@ -28,11 +28,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     # x, w, scale, bias, out, N, H, W, C, x_pix_stride, O, KH, KW, stride,
-    # pad, Ho, Wo, out_bf16, stream
-    "adt_int8_conv": [_P] * 5 + [_I] * 13 + [_P],
+    # pad_h, pad_w, Ho, Wo, out_bf16, stream
+    "adt_int8_conv": [_P] * 5 + [_I] * 14 + [_P],
     # x, out, N, H, W, C, Ho, Wo, k, stride, pad_lo, stream
     "adt_int8_max_pool": [_P] * 2 + [_I] * 9 + [_P],
-    "adt_int8_avg_pool": [_P] * 2 + [_I] * 9 + [_P],
+    # x, out, N, H, W, C, Ho, Wo, k, stride, pad_lo, exclude_pad, stream
+    "adt_int8_avg_pool": [_P] * 2 + [_I] * 10 + [_P],
     # x, y, dy, dx, plan (kernels/pool_bwd.py:PLAN_FIELDS), len(plan), stream
     "adt_max_pool_bwd": [_P] * 4 + [ctypes.POINTER(_I), _I, _P],
 }

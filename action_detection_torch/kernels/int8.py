@@ -1,13 +1,19 @@
 """The int8 kernels of the scoring path: wrappers, plain versions, counters.
 
 Three hand-written CUDA kernels (``csrc/int8_conv.cu``,
-``csrc/int8_pool.cu``) carry the int8 end-to-end BNInception trunk:
+``csrc/int8_pool.cu``) carry the int8 end-to-end BNInception and
+InceptionV3 trunks:
 
-* K1 :func:`int8_conv` — s8 x s8 -> s32 NHWC conv with the requantizing
-  int8 epilogue (runtime) or the bf16 dequantizing epilogue (calibration);
+* K1 :func:`int8_conv` — s8 x s8 -> s32 NHWC conv, padded per axis
+  (``(pad_h, pad_w)``: InceptionV3's 1x7/7x1/1x3/3x1 convs), with the
+  requantizing int8 epilogue (runtime) or the bf16 dequantizing epilogue
+  (calibration);
 * K2 :func:`int8_max_pool` — int8 max pool over explicit padding that
-  never wins (-128);
-* K3 :func:`int8_avg_pool` — int8 count-include-pad average pool.
+  never wins (-128), or none (InceptionV3's VALID pools);
+* K3 — int8 average pool, one kernel with two modes and a wrapper each:
+  :func:`int8_avg_pool` counts padded cells (BNInception's Caffe pools),
+  :func:`int8_avg_pool_exclude_pad` divides by the in-image cells only
+  (InceptionV3's SAME pools: 9, 6 or 4).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. On a CUDA tensor it launches the kernel on the
@@ -18,12 +24,14 @@ no fallback from CUDA to the plain version.
 
 Every function keeps the JAX package's NHWC layout and its exact rounding:
 the plain versions are bit-identical to ``_conv_i8_e2e``, ``_conv_int8``,
-``_max_pool_i8`` and ``_avg_pool_i8_include_pad``.
+``_max_pool_i8`` and ``_avg_pool_i8_include_pad`` of ``bn_inception_int8``
+and to ``_ForwardOps._conv_layer``, ``max_pool`` and ``avg_pool_same`` of
+``inception_v3_int8``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,20 +40,30 @@ _OUT_DTYPES = (torch.int8, torch.bfloat16)
 
 #: ((top, bottom), (left, right)) spatial padding of a pool
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+#: a conv's symmetric padding: one int for both axes, or (pad_h, pad_w)
+ConvPad = Union[int, Tuple[int, int]]
+
+
+def conv_pads(pad: ConvPad) -> Tuple[int, int]:
+    """``(pad_h, pad_w)`` of a conv's ``pad`` argument."""
+    if isinstance(pad, int):
+        return pad, pad
+    pad_h, pad_w = pad
+    return int(pad_h), int(pad_w)
 
 
 # --- plain versions (CPU path and the kernels' reference) ------------------
 
 
 def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor, stride: int = 1, pad: int = 0,
+                    bias: torch.Tensor, stride: int = 1, pad: ConvPad = 0,
                     out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """K1's plain version: a float64 conv on int-valued tensors (exact: every
     partial sum is an integer far below 2**53), then the same f32 epilogue
     ops as the JAX package — y*scale and +bias round separately."""
     y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
                  w.permute(0, 3, 1, 2).to(torch.float64),
-                 stride=stride, padding=pad)
+                 stride=stride, padding=conv_pads(pad))
     y = y.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32)
     out = torch.clamp_min(y * scale + bias, 0.0)
     if out_dtype == torch.int8:
@@ -66,12 +84,22 @@ def int8_max_pool_plain(x: torch.Tensor, kernel: int, stride: int,
 
 
 def int8_avg_pool_plain(x: torch.Tensor, kernel: int, stride: int,
-                        pad: int) -> torch.Tensor:
+                        pad: int, count_include_pad: bool = True
+                        ) -> torch.Tensor:
     """K3's plain version: the exact window sum (float64 with
-    ``divisor_override=1``), then the f32 division and round half to even."""
-    s = F.avg_pool2d(x.permute(0, 3, 1, 2).to(torch.float64), kernel, stride,
-                     pad, divisor_override=1)
-    v = torch.round(s.to(torch.float32) / float(kernel * kernel))
+    ``divisor_override=1``), then the f32 division by ``kernel**2`` (or, with
+    ``count_include_pad=False``, by the window's in-image cell count) and
+    round half to even."""
+    xc = x.permute(0, 3, 1, 2).to(torch.float64)
+    s = F.avg_pool2d(xc, kernel, stride, pad, divisor_override=1)
+    if count_include_pad:
+        count = torch.tensor(float(kernel * kernel))
+    else:
+        ones = torch.ones((1, 1) + xc.shape[2:], dtype=torch.float64,
+                          device=x.device)
+        count = F.avg_pool2d(ones, kernel, stride, pad,
+                             divisor_override=1).to(torch.float32)
+    v = torch.round(s.to(torch.float32) / count)
     return (torch.clamp(v, -128.0, 127.0).to(torch.int8)
             .permute(0, 2, 3, 1).contiguous())
 
@@ -105,9 +133,10 @@ def _check_launch(rc: int, name: str) -> None:
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-              bias: torch.Tensor, stride: int = 1, pad: int = 0,
+              bias: torch.Tensor, stride: int = 1, pad: ConvPad = 0,
               out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
-    """(N, H, W, C) int8 ⊛ (O, KH, KW, C) int8 -> (N, Ho, Wo, O).
+    """(N, H, W, C) int8 ⊛ (O, KH, KW, C) int8 -> (N, Ho, Wo, O), zero
+    padding ``pad`` (both axes) or ``(pad_h, pad_w)`` on each side.
 
     ``out_dtype=torch.int8``: ``clip(round(max(y*scale + bias, 0)), 0, 127)``
     (``scale``/``bias`` are the e2e ``m``/``bq``); ``torch.bfloat16``:
@@ -126,8 +155,10 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     _require(scale.dtype == torch.float32 and bias.dtype == torch.float32
              and tuple(scale.shape) == (O,) and tuple(bias.shape) == (O,),
              "scale and bias must be float32 of shape (O,)")
-    Ho = (H + 2 * pad - KH) // stride + 1
-    Wo = (W + 2 * pad - KW) // stride + 1
+    pad_h, pad_w = conv_pads(pad)
+    _require(pad_h >= 0 and pad_w >= 0, f"negative padding {pad}")
+    Ho = (H + 2 * pad_h - KH) // stride + 1
+    Wo = (W + 2 * pad_w - KW) // stride + 1
     _require(Ho > 0 and Wo > 0, f"empty output for {tuple(x.shape)} "
              f"k{KH}x{KW} s{stride} p{pad}")
     _require(C % 4 == 0, f"int8_conv needs C % 4 == 0, got C={C}")
@@ -152,16 +183,17 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.adt_int8_conv(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), N, H, W, C, ps, O, KH, KW, stride, pad, Ho, Wo,
-            int(out_dtype == torch.bfloat16), _stream_ptr())
+            out.data_ptr(), N, H, W, C, ps, O, KH, KW, stride, pad_h, pad_w,
+            Ho, Wo, int(out_dtype == torch.bfloat16), _stream_ptr())
     _check_launch(rc, "int8_conv")
     int8_conv.launches += 1
     return out
 
 
 def _pool(wrapper, entry: str, x: torch.Tensor, kernel: int, stride: int,
-          pads: Pads) -> torch.Tensor:
-    """Launch a pool kernel; counts the launch on ``wrapper``."""
+          pads: Pads, *mode: int) -> torch.Tensor:
+    """Launch a pool kernel (``mode``: the entry point's extra int
+    arguments); counts the launch on ``wrapper``."""
     name = wrapper.__name__
     N, H, W, C = x.shape
     (t, b), (l, r) = pads
@@ -177,7 +209,7 @@ def _pool(wrapper, entry: str, x: torch.Tensor, kernel: int, stride: int,
     fn = getattr(load_library(), entry)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, kernel,
-                stride, t, _stream_ptr())
+                stride, t, *mode, _stream_ptr())
     _check_launch(rc, name)
     wrapper.launches += 1
     return out
@@ -195,17 +227,34 @@ def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
     return _pool(int8_max_pool, "adt_int8_max_pool", x, kernel, stride, pads)
 
 
-def int8_avg_pool(x: torch.Tensor, kernel: int, stride: int,
-                  pad: int) -> torch.Tensor:
-    """int8 NHWC count-include-pad average pool, rounded half to even back
-    to the input's scale."""
+def _avg_pool(wrapper, x: torch.Tensor, kernel: int, stride: int, pad: int,
+              count_include_pad: bool) -> torch.Tensor:
     on_cuda = _cuda_or_cpu(x)
     _require(x.dim() == 4 and x.dtype == torch.int8, "x must be int8 NHWC")
+    _require(0 <= 2 * pad <= kernel, f"{wrapper.__name__}: pad {pad} "
+             f"exceeds half the window {kernel}")
     if not on_cuda:
-        return int8_avg_pool_plain(x, kernel, stride, pad)
-    return _pool(int8_avg_pool, "adt_int8_avg_pool", x, kernel, stride,
-                 ((pad, pad), (pad, pad)))
+        return int8_avg_pool_plain(x, kernel, stride, pad, count_include_pad)
+    return _pool(wrapper, "adt_int8_avg_pool", x, kernel, stride,
+                 ((pad, pad), (pad, pad)), int(not count_include_pad))
 
 
-for _k in (int8_conv, int8_max_pool, int8_avg_pool):
+def int8_avg_pool(x: torch.Tensor, kernel: int, stride: int,
+                  pad: int) -> torch.Tensor:
+    """int8 NHWC count-include-pad average pool (divisor ``kernel**2``),
+    rounded half to even back to the input's scale."""
+    return _avg_pool(int8_avg_pool, x, kernel, stride, pad, True)
+
+
+def int8_avg_pool_exclude_pad(x: torch.Tensor, kernel: int, stride: int,
+                              pad: int) -> torch.Tensor:
+    """int8 NHWC average pool that divides each window's sum by its
+    in-image cell count (``count_include_pad=False``), rounded half to
+    even: K3's second mode."""
+    return _avg_pool(int8_avg_pool_exclude_pad, x, kernel, stride, pad,
+                     False)
+
+
+for _k in (int8_conv, int8_max_pool, int8_avg_pool,
+           int8_avg_pool_exclude_pad):
     _k.launches = 0

@@ -1,7 +1,7 @@
 """Backbone registry: torch feature extractors selectable by name.
 
 Port of ``action_detection_tpu/models/backbones/__init__.py`` for the
-backbones of this slice (BNInception and TinyConv).
+backbones ported so far (BNInception, InceptionV3 and TinyConv).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Optional
 
 from .bn_inception import BNInception, FEATURE_DIM as BNINCEPTION_DIM
 
-PORTED_ARCHS = ("BNInception", "TinyConv")
+PORTED_ARCHS = ("BNInception", "InceptionV3", "TinyConv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +47,15 @@ def get_backbone(name: str, modality: str = "RGB",
             spec = InputSpec(224, (104.0, 117.0, 128.0), (1.0,), bgr=True,
                              div255=False)
         return BNInception(in_channels), BNINCEPTION_DIM, spec
+    if name == "InceptionV3":
+        from .inception_v3 import InceptionV3, FEATURE_DIM as IV3_DIM
+
+        if modality == "Flow":
+            spec = InputSpec(299, (128.0,), (1.0,), bgr=False, div255=False)
+        else:
+            spec = InputSpec(299, (104.0, 117.0, 128.0), (1.0,), bgr=True,
+                             div255=False)
+        return InceptionV3(in_channels), IV3_DIM, spec
     if name == "TinyConv":
         from .tiny import TinyConv, FEATURE_DIM as TINY_DIM
 
@@ -55,5 +64,5 @@ def get_backbone(name: str, modality: str = "RGB",
                          div255=False)
         return TinyConv(in_channels), TINY_DIM, spec
     raise ValueError(f"backbone {name!r} is not ported yet (ported: "
-                     f"{', '.join(PORTED_ARCHS)}; InceptionV3, ResNet and "
-                     f"VGG come in later slices of the port)")
+                     f"{', '.join(PORTED_ARCHS)}; ResNet and VGG come in "
+                     f"later slices of the port)")

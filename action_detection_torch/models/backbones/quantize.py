@@ -1,9 +1,9 @@
 """Backbone-agnostic entry points for int8 quantized scoring (torch port of
 ``action_detection_tpu/models/backbones/quantize.py``).
 
-Mode ``e2e`` — int8 activations end to end — is the only int8 mode of this
-slice, for BNInception. The JAX package's ``perlayer`` mode and the
-InceptionV3 int8 path come in later slices.
+Mode ``e2e`` — int8 activations end to end — is the only int8 mode of the
+port, for BNInception and InceptionV3. The JAX package's ``perlayer`` mode
+(BNInception only) comes in a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 _INT8_MODES = {
     "BNInception": ("e2e",),
+    "InceptionV3": ("e2e",),
 }
 
 
@@ -34,6 +35,10 @@ def calibrate_e2e_backbone(arch: str, state_dict, sample_frames: torch.Tensor
         from .bn_inception_int8 import calibrate_e2e
 
         return calibrate_e2e(state_dict, sample_frames)
+    if arch == "InceptionV3":
+        from .inception_v3_int8 import calibrate_e2e_iv3
+
+        return calibrate_e2e_iv3(state_dict, sample_frames)
     raise ValueError(int8_support_error(arch))
 
 
@@ -44,12 +49,16 @@ def int8_e2e_features(arch: str, qe: Dict[str, Any],
         from .bn_inception_int8 import bninception_int8_e2e_features
 
         return bninception_int8_e2e_features(qe, x)
+    if arch == "InceptionV3":
+        from .inception_v3_int8 import inception_v3_int8_e2e_features
+
+        return inception_v3_int8_e2e_features(qe, x)
     raise ValueError(int8_support_error(arch))
 
 
 def supports_shared_stem(arch: str) -> bool:
-    """Shared-stem 10-crop scoring is wired for the int8-e2e BNInception."""
-    return arch == "BNInception"
+    """Shared-stem 10-crop scoring is wired for both int8-e2e backbones."""
+    return arch in ("BNInception", "InceptionV3")
 
 
 def sharedstem_crop_windows(stem_fn, feature_hw, xn: torch.Tensor,
@@ -62,9 +71,10 @@ def sharedstem_crop_windows(stem_fn, feature_hw, xn: torch.Tensor,
       which rounds half UP (not ``torch.round``, which rounds half to even),
       clamped to the window range;
     * flipped crops slice a flipped-FRAME stem pass at the mirrored offset
-      (``flip(crop(x, o)) == crop(flip(x), W - crop - o)``): the stem's
-      ceil-mode pools pad right/bottom only, so flipping stem outputs would
-      be wrong;
+      (``flip(crop(x, o)) == crop(flip(x), W - crop - o)``): stems are not
+      flip-equivariant (BNInception's ceil-mode pools pad right/bottom only,
+      InceptionV3's VALID stride-2 windows drop the right edge), so flipping
+      stem outputs would be wrong;
     * Flow's plane inversion rides in ``flip_src``.
 
     Returns ``(10*N, fc, fc, C)`` NHWC trunk inputs, crop-major in exactly
@@ -102,4 +112,10 @@ def int8_e2e_features_sharedstem(arch: str, qe: Dict[str, Any],
 
         return bninception_int8_e2e_features_sharedstem(qe, xn, flip_src,
                                                         crop_size)
+    if arch == "InceptionV3":
+        from .inception_v3_int8 import (
+            inception_v3_int8_e2e_features_sharedstem)
+
+        return inception_v3_int8_e2e_features_sharedstem(qe, xn, flip_src,
+                                                         crop_size)
     raise ValueError(f"shared-stem is not available for backbone {arch!r}")

@@ -4,11 +4,14 @@
   (given as numpy) onto the port's ``state_dict``: conv ``kernel (H, W, I,
   O)`` -> ``weight (O, I, H, W)``, Dense ``kernel (I, O)`` -> ``weight (O,
   I)``, BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
-  running_var``. Module scopes collapse to the flat Caffe blob names; the
+  running_var``. Module scopes collapse to the flat Caffe blob names
+  (BNInception); InceptionV3's tf-slim names keep their module path, flax
+  ``Mixed_5b/branch1x1_conv`` becoming ``Mixed_5b.branch1x1.conv``. The
   flax ``backbone`` scope becomes ``base_model``.
-* :func:`quantized_from_jax` maps a JAX ``quantize_backbone_e2e`` tree onto
-  the port's int8 runtime tensors, so a test can hold the int8 runtime apart
-  from calibration.
+* :func:`quantized_from_jax` maps a JAX int8-e2e tree
+  (``quantize_backbone_e2e`` or ``calibrate_e2e_iv3``) onto the port's int8
+  runtime tensors, so a test can hold the int8 runtime apart from
+  calibration.
 * :func:`seeded_init` gives a model reproducible random weights with jittered
   BN statistics (so quantization is not trivial) from a numpy seed.
 
@@ -17,6 +20,7 @@ Everything here is numpy -> torch; nothing imports jax.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -24,6 +28,8 @@ import torch
 from torch import nn
 
 _SCOPES = {"backbone": "base_model"}
+# InceptionV3's layers: <Conv2d_*|branch*>_conv and _bn -> <x>.conv, <x>.bn
+_IV3_LAYER = re.compile(r"^(Conv2d_\w+|branch\w*)_(conv|bn)$")
 
 
 def _walk(tree: dict, prefix: str, out: Dict[str, np.ndarray],
@@ -32,6 +38,9 @@ def _walk(tree: dict, prefix: str, out: Dict[str, np.ndarray],
         if not isinstance(node, dict):
             continue
         leaf_keys = set(node)
+        iv3 = _IV3_LAYER.match(name)
+        if iv3:
+            name = f"{iv3.group(1)}.{iv3.group(2)}"
         if stats and {"mean", "var"} <= leaf_keys:
             out[f"{prefix}{name}.running_mean"] = np.asarray(node["mean"])
             out[f"{prefix}{name}.running_var"] = np.asarray(node["var"])
@@ -46,8 +55,10 @@ def _walk(tree: dict, prefix: str, out: Dict[str, np.ndarray],
             out[f"{prefix}{name}.bias"] = np.asarray(node["bias"])
         else:
             # a module scope: inception_3a/inception_3a_1x1 -> the flat
-            # blob name; the top-level backbone scope -> base_model
-            scope = _SCOPES.get(name) if not prefix else None
+            # blob name; InceptionV3's Mixed_* scopes stay; the top-level
+            # backbone scope -> base_model
+            scope = (name if name.startswith("Mixed_")
+                     else _SCOPES.get(name) if not prefix else None)
             _walk(node, prefix + scope + "." if scope else prefix, out, stats)
 
 
@@ -67,7 +78,9 @@ def state_dict_from_jax(params: dict, batch_stats: dict = None
 
 
 def quantized_from_jax(qe: Dict[str, Any]) -> Dict[str, Any]:
-    """JAX ``quantize_backbone_e2e`` tree -> the port's runtime tensors."""
+    """JAX int8-e2e tree (BNInception's or InceptionV3's; conv entries keyed
+    by layer name, ``__stem__``, ``__entry__`` and scalar scales) -> the
+    port's runtime tensors."""
     from .backbones.bn_inception_int8 import tensor_tree
 
     def host(node):
@@ -84,7 +97,8 @@ def quantized_from_jax(qe: Dict[str, Any]) -> Dict[str, Any]:
 def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     """Reproducible random weights from ``np.random.RandomState(seed)``.
 
-    Convs get He-normal kernels and zero biases, BN layers jittered affine
+    Convs get He-normal kernels and zero biases (if they have one), BN
+    layers jittered affine
     parameters and running statistics (the JAX int8 tests' fixture ranges:
     scale 1+0.1N, bias 0.05N, mean 0.05N, var 1+0.3U), linear heads
     N(0, 0.001) kernels and zero biases, as the JAX SSN initializes them.
@@ -100,7 +114,8 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(t(rng.randn(*m.weight.shape)
                                  * np.sqrt(2.0 / fan_in)))
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 n = m.num_features
                 m.weight.copy_(t(1.0 + 0.1 * rng.randn(n)))

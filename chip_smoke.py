@@ -13,31 +13,45 @@ before the final line):
               ``action_detection_torch/csrc`` into
               ``action_detection_torch/_build``.
 3. kernels  — K1 (int8 conv, both epilogues), K2 (int8 max pool, both
-              variants) and K3 (int8 avg pool) at the scoring slice's own
-              shapes (640 crops), and A1 (max-pool backward) at every
-              BNInception max pool of the training step (1,152 images),
-              each held EXACTLY equal to its plain torch version on the same
-              inputs; median ms of both. A1 also launches twice on the same
-              inputs (equal bits) and prints GB/s of |x|+|y|+|dy|+|dx|.
-4. main     — the port's ``ssn_test`` CLI in-process, at full BNInception
-              224^2 width with the int8-e2e shared-stem default, on 2
-              synthetic THUMOS14 videos of 1,560 frames with seeded random
-              weights; then SSN training steps at full width (BNInception
-              224^2, 16 videos x 8 proposals x 9 segments = 1,152 images per
-              step, frozen BN, dropout 0.8) through ``make_train_step``.
-              Every kernel must have launched in this phase; the score
-              pickle is checked for shapes and finite values and the
-              training metrics for finite values.
-5. checks   — the int8 trunk held bit-exact against the plain kernels on
-              the CPU, the int8 features against the float backbone
-              (cos > 0.99, rel < 0.12), a small train step on the card
-              against the same step on the CPU, and the steady-state times
-              of one 640-crop scoring step and of one training step.
+              variants) and K3 (int8 avg pool) at the BNInception scoring
+              shapes (640 crops); K1 with per-axis pads (5x5, 1x7, 7x1,
+              1x3, VALID 3x3 s2, a fused entry conv and a conv on its
+              channel slice), K2 without padding and K3's exclude-pad mode
+              at InceptionV3's 640-crop shapes; and A1 (max-pool backward)
+              at every BNInception max pool of the training step (1,152
+              images). Each is held EXACTLY equal to its plain torch version
+              on the same inputs; median ms of both. A1 also launches twice
+              on the same inputs (equal bits) and prints GB/s of
+              |x|+|y|+|dy|+|dx|.
+4. main     — four paths, each with the launch counts set to 0 just before
+              it and read just after, each required to launch its kernels:
+              the port's ``ssn_test`` CLI in-process at full width with the
+              int8-e2e shared-stem default and seeded random weights, on 2
+              synthetic videos of 1,560 frames each, for BNInception RGB
+              (THUMOS14, 224^2), InceptionV3 RGB (ActivityNet v1.2, K=100,
+              340x256 frames resized to 452x341 on the host, 299^2 crops;
+              K3 in its exclude-pad mode) and BNInception Flow (THUMOS14,
+              new_length 5: 10-channel stacks); and SSN training steps at
+              full width (BNInception 224^2, 16 videos x 8 proposals x 9
+              segments = 1,152 images per step, frozen BN, dropout 0.8)
+              through ``make_train_step``. Each score pickle is checked for
+              shapes and finite values, the training metrics for finite
+              values.
+5. checks   — for BNInception and InceptionV3: the int8 trunk held
+              bit-exact against the plain kernels on the CPU, the int8
+              features against the float backbone (cos > 0.99, rel <
+              0.12); a small train step on the card against the same step
+              on the CPU; the host's decode + resize time of a 64-tick
+              InceptionV3 chunk; and the steady-state times of one 640-crop
+              scoring step (BNInception int8 and float, InceptionV3 int8 and
+              float, BNInception and InceptionV3 Flow) and of one training
+              step.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler phase: the
-per-kernel device time and the device busy share of a scoring step, a
-training step and the whole ``ssn_test`` run, with the full tables written
-to ``DIR/profile_*.txt``.
+per-kernel device time and the device busy share of the scoring steps
+(BNInception, InceptionV3, Flow), a training step and the whole ``ssn_test``
+runs of BNInception and InceptionV3, with the full tables written to
+``DIR/profile_*.txt``.
 
 The second-to-last lines are a JSON summary of the kernels and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -61,6 +75,8 @@ TRAIN_N = TRAIN_VIDEOS * 8 * 9   # x 8 proposals x 9 segments = 1,152 images
 TRAIN_STEPS = 4
 HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
 TPU_SRC = "action_detection_tpu/models/backbones/bn_inception_int8.py"
+IV3_SRC = "action_detection_tpu/models/backbones/inception_v3_int8.py"
+REG_STATS = [[0.01, -0.02], [0.1, 0.2]]    # the checkpoints' reg_stats
 
 
 def _smi() -> str:
@@ -108,7 +124,9 @@ def check_kernels(card: str) -> list:
         return torch.randint(-127, 128, (O, kh, kw, C), generator=g,
                              device=dev, dtype=torch.int8)
 
-    rows = {"int8_conv": [], "int8_max_pool": [], "int8_avg_pool": [],
+    rows = {"int8_conv": [], "int8_conv/per_axis_pad": [],
+            "int8_max_pool": [], "int8_max_pool/valid": [],
+            "int8_avg_pool": [], "int8_avg_pool/exclude_pad": [],
             "max_pool_bwd": []}
 
     def record(name, label, got, ref, fn, plain, nbytes=None):
@@ -127,10 +145,30 @@ def check_kernels(card: str) -> list:
         print(f"kernel {name}[{label}]: equal, max|d|={err} {ms:.3f} ms "
               f"(plain {plain_ms:.3f} ms){rate} on {card}", flush=True)
 
+    def check_convs(name, cases):
+        for label, x, w, stride, pad in cases:
+            O, kh, kw, C = w.shape
+            # per-channel epilogue scales that put outputs across the int8
+            # range
+            spread = float(C * kh * kw) ** 0.5 * 64 * 73
+            m = (torch.rand(O, generator=g, device=dev) + 0.5) * (64.0
+                                                                   / spread)
+            bq = torch.randn(O, generator=g, device=dev) * 8.0
+            for out_dtype, tag in ((torch.int8, "i8"),
+                                   (torch.bfloat16, "bf16")):
+                def fn(x=x, w=w, m=m, bq=bq, s=stride, p=pad, o=out_dtype):
+                    return k.int8_conv(x, w, m, bq, s, p, o)
+
+                def plain(x=x, w=w, m=m, bq=bq, s=stride, p=pad,
+                          o=out_dtype):
+                    return k.int8_conv_plain(x, w, m, bq, s, p, o)
+
+                record(name, f"{label}/{tag}", fn(), plain(), fn, plain)
+
     # K1: the 3a fused entry conv, a 3a 3x3 reading its slice of the entry
     # output in place, the 3c 3x3 s2, a 4e 3x3 s2, the 5b fused entry conv
     entry3a = act(SLICE_N, 28, 28, 192)
-    conv_cases = [
+    check_convs("int8_conv", [
         ("3a_entry_1x1", entry3a, weights(192, 1, 1, 192), 1, 0),
         ("3a_3x3_on_slice", entry3a[..., 64:128], weights(64, 3, 3, 64), 1, 1),
         ("3c_3x3_s2", act(SLICE_N, 28, 28, 128), weights(160, 3, 3, 128), 2, 1),
@@ -138,21 +176,8 @@ def check_kernels(card: str) -> list:
          weights(256, 3, 3, 256), 2, 1),
         ("5b_entry_1x1", act(SLICE_N, 7, 7, 1024), weights(736, 1, 1, 1024),
          1, 0),
-    ]
-    for label, x, w, stride, pad in conv_cases:
-        O, kh, kw, C = w.shape
-        # per-channel epilogue scales that put outputs across the int8 range
-        spread = float(C * kh * kw) ** 0.5 * 64 * 73
-        m = (torch.rand(O, generator=g, device=dev) + 0.5) * (64.0 / spread)
-        bq = torch.randn(O, generator=g, device=dev) * 8.0
-        for out_dtype, tag in ((torch.int8, "i8"), (torch.bfloat16, "bf16")):
-            def fn(x=x, w=w, m=m, bq=bq, s=stride, p=pad, o=out_dtype):
-                return k.int8_conv(x, w, m, bq, s, p, o)
-
-            def plain(x=x, w=w, m=m, bq=bq, s=stride, p=pad, o=out_dtype):
-                return k.int8_conv_plain(x, w, m, bq, s, p, o)
-
-            record("int8_conv", f"{label}/{tag}", fn(), plain(), fn, plain)
+    ])
+    del entry3a
 
     # K2: the 3c passthrough ceil pool (s2) and the 5b pool branch (s1 p1)
     for label, x, a in (
@@ -172,7 +197,49 @@ def check_kernels(card: str) -> list:
            k.int8_avg_pool_plain(x, 3, 1, 1),
            lambda: k.int8_avg_pool(x, 3, 1, 1),
            lambda: k.int8_avg_pool_plain(x, 3, 1, 1))
-    del entry3a, conv_cases, x
+    del x
+
+    # InceptionV3 at 299^2 (35/17/8 grids): K1 with per-axis pads, on the
+    # Mixed_5b fused entry conv (64 | 48 | 64) and convs reading its slices
+    entry5b = act(SLICE_N, 35, 35, 176)
+    check_convs("int8_conv/per_axis_pad", [
+        ("5b_entry_1x1", act(SLICE_N, 35, 35, 192),
+         weights(176, 1, 1, 192), 1, (0, 0)),
+        ("5b_branch5x5_2_5x5_p2_on_slice", entry5b[..., 64:112],
+         weights(64, 5, 5, 48), 1, (2, 2)),
+        ("5b_branch3x3dbl_2_on_slice", entry5b[..., 112:176],
+         weights(96, 3, 3, 64), 1, (1, 1)),
+        ("6a_branch3x3_3x3_s2_valid", act(SLICE_N, 35, 35, 288),
+         weights(384, 3, 3, 288), 2, (0, 0)),
+        ("6b_branch7x7_2_1x7", act(SLICE_N, 17, 17, 128),
+         weights(128, 1, 7, 128), 1, (0, 3)),
+        ("6b_branch7x7_3_7x1", act(SLICE_N, 17, 17, 128),
+         weights(192, 7, 1, 128), 1, (3, 0)),
+        ("7b_branch3x3_2a_1x3", act(SLICE_N, 8, 8, 384),
+         weights(384, 1, 3, 384), 1, (0, 1)),
+    ])
+    del entry5b
+    # K2 without padding: the Mixed_6a and Mixed_7a pool branches
+    for label, x in (("6a_35_to_17", act(SLICE_N, 35, 35, 288)),
+                     ("7a_17_to_8", act(SLICE_N, 17, 17, 768))):
+        x = x - 64
+        a = (3, 2, ((0, 0), (0, 0)))
+        record("int8_max_pool/valid", label, k.int8_max_pool(x, *a),
+               k.int8_max_pool_plain(x, *a),
+               lambda x=x, a=a: k.int8_max_pool(x, *a),
+               lambda x=x, a=a: k.int8_max_pool_plain(x, *a))
+    # K3's exclude-pad mode: the Mixed_5d, 6b and 7c pool branches
+    for label, x in (("5d_35", act(SLICE_N, 35, 35, 288)),
+                     ("6b_17", act(SLICE_N, 17, 17, 768)),
+                     ("7c_8", act(SLICE_N, 8, 8, 2048))):
+        record("int8_avg_pool/exclude_pad", label,
+               k.int8_avg_pool_exclude_pad(x, 3, 1, 1),
+               k.int8_avg_pool_plain(x, 3, 1, 1, count_include_pad=False),
+               lambda x=x: k.int8_avg_pool_exclude_pad(x, 3, 1, 1),
+               lambda x=x: k.int8_avg_pool_plain(x, 3, 1, 1,
+                                                 count_include_pad=False))
+    del x
+    torch.cuda.empty_cache()
 
     # A1: the backward of every BNInception max pool at the training
     # step's 1,152 images, float32 (the trainer's dtype) and the stem pool
@@ -214,13 +281,15 @@ def check_kernels(card: str) -> list:
     return rows
 
 
-def write_thumos_fixture(d: str, n_videos: int = 2, frames: int = 1560,
-                         split: str = "thumos14_tag_test") -> str:
-    """A THUMOS14 proposal list (the repo's test-fixture format) with
-    fg, incomplete and background proposals per video."""
+def write_fixture(d: str, n_videos: int = 2, frames: int = 1560,
+                  split: str = "thumos14_tag_test",
+                  num_class: int = 20) -> str:
+    """A proposal list (the repo's test-fixture format) with fg, incomplete
+    and background proposals per video."""
     lines = []
     for v in range(n_videos):
-        gt = [(1 + v % 20, 260, 780), (1 + (v + 7) % 20, 1040, 1352)]
+        gt = [(1 + v % num_class, 260, 780),
+              (1 + (v + 7) % num_class, 1040, 1352)]
         props = []
         for g in gt:
             props += [(g[0], 0.85, 0.9, g[1] - 52, g[2] + 13),
@@ -368,123 +437,128 @@ def check_train_step_small(d: str) -> None:
           flush=True)
 
 
-def main_path(card: str, smi: str, profile: str = None) -> dict:
-    """Phases 4 and 5: ssn_test and training at full width, then the
-    checks and the timings."""
+def check_pickle(path: str, num_class: int, n_videos: int = 2) -> list:
+    """Shapes and finite values of a score pickle; returns the P per video."""
     import numpy as np
+
+    with open(path, "rb") as f:
+        scores = pickle.load(f)
+    if len(scores) != n_videos:
+        raise AssertionError(f"expected {n_videos} scored videos, got "
+                             f"{len(scores)}")
+    K = num_class
+    for vid, (rel, act, comp, reg) in scores.items():
+        P = rel.shape[0]
+        if not (act.shape == (P, K + 1) and comp.shape == (P, K)
+                and reg.shape == (P, K, 2)):
+            raise AssertionError(f"{vid}: shapes {act.shape} "
+                                 f"{comp.shape} {reg.shape}")
+        for a in (act, comp, reg):
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{vid}: non-finite scores")
+    return [v[0].shape[0] for v in scores.values()]
+
+
+def drive(name: str, fn, expect) -> dict:
+    """One main path: the launch counts set to 0 just before ``fn()`` and
+    read just after; every kernel in ``expect`` must have launched."""
+    import torch
+
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"main path {name}: wall {wall:.2f} s, launches {launches}",
+          flush=True)
+    for kname in expect:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on the {name} "
+                                 "path")
+    return launches
+
+
+def _seeded_checkpoint(d: str, name: str, num_class: int, arch: str,
+                       modality: str, seed: int):
+    """A seeded SSN saved as ``d/name.pt`` with reg_stats; returns the
+    model (CPU) and the path."""
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.train import save_checkpoint
+
+    model = seeded_init(SSN(num_class=num_class, base_model=arch,
+                            modality=modality, dropout=0.0), seed=seed)
+    path = os.path.join(d, f"{name}.pt")
+    save_checkpoint(path, model.state_dict(), REG_STATS, arch=arch)
+    return model, path
+
+
+def main_path(card: str, smi: str, profile: str = None) -> dict:
+    """Phases 4 and 5: the four main paths at full width, then the checks
+    and the timings. Returns each path's launch counts."""
     import torch
 
     from action_detection_torch.cli.ssn_test import main as ssn_test
-    from action_detection_torch.infer.scorer import ProposalScorer
-    from action_detection_torch.kernels import (launch_counts,
-                                                reset_launch_counts)
     from action_detection_torch.models import SSN, seeded_init
-    from action_detection_torch.models.backbones.bn_inception_int8 import (
-        _E2EOps, _e2e_stem_quantized, _e2e_trunk, _walk_trunk,
-        bninception_int8_e2e_features, tree_to)
-    from action_detection_torch.train import save_checkpoint
 
+    paths = {}
+    models = {}
     with tempfile.TemporaryDirectory() as d:
-        write_thumos_fixture(d)
-        write_thumos_fixture(d, n_videos=4, split="thumos14_tag_val")
-        model = seeded_init(SSN(num_class=20, base_model="BNInception",
-                                dropout=0.0), seed=0)
-        reg_stats = np.array([[0.01, -0.02], [0.1, 0.2]], np.float32)
-        ckpt = os.path.join(d, "ssn_thumos14_BNInception_rgb.pt")
-        save_checkpoint(ckpt, model.state_dict(), reg_stats,
-                        arch="BNInception")
-        out = os.path.join(d, "scores.pkl")
-        cli = ["thumos14", "RGB", ckpt, out, "--synthetic_data",
-               "--prop_file_dir", d]
+        write_fixture(d)
+        write_fixture(d, n_videos=4, split="thumos14_tag_val")
+        write_fixture(d, split="activitynet1.2_tag_val", num_class=100)
+        clis = {}
+        for key, dataset, arch, modality, K, seed in (
+                ("bninception_rgb", "thumos14", "BNInception", "RGB", 20, 0),
+                ("inceptionv3_rgb", "activitynet1.2", "InceptionV3", "RGB",
+                 100, 3),
+                ("bninception_flow", "thumos14", "BNInception", "Flow", 20,
+                 4)):
+            models[key], ckpt = _seeded_checkpoint(d, key, K, arch,
+                                                   modality, seed)
+            out = os.path.join(d, f"{key}.pkl")
+            clis[key] = ([dataset, modality, ckpt, out, "--arch", arch,
+                          "--synthetic_data", "--prop_file_dir", d], out, K)
 
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        ssn_test(cli)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        int8_kernels = ("int8_conv", "int8_max_pool")
+        cli, out, K = clis["bninception_rgb"]
+        paths["bninception_rgb"] = drive(
+            "ssn_test thumos14 RGB (BNInception)", lambda: ssn_test(cli),
+            int8_kernels + ("int8_avg_pool",))
+        print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
         # the scorer turned TF32 off; the training steps keep it off
         torch.backends.cudnn.allow_tf32 = False
-        train = run_training(d)
-        launches = launch_counts()
-        print(f"main path: ssn_test wall {wall:.2f} s, launches {launches}",
-              flush=True)
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"{name} never launched on the main path")
-
-        with open(out, "rb") as f:
-            scores = pickle.load(f)
-        if len(scores) != 2:
-            raise AssertionError(f"expected 2 scored videos, got {len(scores)}")
-        for vid, (rel, act, comp, reg) in scores.items():
-            P = rel.shape[0]
-            if not (act.shape == (P, 21) and comp.shape == (P, 20)
-                    and reg.shape == (P, 20, 2)):
-                raise AssertionError(f"{vid}: shapes {act.shape} "
-                                     f"{comp.shape} {reg.shape}")
-            for a in (act, comp, reg):
-                if not np.isfinite(a).all():
-                    raise AssertionError(f"{vid}: non-finite scores")
-        print(f"main path: pickle ok ({len(scores)} videos, "
-              f"P={[v[0].shape[0] for v in scores.values()]})", flush=True)
+        train = {}
+        paths["train"] = drive(
+            f"train ({TRAIN_STEPS} steps)",
+            lambda: train.update(run_training(d)), ("max_pool_bwd",))
+        cli3, out, K = clis["inceptionv3_rgb"]
+        paths["inceptionv3_rgb"] = drive(
+            "ssn_test activitynet1.2 RGB --arch InceptionV3",
+            lambda: ssn_test(cli3),
+            int8_kernels + ("int8_avg_pool_exclude_pad",))
+        print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
+        clif, out, K = clis["bninception_flow"]
+        paths["bninception_flow"] = drive(
+            "ssn_test thumos14 Flow (BNInception)", lambda: ssn_test(clif),
+            int8_kernels + ("int8_avg_pool",))
+        print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
 
         check_train_step_small(d)
         if profile:
-            profile_cli(profile, cli)
+            profile_cli(profile, "ssn_test", clis["bninception_rgb"][0])
+            profile_cli(profile, "ssn_test_iv3", clis["inceptionv3_rgb"][0])
 
-    # agreement checks and step timing on a scorer built like the CLI's
-    rng = np.random.RandomState(0)
-    frames = rng.randint(0, 256, size=(64, 256, 340, 3), dtype=np.uint8)
-    spec = model.input_spec
-    calib = np.concatenate([frames[:2, 16:240, 58:282]] * 5)   # 10 crops
-    scorer = ProposalScorer(model, spec, reg_stats=reg_stats, num_class=20,
-                            chunk_frames=64, device="cuda", quantize="e2e",
-                            calibration_frames=calib, shared_stem=True)
-    qe = scorer._quantized
-    crops = torch.as_tensor(frames[:2]).cuda()
-    with torch.no_grad():
-        from action_detection_torch.data.transforms import (
-            device_oversample_normed)
-
-        x = device_oversample_normed(crops, spec)              # (20, 224, 224, 3)
-        h = _e2e_stem_quantized(qe, x)
-        qe_cpu = tree_to(qe, "cpu")
-        got = _walk_trunk(_E2EOps(qe), h).cpu()
-        ref = _walk_trunk(_E2EOps(qe_cpu), h.cpu())
-        if not torch.equal(got, ref):
-            raise AssertionError("int8 trunk on the card differs from the "
-                                 "plain kernels on the CPU in "
-                                 f"{(got != ref).sum().item()} values")
-        # the dequantizing global mean may round differently across devices
-        fgot = _e2e_trunk(qe, h).cpu()
-        fref = _e2e_trunk(qe_cpu, h.cpu())
-        torch.testing.assert_close(fgot, fref, rtol=1e-6, atol=0)
-        print("check: int8 trunk activations (K1-K3 on the card) == plain "
-              f"versions on the CPU, bit-exact, {tuple(got.shape)}; features "
-              f"max |d| {(fgot - fref).abs().max().item()}", flush=True)
-        fmodel = model.to("cuda").eval()
-        f32 = fmodel.base_model(x).double().cpu()
-        q8 = bninception_int8_e2e_features(qe, x).double().cpu()
-        cos = torch.nn.functional.cosine_similarity(f32, q8, dim=1).min()
-        rel = ((q8 - f32).norm() / f32.norm()).item()
-        if not (cos > 0.99 and rel < 0.12):
-            raise AssertionError(f"int8 features vs float: cos {cos} rel {rel}")
-        print(f"check: int8-e2e vs float BNInception features: min cos "
-              f"{cos.item():.6f}, rel rms {rel:.5f}", flush=True)
-        model.to("cpu")
-
-    chunk = torch.as_tensor(frames).cuda()
-    score_step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
-    step_ms = _time_ms(score_step, reps=10, warmup=2)
-    fscorer = ProposalScorer(model, spec, reg_stats=reg_stats, num_class=20,
-                             chunk_frames=64, device="cuda", quantize=False)
-    float_ms = _time_ms(lambda: fscorer._score_chunk(chunk, 64), reps=5,
-                        warmup=1)
-    fscorer.close()
-    print(f"step: int8-e2e shared-stem {step_ms:.2f} ms per {SLICE_N}-crop "
-          f"step = {SLICE_N / step_ms * 1e3:.0f} crops/s; float32 backbone "
-          f"{float_ms:.2f} ms = {SLICE_N / float_ms * 1e3:.0f} crops/s "
-          f"({smi})", flush=True)
+    scorers = [check_bninception(models["bninception_rgb"], smi),
+               check_inceptionv3(models["inceptionv3_rgb"], smi),
+               time_flow(models["bninception_flow"], smi)]
+    iv3_flow = seeded_init(SSN(num_class=100, base_model="InceptionV3",
+                               modality="Flow", dropout=0.0), seed=5)
+    scorer, _ = time_flow(iv3_flow, smi, hw=(341, 452))
+    scorer.close()
     train_ms = statistics.median(train["ms"][1:])
     print(f"train: {train_ms:.2f} ms per {TRAIN_N}-image step (median of "
           f"steps 2-{TRAIN_STEPS}, first {train['ms'][0]:.2f} ms) = "
@@ -492,10 +566,167 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
           f"({smi})", flush=True)
     if profile:
         train_step = lambda: train["step"](train["batch"])    # noqa: E731
-        profile_calls(profile, "score_step", score_step, reps=3)
+        for name, (_, step) in zip(("score_step", "score_step_iv3",
+                                    "score_step_flow"), scorers):
+            profile_calls(profile, name, step, reps=3)
         profile_calls(profile, "train_step", train_step, reps=2)
-    scorer.close()
-    return launches
+    for scorer, _ in scorers:
+        scorer.close()
+    return paths
+
+
+def _int8_checks(name, model, qe, x, stem_quantized, trunk_ops, trunk,
+                 features):
+    """The int8 trunk on the card against the plain kernels on the CPU
+    (bit-exact activations; features within rtol 1e-6, since the
+    dequantizing mean may round differently across devices), then the int8
+    features against the float backbone (min cos > 0.99, rel RMS < 0.12)."""
+    import torch
+
+    from action_detection_torch.models.backbones.bn_inception_int8 import (
+        tree_to)
+
+    with torch.no_grad():
+        h = stem_quantized(qe, x)
+        qe_cpu = tree_to(qe, "cpu")
+        got = trunk_ops(qe, h).cpu()
+        ref = trunk_ops(qe_cpu, h.cpu())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name} int8 trunk on the card differs "
+                                 "from the plain kernels on the CPU in "
+                                 f"{(got != ref).sum().item()} values")
+        fgot = trunk(qe, h).cpu()
+        fref = trunk(qe_cpu, h.cpu())
+        torch.testing.assert_close(fgot, fref, rtol=1e-6, atol=0)
+        print(f"check: {name} int8 trunk activations (K1-K3 on the card) == "
+              f"plain versions on the CPU, bit-exact, {tuple(got.shape)}; "
+              f"features max |d| {(fgot - fref).abs().max().item()}",
+              flush=True)
+        fmodel = model.to("cuda").eval()
+        f32 = fmodel.base_model(x).double().cpu()
+        q8 = features(qe, x).double().cpu()
+        model.to("cpu")
+    cos = torch.nn.functional.cosine_similarity(f32, q8, dim=1).min()
+    rel = ((q8 - f32).norm() / f32.norm()).item()
+    if not (cos > 0.99 and rel < 0.12):
+        raise AssertionError(f"{name} int8 features vs float: cos {cos} "
+                             f"rel {rel}")
+    print(f"check: {name} int8-e2e vs float features: min cos "
+          f"{cos.item():.6f}, rel rms {rel:.5f}", flush=True)
+
+
+def _time_steps(name, model, frames, calib, smi, modality="RGB"):
+    """Steady-state 640-crop step of the int8-e2e shared-stem scorer and of
+    the float backbone (TF32 off) on one chunk of scale-size frames.
+    Returns the int8 scorer and its step function."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.infer.scorer import ProposalScorer
+
+    spec = model.input_spec
+    kw = dict(reg_stats=np.asarray(REG_STATS, np.float32),
+              num_class=model.num_class, chunk_frames=64, modality=modality,
+              device="cuda")
+    scorer = ProposalScorer(model, spec, quantize="e2e",
+                            calibration_frames=calib, shared_stem=True, **kw)
+    chunk = torch.as_tensor(frames).cuda()
+    step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
+    step_ms = _time_ms(step, reps=10, warmup=2)
+    line = (f"step: {name} int8-e2e shared-stem {step_ms:.2f} ms per "
+            f"{SLICE_N}-crop step = {SLICE_N / step_ms * 1e3:.0f} crops/s")
+    if modality == "RGB":
+        fscorer = ProposalScorer(model, spec, quantize=False, **kw)
+        float_ms = _time_ms(lambda: fscorer._score_chunk(chunk, 64), reps=5,
+                            warmup=1)
+        fscorer.close()
+        model.to("cpu")
+        line += (f"; float32 backbone {float_ms:.2f} ms = "
+                 f"{SLICE_N / float_ms * 1e3:.0f} crops/s")
+    print(f"{line} ({smi})", flush=True)
+    return scorer, step
+
+
+def check_bninception(model, smi):
+    """BNInception RGB at 224^2 from 340x256 frames."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, size=(64, 256, 340, 3), dtype=np.uint8)
+    calib = np.concatenate([frames[:2, 16:240, 58:282]] * 5)   # 10 crops
+    scorer, step = _time_steps("BNInception", model, frames, calib, smi)
+    x = device_oversample_normed(torch.as_tensor(frames[:2]).cuda(),
+                                 model.input_spec)     # (20, 224, 224, 3)
+    _int8_checks("BNInception", model, scorer._quantized, x,
+                 bq._e2e_stem_quantized,
+                 lambda qe, h: bq._walk_trunk(bq._E2EOps(qe), h),
+                 bq._e2e_trunk, bq.bninception_int8_e2e_features)
+    return scorer, step
+
+
+def check_inceptionv3(model, smi):
+    """InceptionV3 RGB at 299^2: the host's decode + resize of a 64-tick
+    chunk of 340x256 frames to 452x341, then the checks and step times on
+    a chunk of scale-size frames."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.data.pipeline import (SyntheticFrameProvider,
+                                                      iter_scaled_frame_chunks,
+                                                      make_decode_pool)
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.models.backbones import (
+        inception_v3_int8 as iq)
+
+    spec = model.input_spec
+    pool = make_decode_pool(None)
+    t0 = time.perf_counter()
+    chunk = next(iter_scaled_frame_chunks(
+        SyntheticFrameProvider(), "video_0", np.arange(1, 64 * 6, 6), 1560,
+        spec.scale_size, batch_ticks=64, executor=pool))
+    host_s = time.perf_counter() - t0
+    pool.shutdown()
+    if chunk.shape != (64, 341, 452, 3):
+        raise AssertionError(f"scaled chunk {chunk.shape}")
+    print(f"host: synthetic decode + numpy resize of a 64-tick chunk "
+          f"(340x256 -> 452x341) {host_s:.3f} s on "
+          f"{min(8, 2 * (os.cpu_count() or 1))} threads, "
+          f"{os.cpu_count()} cores", flush=True)
+
+    calib = np.concatenate([chunk[:2, 21:320, 76:375]] * 5)   # 10 crops
+    scorer, step = _time_steps("InceptionV3", model, chunk, calib, smi)
+
+    class Acts(iq._ForwardOps):        # the last concat, before the mean
+        def finish(self, y):
+            return y
+
+    x = device_oversample_normed(torch.as_tensor(chunk[:1]).cuda(),
+                                 spec)[:4]              # (4, 299, 299, 3)
+    _int8_checks("InceptionV3", model, scorer._quantized, x,
+                 iq._iv3_stem_quantized,
+                 lambda qe, h: iq._walk_trunk(Acts(qe), h), iq.iv3_trunk,
+                 iq.inception_v3_int8_e2e_features)
+    return scorer, step
+
+
+def time_flow(model, smi, hw=(256, 340)):
+    """Flow: 64 ticks of 10-channel stacks at scale size ``hw``."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    frames = rng.randint(0, 256, size=(64,) + hw + (10,), dtype=np.uint8)
+    cs = model.input_spec.input_size
+    oy, ox = (hw[0] - cs) // 2, (hw[1] - cs) // 2
+    calib = np.concatenate([frames[:2, oy:oy + cs, ox:ox + cs]] * 5)
+    return _time_steps(f"{model.arch} Flow", model, frames, calib, smi,
+                       modality="Flow")
 
 
 def _device_intervals(prof):
@@ -560,7 +791,7 @@ def profile_calls(out_dir: str, name: str, fn, reps: int) -> None:
               f"{us / total:6.1%}  {n[:90]}", flush=True)
 
 
-def profile_cli(out_dir: str, cli) -> None:
+def profile_cli(out_dir: str, name: str, cli) -> None:
     """Device busy share of one whole ``ssn_test`` run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -574,10 +805,10 @@ def profile_cli(out_dir: str, cli) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy = _busy_us(_device_intervals(prof))
-    with open(_profile_out(out_dir, "ssn_test"), "w") as f:
+    with open(_profile_out(out_dir, name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                           row_limit=40))
-    print(f"profile ssn_test: wall {wall_us / 1e3:.1f} ms, device busy "
+    print(f"profile {name}: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms = {busy / wall_us:.1%}", flush=True)
 
 
@@ -605,25 +836,36 @@ def main() -> int:
     print(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s", flush=True)
 
     rows = check_kernels(card)
-    launches = main_path(card, smi, profile)
+    paths = main_path(card, smi, profile)
 
-    sources = {"int8_conv": ("action_detection_torch/csrc/int8_conv.cu",
-                             f"{TPU_SRC}:257"),
-               "int8_max_pool": ("action_detection_torch/csrc/int8_pool.cu",
-                                 f"{TPU_SRC}:230"),
-               "int8_avg_pool": ("action_detection_torch/csrc/int8_pool.cu",
-                                 f"{TPU_SRC}:244"),
-               "max_pool_bwd": ("action_detection_torch/csrc/pool_bwd.cu",
-                                "action_detection_tpu/ops/pool_bwd_pallas.py"
-                                ":262")}
+    conv, pool = ("action_detection_torch/csrc/int8_conv.cu",
+                  "action_detection_torch/csrc/int8_pool.cu")
+    # row -> (source, TPU function it replaces, main path, launch counter)
+    sources = {
+        "int8_conv": (conv, f"{TPU_SRC}:257", "bninception_rgb",
+                      "int8_conv"),
+        "int8_conv/per_axis_pad": (conv, f"{IV3_SRC}:288", "inceptionv3_rgb",
+                                   "int8_conv"),
+        "int8_max_pool": (pool, f"{TPU_SRC}:230", "bninception_rgb",
+                          "int8_max_pool"),
+        "int8_max_pool/valid": (pool, f"{IV3_SRC}:300", "inceptionv3_rgb",
+                                "int8_max_pool"),
+        "int8_avg_pool": (pool, f"{TPU_SRC}:244", "bninception_rgb",
+                          "int8_avg_pool"),
+        "int8_avg_pool/exclude_pad": (pool, f"{IV3_SRC}:305",
+                                      "inceptionv3_rgb",
+                                      "int8_avg_pool_exclude_pad"),
+        "max_pool_bwd": ("action_detection_torch/csrc/pool_bwd.cu",
+                         "action_detection_tpu/ops/pool_bwd_pallas.py:262",
+                         "train", "max_pool_bwd")}
     kernels = []
     for name, shapes in rows.items():
-        src, replaces = sources[name]
+        src, replaces, path, counter = sources[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": paths[path][counter],
             "max_abs_err": max(r[1] for r in shapes),
-            # summed over the slice shapes checked above
+            # summed over the shapes checked above
             "ms": sum(r[2] for r in shapes),
             "plain_ms": sum(r[3] for r in shapes)})
     print(json.dumps({"kernels": kernels}))

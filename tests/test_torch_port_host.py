@@ -156,7 +156,7 @@ def test_synthetic_frames_byte_equal(modality):
                                        ("TinyConv", (80, 72))])
 def test_calibration_frames_byte_equal(tmp_path, arch, size):
     """The 10-crop calibration frames: numpy slicing/flipping at the THUMOS
-    scale size, and through the PIL rescale at TinyConv's."""
+    scale size, and through the numpy rescale at TinyConv's."""
     pf = write_proposal_list(tmp_path / "p.txt", n_videos=3, seed=1)
     spec = get_backbone(arch, "RGB")[2]
     w, h = size

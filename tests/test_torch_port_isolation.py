@@ -3,9 +3,11 @@
 A subprocess blocks those four packages (``sys.modules[name] = None`` makes
 any import of them raise), imports every module of action_detection_torch,
 scores a synthetic video through the int8-e2e shared-stem ProposalScorer on
-the CPU (plain kernels) at a small geometry whose frames are already
-scale-size, so no resize is needed, and takes one BNInception SSN training
-step (the max-pool backward on its plain version)."""
+the CPU (plain kernels) for BNInception RGB (frames already at the scale
+size), InceptionV3 RGB (frames resized by the numpy resize) and BNInception
+and InceptionV3 Flow (10-channel stacks), resizes a THUMOS frame to
+InceptionV3's scale size 341, and takes one BNInception SSN training step
+(the max-pool backward on its plain version)."""
 
 import os
 import subprocess
@@ -35,8 +37,37 @@ SCRIPT = textwrap.dedent("""
     from action_detection_torch.infer.scorer import (
         ProposalScorer, dump_scores_pickle, score_videos)
     from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.data.transforms import scale_frame
     from action_detection_torch.models.backbones import InputSpec
 
+    big = scale_frame(np.zeros((256, 340, 3), np.uint8), 341)
+    assert big.shape == (341, 452, 3), big.shape
+
+    def score(pf, arch, modality, size, frame_wh):
+        new_length = 1 if modality == "RGB" else 5
+        ds = SSNDataset(pf, cfg.sampling, new_length=new_length,
+                        test_interval=60)
+        model = seeded_init(SSN(num_class=20, base_model=arch,
+                                modality=modality, dropout=0.0), seed=0)
+        base = model.input_spec
+        spec = InputSpec(size, base.mean, base.std, base.bgr, base.div255)
+        provider = SyntheticFrameProvider(width=frame_wh[0],
+                                          height=frame_wh[1],
+                                          modality=modality)
+        calib = collect_calibration_frames(ds, provider, spec.input_size,
+                                           spec.scale_size,
+                                           new_length=new_length)
+        factory = lambda dev: ProposalScorer(
+            model, spec, reg_stats=np.array([[0.0, 0.0], [1.0, 1.0]]),
+            num_class=20, chunk_frames=4, modality=modality, device=dev,
+            quantize="e2e", calibration_frames=calib, shared_stem=True)
+        res = score_videos(factory, ds, provider, device="cpu")
+        out = os.path.join(d, "scores.pkl")
+        dump_scores_pickle(res, out)
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    all_scores = []
     with tempfile.TemporaryDirectory() as d:
         pf = os.path.join(d, "props.txt")
         with open(pf, "w") as f:
@@ -44,24 +75,14 @@ SCRIPT = textwrap.dedent("""
                     "2 0.8500 0.9000 50 210\\n2 0.2000 0.9000 90 150\\n"
                     "0 0.0000 0.0000 230 290\\n")
         cfg = get_configs("thumos14")
-        ds = SSNDataset(pf, cfg.sampling, test_interval=30)
-        model = seeded_init(SSN(num_class=20, base_model="BNInception",
-                                dropout=0.0), seed=0)
-        base = model.input_spec
-        spec = InputSpec(64, base.mean, base.std, base.bgr, base.div255)
-        # 97x73 frames are already at this spec's scale size (73)
+        # 97x73 frames are already at the 64^2 spec's scale size (73); the
+        # 75^2 spec's (85) resizes them
+        for arch, modality, size in (("BNInception", "RGB", 64),
+                                     ("InceptionV3", "RGB", 75),
+                                     ("BNInception", "Flow", 64),
+                                     ("InceptionV3", "Flow", 75)):
+            all_scores.append(score(pf, arch, modality, size, (97, 73)))
         provider = SyntheticFrameProvider(width=97, height=73)
-        calib = collect_calibration_frames(ds, provider, spec.input_size,
-                                           spec.scale_size)
-        factory = lambda dev: ProposalScorer(
-            model, spec, reg_stats=np.array([[0.0, 0.0], [1.0, 1.0]]),
-            num_class=20, chunk_frames=4, device=dev, quantize="e2e",
-            calibration_frames=calib, shared_stem=True)
-        res = score_videos(factory, ds, provider, device="cpu")
-        out = os.path.join(d, "scores.pkl")
-        dump_scores_pickle(res, out)
-        with open(out, "rb") as f:
-            scores = pickle.load(f)
         from action_detection_torch.data.pipeline import assemble_train_batch
         from action_detection_torch.data.transforms import (
             Compose, GroupCenterCrop, GroupRandomHorizontalFlip, GroupScale)
@@ -79,10 +100,11 @@ SCRIPT = textwrap.dedent("""
                                cfg.sampling)
         met = step(batch_to_device(batch, "cpu"))
     assert all(np.isfinite(v.item()) for v in met.values()), met
-    rel, act, comp, reg = scores["video_0"]
-    assert act.shape == (3, 21) and comp.shape == (3, 20)
-    assert reg.shape == (3, 20, 2)
-    assert all(np.isfinite(a).all() for a in (act, comp, reg))
+    for scores in all_scores:
+        rel, act, comp, reg = scores["video_0"]
+        assert act.shape == (3, 21) and comp.shape == (3, 20)
+        assert reg.shape == (3, 20, 2)
+        assert all(np.isfinite(a).all() for a in (act, comp, reg))
     leaked = sorted(m for m in ("jax", "flax", "yaml", "PIL")
                     if sys.modules.get(m) is not None)
     assert not leaked, leaked

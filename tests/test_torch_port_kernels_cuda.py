@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1-K3 and A1 against their plain torch versions.
+"""The port's CUDA kernels K1-K3 (K1 with per-axis pads, K3 in both
+modes) and A1 against their plain torch versions.
 
 These need a card (a CUDA kernel has no CPU mode): each case carries the
 ``cuda`` marker and skips where torch sees no CUDA device. The file imports
@@ -57,6 +58,37 @@ def test_cuda_conv_matches_plain(cuda_device, case, out_dtype):
     assert torch.equal(got.cpu(), ref)
 
 
+# InceptionV3 convs: (N, H, W, C, O, (KH, KW), stride, (pad_h, pad_w))
+IV3_CONV_CASES = [
+    (2, 9, 9, 48, 64, (5, 5), 1, (2, 2)),      # Mixed_5b branch5x5_2
+    (2, 9, 8, 32, 24, (1, 7), 1, (0, 3)),      # Mixed_6b branch7x7_2
+    (2, 9, 8, 32, 40, (7, 1), 1, (3, 0)),      # branch7x7_3
+    (2, 11, 11, 16, 36, (3, 3), 2, (0, 0)),    # Mixed_6a branch3x3 VALID s2
+    (3, 4, 5, 64, 20, (1, 3), 1, (0, 1)),      # Mixed_7b branch3x3_2a
+    (3, 4, 5, 64, 20, (3, 1), 1, (1, 0)),      # branch3x3_2b
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IV3_CONV_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+def test_cuda_conv_per_axis_pad_matches_plain(cuda_device, case, out_dtype):
+    N, H, W, C, O, (kh, kw), stride, pad = case
+    g = torch.Generator().manual_seed(N * H * W + C + O)
+    x = torch.randint(0, 128, (N, H, W, C), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (O, kh, kw, C), generator=g,
+                      dtype=torch.int8)
+    m = torch.rand(O, generator=g) * 4.0 / (kh * kw * C * 64)
+    b = torch.randn(O, generator=g) * 20
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad, out_dtype)
+    before = k.int8_conv.launches
+    got = k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)), stride,
+                      pad, out_dtype)
+    torch.cuda.synchronize()
+    assert k.int8_conv.launches == before + 1
+    assert got.shape == ref.shape and torch.equal(got.cpu(), ref)
+
+
 @pytest.mark.cuda
 def test_cuda_conv_reads_channel_slice(cuda_device):
     x, w, m, b = _conv_inputs((2, 9, 9, 32, 24, 3, 1, 1))
@@ -92,6 +124,36 @@ def test_cuda_avg_pool_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert k.int8_avg_pool.launches == before + 1
     assert torch.equal(got.cpu(), k.int8_avg_pool_plain(x, 3, 1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(35, 35), (17, 17), (8, 8), (7, 10), (1, 1)])
+def test_cuda_avg_pool_exclude_pad_matches_plain(cuda_device, hw):
+    """K3's exclude-pad mode (InceptionV3's 3x3 s1 SAME pools, divisors 9,
+    6 and 4) on signed inputs, .5 ties included."""
+    g = torch.Generator().manual_seed(hw[0] * 31 + hw[1])
+    x = torch.randint(-128, 128, (3,) + hw + (40,), generator=g,
+                      dtype=torch.int8)
+    before = k.int8_avg_pool_exclude_pad.launches
+    got = k.int8_avg_pool_exclude_pad(x.to(cuda_device), 3, 1, 1)
+    torch.cuda.synchronize()
+    assert k.int8_avg_pool_exclude_pad.launches == before + 1
+    assert torch.equal(got.cpu(), k.int8_avg_pool_plain(
+        x, 3, 1, 1, count_include_pad=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(35, 35), (17, 17)])
+def test_cuda_max_pool_valid_matches_plain(cuda_device, hw):
+    """K2 at zero pads: InceptionV3's VALID 3x3 s2 pools."""
+    g = torch.Generator().manual_seed(hw[0])
+    x = torch.randint(-128, 128, (2,) + hw + (24,), generator=g,
+                      dtype=torch.int8)
+    args = (3, 2, ((0, 0), (0, 0)))
+    got = k.int8_max_pool(x.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert got.shape[1:3] == ((hw[0] - 3) // 2 + 1,) * 2
+    assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, *args))
 
 
 A1_CASES = [  # kernel, stride, padding, H, W

@@ -126,4 +126,4 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_unported_backbone_names_the_later_slice():
     with pytest.raises(ValueError, match="not ported yet"):
-        get_backbone("InceptionV3")
+        get_backbone("resnet50")

@@ -42,28 +42,65 @@ from tests.test_torch_port_int8 import _jitter
 class ArrayProvider:
     """The fixture's frames as the port's providers give them: uint8 arrays."""
 
-    modality = "RGB"
-
     def __init__(self, pil_provider):
         self.pil = pil_provider
+        self.modality = pil_provider.modality
 
     def load(self, vid, idx):
         return [np.asarray(im) for im in self.pil.load(vid, idx)]
 
 
-def _color_detector():
-    """tests/test_int8.build_color_detector with a jitted init: a REAL
-    detector without training (the activity head interpolates class-mean
-    backbone features; completeness is 2*course - start - end)."""
+def _flow_planes(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) color-coded pixels -> (..., 2) flow planes: x = red, y =
+    (green + 2 blue) / 3. Every class keeps its own (x, y) pair under the
+    flipped crops' flow-x inversion (x -> 255 - x), so the class means the
+    10 crops see stay apart (x = red, y = green would map two classes onto
+    near-equal crop means)."""
+    rgb = rgb.astype(np.uint16)
+    return np.stack([rgb[..., 0], (rgb[..., 1] + 2 * rgb[..., 2]) // 3],
+                    axis=-1).astype(np.uint8)
+
+
+class FlowColorProvider:
+    """The color-coded frames as flow planes (:func:`_flow_planes`), PIL
+    ``L`` images as the JAX providers give flow frames."""
+
+    modality = "Flow"
+
+    def __init__(self, gt):
+        self.rgb = ColorCodedProvider(gt)
+
+    def load(self, vid, idx):
+        from PIL import Image
+
+        xy = _flow_planes(np.asarray(self.rgb.load(vid, idx)[0]))
+        return [Image.fromarray(np.ascontiguousarray(xy[..., c]), "L")
+                for c in (0, 1)]
+
+
+def _flow_stack(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) color-coded pixels -> (..., 10) flow stacks of new_length 5
+    (:func:`_flow_planes` per frame)."""
+    return np.concatenate([_flow_planes(rgb)] * 5, axis=-1)
+
+
+def _color_detector(arch="BNInception", size=64, modality="RGB"):
+    """tests/test_int8.build_color_detector for any backbone, crop size and
+    modality: a REAL detector without training (the activity head
+    interpolates class-mean backbone features; completeness is 2*course -
+    start - end). Flow's class means average the plain stacks and the
+    flipped ones (flow-x inverted), as the 10 crops do."""
     K = DET_K
-    model = JSSN(num_class=K, base_model="BNInception", dropout=0.0)
+    model = JSSN(num_class=K, base_model=arch, modality=modality,
+                 dropout=0.0)
+    c_in = 3 if modality == "RGB" else 10
     hv = jitted_init(model, {"params": jax.random.PRNGKey(1)},
-                     jnp.zeros((1, 9, 64, 64, 3)), jnp.ones((1, 2)),
+                     jnp.zeros((1, 9, size, size, c_in)), jnp.ones((1, 2)),
                      train=False)
     params = dict(jax.device_get(hv["params"]))
     batch_stats = dict(jax.device_get(hv.get("batch_stats") or {}))
-    backbone, _, base = j_get_backbone("BNInception", "RGB")
-    small = base.__class__(64, base.mean, base.std, base.bgr, base.div255)
+    backbone, dim, base = j_get_backbone(arch, modality)
+    small = base.__class__(size, base.mean, base.std, base.bgr, base.div255)
     bvars = {"params": params["backbone"]}
     if "backbone" in batch_stats:
         bvars["batch_stats"] = batch_stats["backbone"]
@@ -73,11 +110,17 @@ def _color_detector():
 
     mu = []
     for lab in range(K + 1):
-        imgs = [np.clip(np.asarray(DET_PAL[lab], np.int16)
-                        + np.random.RandomState(lab * 100 + i)
-                        .randint(-12, 13, size=(64, 64, 3)), 0, 255)
-                .astype(np.uint8) for i in range(4)]
-        x = preprocess_frames(jnp.asarray(np.stack(imgs)), small, "RGB", 1)
+        imgs = np.stack([np.clip(np.asarray(DET_PAL[lab], np.int16)
+                                 + np.random.RandomState(lab * 100 + i)
+                                 .randint(-12, 13, size=(size, size, 3)),
+                                 0, 255).astype(np.uint8) for i in range(4)])
+        if modality == "Flow":
+            imgs = _flow_stack(imgs)
+            inv = imgs.copy()
+            inv[..., 0::2] = 255 - inv[..., 0::2]
+            imgs = np.concatenate([imgs, inv])
+        x = preprocess_frames(jnp.asarray(imgs), small, modality,
+                              1 if modality == "RGB" else 5)
         mu.append(np.asarray(apply(bvars, x)).mean(0))
     mu = np.stack(mu).astype(np.float64)
     A = np.concatenate([mu, np.ones((K + 1, 1))], 1)
@@ -93,7 +136,7 @@ def _color_detector():
     params["completeness_fc"] = {
         "kernel": np.concatenate([-wc, 2 * wc, -wc]).astype(np.float32),
         "bias": np.zeros(K, np.float32)}
-    params["regressor_fc"] = {"kernel": np.zeros((3 * 1024, 2 * K),
+    params["regressor_fc"] = {"kernel": np.zeros((3 * dim, 2 * K),
                                                  np.float32),
                               "bias": np.zeros(2 * K, np.float32)}
     reg_stats = np.array([[0.0, 0.0], [0.05, 0.05]], np.float32)
@@ -108,35 +151,43 @@ def _map(results, ds, K):
                                      workers=1).mean())
 
 
-def test_sharedstem_int8_slice_matches_jax(tmp_path):
+def check_int8_slice(tmp_path, arch="BNInception", size=64, modality="RGB"):
     """The deployed default end to end (10 device crops, bf16 stem once per
     frame+flip, int8 trunk on the plain kernels, fused FC, STPP pool,
-    reg_stats): the port's scores track the JAX scorer's within int8's
-    combined-score bound, and mAP moves by < 0.5 point."""
+    reg_stats) on the color-coded fixture, port against the JAX scorer: the
+    normalized combined score within int8's bound 0.12, mAP within 0.005."""
     K = DET_K
-    jmodel, params, batch_stats, small, reg_stats = _color_detector()
+    new_length = 1 if modality == "RGB" else 5
+    jmodel, params, batch_stats, small, reg_stats = _color_detector(
+        arch, size, modality)
     pf, gt_by = write_detection_fixture(str(tmp_path / "p.txt"), n_videos=2)
-    calib = detection_calibration_frames()
+    calib = detection_calibration_frames(size)
     pil = ColorCodedProvider(gt_by)
+    if modality == "Flow":
+        calib, pil = _flow_stack(calib), FlowColorProvider(gt_by)
 
-    jds = JSSNDataset(pf, JSamplingConfig(), test_interval=40)
+    jds = JSSNDataset(pf, JSamplingConfig(), new_length=new_length,
+                      test_interval=40)
     jscorer = JScorer(jmodel, params, batch_stats or None, small,
                       reg_stats=reg_stats, num_class=K, test_crops=10,
-                      chunk_frames=4, device_crops=True, quantize="e2e",
-                      calibration_frames=calib, shared_stem=True)
+                      chunk_frames=4, modality=modality, device_crops=True,
+                      quantize="e2e", calibration_frames=calib,
+                      shared_stem=True)
     ref = {}
     for i in range(len(jds.video_list)):
         out = jscorer.score_video(jds.get_test_sample(i), pil)
         ref[out.video_id] = out.as_tuple()
     jscorer.close()
 
-    model = SSN(num_class=K, base_model="BNInception", dropout=0.0)
+    model = SSN(num_class=K, base_model=arch, modality=modality, dropout=0.0)
     model.load_state_dict(state_dict_from_jax(params, batch_stats))
-    ds = SSNDataset(pf, SamplingConfig(), test_interval=40)
+    ds = SSNDataset(pf, SamplingConfig(), new_length=new_length,
+                    test_interval=40)
     scorer = ProposalScorer(model, InputSpec(*astuple(small)),
                             reg_stats=reg_stats, num_class=K,
-                            chunk_frames=4, device="cpu", quantize="e2e",
-                            calibration_frames=calib, shared_stem=True)
+                            chunk_frames=4, modality=modality, device="cpu",
+                            quantize="e2e", calibration_frames=calib,
+                            shared_stem=True)
     assert scorer.shared_stem
     got = {}
     with scorer:
@@ -156,14 +207,21 @@ def test_sharedstem_int8_slice_matches_jax(tmp_path):
         comb_g = softmax(act_g)[:, 1:] * np.exp(comp_g)
         max_norm_delta = max(max_norm_delta, float(
             np.abs(comb_g - comb_r).max() / comb_r.max()))
-    print(f"port vs JAX int8-e2e shared-stem: max normalized combined-score "
-          f"delta {max_norm_delta:.5f}")
+    print(f"port vs JAX int8-e2e shared-stem {arch} {modality}: max "
+          f"normalized combined-score delta {max_norm_delta:.5f}")
     assert max_norm_delta < 0.12, max_norm_delta
 
     m_ref, m_got = _map(ref, jds, K), _map(got, jds, K)
     print(f"mAP: JAX {m_ref:.4f}, port {m_got:.4f}")
     assert m_ref > 0.8, m_ref       # the fixture is a real detector
     assert abs(m_got - m_ref) < 0.005, (m_got, m_ref)
+
+
+def test_sharedstem_int8_slice_matches_jax(tmp_path):
+    """The deployed default (BNInception RGB) end to end: the port's scores
+    track the JAX scorer's within int8's combined-score bound, and mAP moves
+    by < 0.5 point."""
+    check_int8_slice(tmp_path)
 
 
 def test_prequantized_and_lazy_calibration(tmp_path):
@@ -204,7 +262,7 @@ def test_prequantized_and_lazy_calibration(tmp_path):
         ProposalScorer(model, spec, device="cpu")
 
 
-def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
+def check_cli(tmp_path, monkeypatch, modality="RGB"):
     """The port's ssn_test (TinyConv, synthetic frames, float path) writes
     the JAX CLI's pickle from the same weights, within 1e-4."""
     from action_detection_tpu.cli.ssn_test import main as jax_main
@@ -216,9 +274,11 @@ def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     write_proposal_list(tmp_path / "thumos14_tag_test_proposal_list.txt",
                         n_videos=2, seed=7)
-    jm = JSSN(num_class=20, base_model="TinyConv", dropout=0.0)
+    c_in = 3 if modality == "RGB" else 10
+    jm = JSSN(num_class=20, base_model="TinyConv", modality=modality,
+              dropout=0.0)
     v = _jitter(jm.init({"params": jax.random.PRNGKey(4)},
-                        jnp.zeros((1, 9, 32, 32, 3)), jnp.ones((1, 2)),
+                        jnp.zeros((1, 9, 32, 32, c_in)), jnp.ones((1, 2)),
                         train=False), seed=4)
     rng = np.random.RandomState(5)
     params = jax.tree_util.tree_map_with_path(
@@ -235,9 +295,9 @@ def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
     common = ["--arch", "TinyConv", "--synthetic_data", "--prop_file_dir",
               str(tmp_path), "--frame_interval", "30", "--test_batchsize",
               "8", "--save_raw_scores"]
-    jax_main(["thumos14", "RGB", "w.msgpack", "j.pkl"] + common
+    jax_main(["thumos14", modality, "w.msgpack", "j.pkl"] + common
              + ["j_raw.pkl", "--devices", "0"])
-    port_main(["thumos14", "RGB", "w.pt", "p.pkl"] + common
+    port_main(["thumos14", modality, "w.pt", "p.pkl"] + common
               + ["p_raw.pkl", "--device", "cpu"])
     with open("j.pkl", "rb") as f:
         ref = pickle.load(f)
@@ -256,3 +316,9 @@ def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
     for vid in raw_ref:
         np.testing.assert_allclose(raw_got[vid], raw_ref[vid], rtol=0,
                                    atol=1e-4)
+
+
+def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
+    """The port's ssn_test (TinyConv, synthetic frames, float path) writes
+    the JAX CLI's pickle from the same weights, within 1e-4."""
+    check_cli(tmp_path, monkeypatch)
