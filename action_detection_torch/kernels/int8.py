@@ -1,26 +1,33 @@
-"""The int8 kernels of the scoring path: wrappers, plain versions, counters.
+"""The int8 kernels of the scoring path: wrappers, plans, plain versions,
+counters.
 
 Three hand-written CUDA kernels (``csrc/int8_conv.cu``,
 ``csrc/int8_pool.cu``) carry the int8 end-to-end BNInception and
 InceptionV3 trunks:
 
-* K1 :func:`int8_conv` — s8 x s8 -> s32 NHWC conv, padded per axis
-  (``(pad_h, pad_w)``: InceptionV3's 1x7/7x1/1x3/3x1 convs), with the
-  requantizing int8 epilogue (runtime) or the bf16 dequantizing epilogue
-  (calibration);
+* K1 :func:`int8_conv` — s8 x s8 -> s32 NHWC conv on the int8 tensor cores
+  (``wgmma``), padded per axis (``(pad_h, pad_w)``: InceptionV3's
+  1x7/7x1/1x3/3x1 convs), with the requantizing int8 epilogue (runtime) or
+  the bf16 dequantizing epilogue (calibration); its tile is
+  :func:`int8_conv_plan`;
 * K2 :func:`int8_max_pool` — int8 max pool over explicit padding that
   never wins (-128), or none (InceptionV3's VALID pools);
-* K3 — int8 average pool, one kernel with two modes and a wrapper each:
-  :func:`int8_avg_pool` counts padded cells (BNInception's Caffe pools),
-  :func:`int8_avg_pool_exclude_pad` divides by the in-image cells only
-  (InceptionV3's SAME pools: 9, 6 or 4).
+* K3 — int8 3x3 s1 p1 average pool, one tiled kernel with two modes and a
+  wrapper each: :func:`int8_avg_pool` counts padded cells (BNInception's
+  Caffe pools), :func:`int8_avg_pool_exclude_pad` divides by the in-image
+  cells only (InceptionV3's SAME pools: 9, 6 or 4); its tile is
+  :func:`int8_avg_pool_plan`.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. On a CUDA tensor it launches the kernel on the
 current stream, raises if the launch reports an error, and adds one to its
 ``launches`` count; on a CPU tensor it runs the kernel's plain version
 (``*_plain``), which is also what the kernels are compared with. There is
-no fallback from CUDA to the plain version.
+no fallback from CUDA to the plain version. K1 and K3 read and write 16
+bytes at a time, so on CUDA they take only channel counts, pixel strides
+and addresses that are multiples of 16 (:func:`int8_conv_refusal`; every
+conv and pool of both trunks meets it); the CPU path keeps the looser
+checks of the plain versions.
 
 Every function keeps the JAX package's NHWC layout and its exact rounding:
 the plain versions are bit-identical to ``_conv_i8_e2e``, ``_conv_int8``,
@@ -31,7 +38,9 @@ and to ``_ForwardOps._conv_layer``, ``max_pool`` and ``avg_pool_same`` of
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import collections
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +51,24 @@ _OUT_DTYPES = (torch.int8, torch.bfloat16)
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 #: a conv's symmetric padding: one int for both axes, or (pad_h, pad_w)
 ConvPad = Union[int, Tuple[int, int]]
+
+
+# K1's tile (csrc/int8_conv.cu: kBM, kBK, kStages); the column tile (32,
+# 64 or 128) is planned per shape
+CONV_BM = 128       # output pixels per block: two warpgroups of m64
+CONV_BK = 128       # depth bytes per pipeline stage: four k32 steps
+CONV_STAGES = 4     # ring depth: stage k+2 loads while stage k multiplies
+ConvPlan = collections.namedtuple(
+    "ConvPlan", "M K bn m_tiles n_tiles k_stages smem")
+
+# K3's tile (csrc/int8_pool.cu): at most POOL_TILE_H x POOL_TILE_W output
+# cells and POOL_THREADS threads a block, the halo tile within POOL_SMEM
+POOL_TILE_H = 8
+POOL_TILE_W = 8
+POOL_THREADS = 256
+POOL_SMEM = 48 * 1024
+AvgPoolPlan = collections.namedtuple(
+    "AvgPoolPlan", "tile_h tile_w tiles_h tiles_w slab slabs smem")
 
 
 def conv_pads(pad: ConvPad) -> Tuple[int, int]:
@@ -104,6 +131,71 @@ def int8_avg_pool_plain(x: torch.Tensor, kernel: int, stride: int,
             .permute(0, 2, 3, 1).contiguous())
 
 
+# --- tile plans -------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def int8_conv_plan(N: int, Ho: int, Wo: int, O: int, KH: int, KW: int,
+                   C: int) -> ConvPlan:
+    """K1's launch plan: ``M = N*Ho*Wo`` output pixels in row tiles of
+    ``CONV_BM``, ``O`` output channels in column tiles of ``bn``, the depth
+    ``K = KH*KW*C`` in ``k_stages`` stages of ``CONV_BK`` bytes (the last
+    zero-filled past ``K``); ``smem`` is the block's dynamic shared memory
+    for the int8 epilogue: the ring slots ``k_stages`` uses (at most
+    ``CONV_STAGES``) or the output tile, whichever is larger, + 1024.
+
+    ``bn`` is 32 for ``O <= 32``; else 64 where 64-column tiles pad ``O``
+    to fewer columns than 128-column ones (or ``O <= 64``); else 128.
+    """
+    M = N * Ho * Wo
+    K = KH * KW * C
+    if O <= 32:
+        bn = 32
+    elif O <= 64 or _cdiv(O, 64) * 64 < _cdiv(O, 128) * 128:
+        bn = 64
+    else:
+        bn = 128
+    k_stages = _cdiv(K, CONV_BK)
+    ring = min(k_stages, CONV_STAGES) * (CONV_BM + bn) * CONV_BK
+    return ConvPlan(M=M, K=K, bn=bn, m_tiles=_cdiv(M, CONV_BM),
+                    n_tiles=_cdiv(O, bn), k_stages=k_stages,
+                    smem=max(ring, CONV_BM * (bn + 16)) + 1024)
+
+
+def _balanced_tile(size: int, most: int) -> int:
+    """The tile that cuts ``size`` into the fewest pieces of at most
+    ``most``, as even as they go (35 at most 8: 7 x 5)."""
+    return _cdiv(size, _cdiv(size, most))
+
+
+@functools.lru_cache(maxsize=256)
+def int8_avg_pool_plan(H: int, W: int, C: int,
+                       tile_h: int = POOL_TILE_H,
+                       tile_w: int = POOL_TILE_W) -> AvgPoolPlan:
+    """K3's launch plan for an (N, H, W, C) 3x3 s1 p1 pool: a block owns
+    ``tile_h x tile_w`` output cells (balanced cuts of at most the given
+    sizes) of one image and ``slab`` of the ``C / 16`` 16-byte channel
+    chunks: the largest divisor of ``C / 16`` that keeps the block within
+    ``POOL_THREADS`` threads (one per column and chunk) and its halo tile,
+    ``(tile_h + 2) x (tile_w + 2)`` cells of the slab, within
+    ``POOL_SMEM`` bytes."""
+    _require(C % 16 == 0, f"int8_avg_pool_plan needs C % 16 == 0, got {C}")
+    tile_h = _balanced_tile(H, tile_h)
+    tile_w = _balanced_tile(W, tile_w)
+    chunks = C // 16
+    slab = max(d for d in range(1, chunks + 1) if chunks % d == 0
+               and d * tile_w <= POOL_THREADS
+               and (tile_h + 2) * (tile_w + 2) * d * 16 <= POOL_SMEM)
+    return AvgPoolPlan(tile_h=tile_h, tile_w=tile_w,
+                       tiles_h=_cdiv(H, tile_h), tiles_w=_cdiv(W, tile_w),
+                       slab=slab, slabs=chunks // slab,
+                       smem=(tile_h + 2) * (tile_w + 2) * slab * 16)
+
+
 # --- wrappers ---------------------------------------------------------------
 
 
@@ -132,6 +224,29 @@ def _check_launch(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+def int8_conv_refusal(x: torch.Tensor, w: torch.Tensor) -> Optional[str]:
+    """Why K1 on the card would refuse these operands, or None: it needs
+    ``C % 16 == 0``, an NHWC ``x`` (or a channel slice of one) whose pixel
+    stride is a multiple of 16 and whose data starts 16-byte aligned, and a
+    contiguous, 16-byte aligned ``w``. Device-independent, so the CPU tests
+    can walk the trunks through it."""
+    N, H, W, C = x.shape
+    ps = x.stride(2)
+    if C % 16:
+        return f"int8_conv on CUDA needs C % 16 == 0, got C={C}"
+    if not (x.stride(3) == 1 and ps >= C and ps % 16 == 0
+            and (H == 1 or x.stride(1) == W * ps)
+            and (N == 1 or x.stride(0) == H * W * ps)):
+        return (f"int8_conv on CUDA needs an NHWC x or a channel slice of "
+                f"one with a pixel stride % 16 == 0 (strides {x.stride()})")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        return ("int8_conv on CUDA needs 16-byte aligned x and w (a channel "
+                "slice must start at a multiple of 16 channels)")
+    if not w.is_contiguous():
+        return "int8_conv needs a contiguous w"
+    return None
+
+
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
               bias: torch.Tensor, stride: int = 1, pad: ConvPad = 0,
               out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
@@ -142,7 +257,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (``scale``/``bias`` are the e2e ``m``/``bq``); ``torch.bfloat16``:
     ``bf16(max(y*scale + bias, 0))`` (``scale = sx*sw``, the calibration
     conv). ``x`` may be a channel slice of a wider NHWC tensor; ``C`` must be
-    a multiple of 4.
+    a multiple of 4, and on CUDA of 16 (:func:`int8_conv_refusal`).
     """
     on_cuda = _cuda_or_cpu(x, w, scale, bias)
     _require(x.dim() == 4 and w.dim() == 4, "x must be NHWC, w (O,KH,KW,C)")
@@ -165,15 +280,16 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if not on_cuda:
         return int8_conv_plain(x, w, scale, bias, stride, pad, out_dtype)
 
+    refusal = int8_conv_refusal(x, w)
+    _require(refusal is None, refusal)
+    _require(scale.is_contiguous() and bias.is_contiguous(),
+             "scale and bias must be contiguous")
     ps = x.stride(2)
-    _require(x.stride(3) == 1 and ps >= C and ps % 4 == 0
-             and (H == 1 or x.stride(1) == W * ps)
-             and (N == 1 or x.stride(0) == H * W * ps)
-             and x.data_ptr() % 4 == 0,
-             f"x must be an NHWC tensor or a 4-aligned channel slice of one "
-             f"(strides {x.stride()})")
-    _require(w.is_contiguous() and scale.is_contiguous()
-             and bias.is_contiguous(), "w, scale and bias must be contiguous")
+    plan = int8_conv_plan(N, Ho, Wo, O, KH, KW, C)
+    _require(plan.M < 2 ** 31 and plan.m_tiles <= 65535
+             and H * W * ps < 2 ** 31 and O * plan.K < 2 ** 31,
+             f"int8_conv: {tuple(x.shape)} -> {O} exceeds the kernel's "
+             "32-bit offsets")
     out = torch.empty((N, Ho, Wo, O), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -184,34 +300,10 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         rc = lib.adt_int8_conv(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), N, H, W, C, ps, O, KH, KW, stride, pad_h, pad_w,
-            Ho, Wo, int(out_dtype == torch.bfloat16), _stream_ptr())
+            Ho, Wo, plan.bn, int(out_dtype == torch.bfloat16),
+            _stream_ptr())
     _check_launch(rc, "int8_conv")
     int8_conv.launches += 1
-    return out
-
-
-def _pool(wrapper, entry: str, x: torch.Tensor, kernel: int, stride: int,
-          pads: Pads, *mode: int) -> torch.Tensor:
-    """Launch a pool kernel (``mode``: the entry point's extra int
-    arguments); counts the launch on ``wrapper``."""
-    name = wrapper.__name__
-    N, H, W, C = x.shape
-    (t, b), (l, r) = pads
-    Ho = (H + t + b - kernel) // stride + 1
-    Wo = (W + l + r - kernel) // stride + 1
-    _require(Ho > 0 and Wo > 0 and t == l, f"{name}: unsupported geometry")
-    _require(x.is_contiguous(), f"{name}: x must be contiguous NHWC")
-    out = torch.empty((N, Ho, Wo, C), dtype=torch.int8, device=x.device)
-    if out.numel() == 0:
-        return out
-    from .build import load_library
-
-    fn = getattr(load_library(), entry)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, kernel,
-                stride, t, *mode, _stream_ptr())
-    _check_launch(rc, name)
-    wrapper.launches += 1
     return out
 
 
@@ -224,25 +316,66 @@ def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
     _require(x.dim() == 4 and x.dtype == torch.int8, "x must be int8 NHWC")
     if not on_cuda:
         return int8_max_pool_plain(x, kernel, stride, pads)
-    return _pool(int8_max_pool, "adt_int8_max_pool", x, kernel, stride, pads)
+
+    N, H, W, C = x.shape
+    (t, b), (l, r) = pads
+    Ho = (H + t + b - kernel) // stride + 1
+    Wo = (W + l + r - kernel) // stride + 1
+    _require(Ho > 0 and Wo > 0 and t == l,
+             "int8_max_pool: unsupported geometry")
+    _require(x.is_contiguous(), "int8_max_pool: x must be contiguous NHWC")
+    out = torch.empty((N, Ho, Wo, C), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    from .build import load_library
+
+    with torch.cuda.device(x.device):
+        rc = load_library().adt_int8_max_pool(
+            x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, kernel, stride,
+            t, _stream_ptr())
+    _check_launch(rc, "int8_max_pool")
+    int8_max_pool.launches += 1
+    return out
 
 
 def _avg_pool(wrapper, x: torch.Tensor, kernel: int, stride: int, pad: int,
               count_include_pad: bool) -> torch.Tensor:
+    name = wrapper.__name__
     on_cuda = _cuda_or_cpu(x)
     _require(x.dim() == 4 and x.dtype == torch.int8, "x must be int8 NHWC")
-    _require(0 <= 2 * pad <= kernel, f"{wrapper.__name__}: pad {pad} "
-             f"exceeds half the window {kernel}")
+    _require(0 <= 2 * pad <= kernel, f"{name}: pad {pad} exceeds half the "
+             f"window {kernel}")
     if not on_cuda:
         return int8_avg_pool_plain(x, kernel, stride, pad, count_include_pad)
-    return _pool(wrapper, "adt_int8_avg_pool", x, kernel, stride,
-                 ((pad, pad), (pad, pad)), int(not count_include_pad))
+
+    N, H, W, C = x.shape
+    _require((kernel, stride, pad) == (3, 1, 1), f"{name} on CUDA takes the "
+             f"trunks' 3x3 s1 p1 pool, got k{kernel} s{stride} p{pad}")
+    _require(C % 16 == 0, f"{name} on CUDA needs C % 16 == 0, got C={C}")
+    _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+             f"{name}: x must be contiguous NHWC, 16-byte aligned")
+    _require(H * W * C < 2 ** 31, f"{name}: images of 2**31 bytes or more")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    plan = int8_avg_pool_plan(H, W, C)
+    from .build import load_library
+
+    with torch.cuda.device(x.device):
+        rc = load_library().adt_int8_avg_pool(
+            x.data_ptr(), out.data_ptr(), N, H, W, C, plan.tile_h,
+            plan.tile_w, plan.slab, int(not count_include_pad),
+            _stream_ptr())
+    _check_launch(rc, name)
+    wrapper.launches += 1
+    return out
 
 
 def int8_avg_pool(x: torch.Tensor, kernel: int, stride: int,
                   pad: int) -> torch.Tensor:
     """int8 NHWC count-include-pad average pool (divisor ``kernel**2``),
-    rounded half to even back to the input's scale."""
+    rounded half to even back to the input's scale (on CUDA: 3x3 s1 p1,
+    ``C % 16 == 0``)."""
     return _avg_pool(int8_avg_pool, x, kernel, stride, pad, True)
 
 

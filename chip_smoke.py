@@ -17,12 +17,18 @@ before the final line):
               shapes (640 crops); K1 with per-axis pads (5x5, 1x7, 7x1,
               1x3, VALID 3x3 s2, a fused entry conv and a conv on its
               channel slice), K2 without padding and K3's exclude-pad mode
-              at InceptionV3's 640-crop shapes; and A1 (max-pool backward)
-              at every BNInception max pool of the training step (1,152
-              images). Each is held EXACTLY equal to its plain torch version
-              on the same inputs; median ms of both. A1 also launches twice
-              on the same inputs (equal bits) and prints GB/s of
-              |x|+|y|+|dy|+|dx|.
+              at InceptionV3's 640-crop shapes; K1 at tile tails (rows,
+              columns and depth not multiples of the tile) with signed
+              inputs; and A1 (max-pool backward) at every BNInception max
+              pool of the training step (1,152 images). Each is held
+              EXACTLY equal to its plain torch version on the same inputs;
+              median ms of both, the bound (``work``: the larger of the
+              bytes over 3.35 TB/s and the operations over the peak of
+              their type) and, where one PyTorch call computes the same
+              function, that call's ms (``torch._int_mm`` for K1's 1x1
+              shapes: the GEMM without the epilogue; torch's max-pool
+              backward for A1). A1 also launches twice on the same inputs
+              (equal bits).
 4. main     — four paths, each with the launch counts set to 0 just before
               it and read just after, each required to launch its kernels:
               the port's ``ssn_test`` CLI in-process at full width with the
@@ -46,6 +52,10 @@ before the final line):
               scoring step (BNInception int8 and float, InceptionV3 int8 and
               float, BNInception and InceptionV3 Flow) and of one training
               step.
+
+``python3 chip_smoke.py --kernels-of CHECKOUT`` runs phase 3 alone on the
+kernels of another checkout (e.g. a ``git archive`` of an earlier commit),
+so two versions' kernels are timed by the same method on one card.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler phase: the
 per-kernel device time and the device busy share of the scoring steps
@@ -74,6 +84,8 @@ TRAIN_VIDEOS = 16     # -b 16, the training CLI's default batch
 TRAIN_N = TRAIN_VIDEOS * 8 * 9   # x 8 proposals x 9 segments = 1,152 images
 TRAIN_STEPS = 4
 HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
+INT8_OPS = 1979e12  # dense int8 tensor-core peak, ops/s (NVIDIA data sheet)
+CORE_OPS = 67e12    # float32 peak outside the tensor cores, ops/s (the same)
 TPU_SRC = "action_detection_tpu/models/backbones/bn_inception_int8.py"
 IV3_SRC = "action_detection_tpu/models/backbones/inception_v3_int8.py"
 REG_STATS = [[0.01, -0.02], [0.1, 0.2]]    # the checkpoints' reg_stats
@@ -86,8 +98,41 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _time_kernel_ms(fn, reps: int, graph: bool = True) -> float:
+    """Device time of one ``fn()`` in ms: CUDA events around ``reps`` calls
+    divided by ``reps``, the median of three such runs after a warm-up.
+    With ``graph`` the calls are captured once in a CUDA graph and the
+    graph is replayed, so the wrappers' host work (tens of us a call, more
+    than a small kernel's device time) is not counted; without, the calls
+    are launched back to back (for the plain versions, whose ops are not
+    all capturable)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    calls, run = reps, fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        run, reps = g.replay, 1
+    runs = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            run()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / calls)
+    return statistics.median(runs)
+
+
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events)."""
+    """Median device time of ``fn()`` in ms (CUDA events around each call,
+    synchronized: a scoring step as the CLI runs it)."""
     import torch
 
     for _ in range(warmup):
@@ -104,6 +149,29 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def work(nbytes: float, ops: float, peak: float) -> tuple:
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``nbytes`` moved across HBM once and ``ops`` operations at ``peak``."""
+    t_bytes = nbytes / (HBM_GBS * 1e9) * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_work(x, w, out) -> tuple:
+    """K1's bound: x (its channels only, for a slice), w, scale and bias
+    read once, ``out`` written once; 2 ops per MAC at the int8 peak."""
+    O, kh, kw, C = w.shape
+    nbytes = x.numel() + w.numel() + 8 * O + out.numel() * out.element_size()
+    return work(nbytes, 2 * out.numel() * kh * kw * C, INT8_OPS)
+
+
+def pool_work(x, out, k: int) -> tuple:
+    """A pool's bound: x read once, ``out`` written once; k*k window cells
+    an output value at the float32 peak outside the tensor cores."""
+    return work((x.numel() + out.numel()) * x.element_size(),
+                out.numel() * k * k, CORE_OPS)
+
+
 def check_kernels(card: str) -> list:
     """Phase 3: K1-K3 against their plain versions at the slice's shapes."""
     import torch
@@ -116,8 +184,8 @@ def check_kernels(card: str) -> list:
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
 
-    def act(*shape):   # post-ReLU int8 activations
-        return torch.randint(0, 128, shape, generator=g, device=dev,
+    def act(*shape, lo=0):   # post-ReLU int8 activations, or signed
+        return torch.randint(lo, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
 
     def weights(O, kh, kw, C):
@@ -129,25 +197,39 @@ def check_kernels(card: str) -> list:
             "int8_avg_pool": [], "int8_avg_pool/exclude_pad": [],
             "max_pool_bwd": []}
 
-    def record(name, label, got, ref, fn, plain, nbytes=None):
+    def record(name, label, got, ref, fn, plain, bound, library=None):
+        """Check ``got == ref``; time the kernel, its plain version and the
+        library call (``plain`` itself where the plain version is one);
+        ``bound`` is ``work(...)``'s pair."""
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.equal(got, ref):
             raise AssertionError(f"{name}[{label}] differs from its plain "
                                  f"version: max |diff| {err}")
-        ms = _time_ms(fn, reps=10)
-        plain_ms = _time_ms(plain, reps=3)
-        rows[name].append((label, err, ms, plain_ms))
-        rate = ""
-        if nbytes:   # bytes the op must move, over the card's HBM peak
-            gbs = nbytes / ms / 1e6
-            rate = f", {gbs:.0f} GB/s = {gbs / HBM_GBS:.1%} of 3.35 TB/s"
+        ms = _time_kernel_ms(fn, reps=10)
+        plain_ms = _time_kernel_ms(plain, reps=2, graph=False)
+        lib_ms = (plain_ms if library is plain else
+                  _time_kernel_ms(library, reps=10) if library else None)
+        bound_ms, bound_by = bound
+        rows[name].append(dict(label=label, err=err, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib_ms))
+        lib = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
         print(f"kernel {name}[{label}]: equal, max|d|={err} {ms:.3f} ms "
-              f"(plain {plain_ms:.3f} ms){rate} on {card}", flush=True)
+              f"(plain {plain_ms:.3f} ms{lib}); bound {bound_ms:.3f} ms "
+              f"({bound_by}) = {bound_ms / ms:.1%} of the bound on {card}",
+              flush=True)
 
     def check_convs(name, cases):
         for label, x, w, stride, pad in cases:
             O, kh, kw, C = w.shape
+            library = None
+            if kh == kw == 1 and stride == 1 and x.is_contiguous():
+                # the same GEMM on cuBLASLt, s32 out, no epilogue
+                x2, w2 = x.view(-1, C), w.view(O, C).t()
+
+                def library(x2=x2, w2=w2):
+                    return torch._int_mm(x2, w2)
             # per-channel epilogue scales that put outputs across the int8
             # range
             spread = float(C * kh * kw) ** 0.5 * 64 * 73
@@ -163,7 +245,9 @@ def check_kernels(card: str) -> list:
                           o=out_dtype):
                     return k.int8_conv_plain(x, w, m, bq, s, p, o)
 
-                record(name, f"{label}/{tag}", fn(), plain(), fn, plain)
+                got = fn()
+                record(name, f"{label}/{tag}", got, plain(), fn, plain,
+                       conv_work(x, w, got), library)
 
     # K1: the 3a fused entry conv, a 3a 3x3 reading its slice of the entry
     # output in place, the 3c 3x3 s2, a 4e 3x3 s2, the 5b fused entry conv
@@ -176,6 +260,17 @@ def check_kernels(card: str) -> list:
          weights(256, 3, 3, 256), 2, 1),
         ("5b_entry_1x1", act(SLICE_N, 7, 7, 1024), weights(736, 1, 1, 1024),
          1, 0),
+        # K1's tile tails: rows (637 crops) not a multiple of 128, columns
+        # past O in the last tile, depth not a multiple of the 128-byte
+        # stage; signed inputs, as the calibration conv feeds
+        ("tail_3x3_O176_K720", act(SLICE_N - 3, 13, 13, 80, lo=-127),
+         weights(176, 3, 3, 80), 1, 1),
+        ("tail_1x1_O24_K48", act(SLICE_N - 3, 28, 28, 48, lo=-127),
+         weights(24, 1, 1, 48), 1, 0),
+        ("tail_3x3_s2_O40_K288", act(SLICE_N - 3, 28, 28, 32, lo=-127),
+         weights(40, 3, 3, 32), 2, 1),
+        ("tail_1x1_O736_K1040", act(SLICE_N - 3, 7, 7, 1040, lo=-127),
+         weights(736, 1, 1, 1040), 1, 0),
     ])
     del entry3a
 
@@ -186,17 +281,18 @@ def check_kernels(card: str) -> list:
             ("5b_s1_p1", act(SLICE_N, 7, 7, 1024),
              (3, 1, pool_pads(7, 7, 3, 1, pad=1)))):
         x = x - 64    # signed values, so -128 padding must never win
-        record("int8_max_pool", label, k.int8_max_pool(x, *a),
-               k.int8_max_pool_plain(x, *a),
+        got = k.int8_max_pool(x, *a)
+        record("int8_max_pool", label, got, k.int8_max_pool_plain(x, *a),
                lambda x=x, a=a: k.int8_max_pool(x, *a),
-               lambda x=x, a=a: k.int8_max_pool_plain(x, *a))
+               lambda x=x, a=a: k.int8_max_pool_plain(x, *a),
+               pool_work(x, got, 3))
 
     # K3: the 3a pool branch
     x = act(SLICE_N, 28, 28, 192)
-    record("int8_avg_pool", "3a_s1_p1", k.int8_avg_pool(x, 3, 1, 1),
-           k.int8_avg_pool_plain(x, 3, 1, 1),
+    got = k.int8_avg_pool(x, 3, 1, 1)
+    record("int8_avg_pool", "3a_s1_p1", got, k.int8_avg_pool_plain(x, 3, 1, 1),
            lambda: k.int8_avg_pool(x, 3, 1, 1),
-           lambda: k.int8_avg_pool_plain(x, 3, 1, 1))
+           lambda: k.int8_avg_pool_plain(x, 3, 1, 1), pool_work(x, got, 3))
     del x
 
     # InceptionV3 at 299^2 (35/17/8 grids): K1 with per-axis pads, on the
@@ -224,20 +320,23 @@ def check_kernels(card: str) -> list:
                      ("7a_17_to_8", act(SLICE_N, 17, 17, 768))):
         x = x - 64
         a = (3, 2, ((0, 0), (0, 0)))
-        record("int8_max_pool/valid", label, k.int8_max_pool(x, *a),
+        got = k.int8_max_pool(x, *a)
+        record("int8_max_pool/valid", label, got,
                k.int8_max_pool_plain(x, *a),
                lambda x=x, a=a: k.int8_max_pool(x, *a),
-               lambda x=x, a=a: k.int8_max_pool_plain(x, *a))
+               lambda x=x, a=a: k.int8_max_pool_plain(x, *a),
+               pool_work(x, got, 3))
     # K3's exclude-pad mode: the Mixed_5d, 6b and 7c pool branches
     for label, x in (("5d_35", act(SLICE_N, 35, 35, 288)),
                      ("6b_17", act(SLICE_N, 17, 17, 768)),
                      ("7c_8", act(SLICE_N, 8, 8, 2048))):
-        record("int8_avg_pool/exclude_pad", label,
-               k.int8_avg_pool_exclude_pad(x, 3, 1, 1),
+        got = k.int8_avg_pool_exclude_pad(x, 3, 1, 1)
+        record("int8_avg_pool/exclude_pad", label, got,
                k.int8_avg_pool_plain(x, 3, 1, 1, count_include_pad=False),
                lambda x=x: k.int8_avg_pool_exclude_pad(x, 3, 1, 1),
                lambda x=x: k.int8_avg_pool_plain(x, 3, 1, 1,
-                                                 count_include_pad=False))
+                                                 count_include_pad=False),
+               pool_work(x, got, 3))
     del x
     torch.cuda.empty_cache()
 
@@ -269,13 +368,15 @@ def check_kernels(card: str) -> list:
             raise AssertionError(f"max_pool_bwd[{label}]: two launches on "
                                  "the same inputs differ")
         del again
-        # |x| + |y| + |dy| + |dx|: every byte across HBM once
-        nbytes = 2 * (x.numel() + y.numel()) * x.element_size()
-        record("max_pool_bwd", label, got, a1.max_pool_bwd_plain(x, dy, *geo),
+        # |x| + |y| + |dy| + |dx| across HBM once; 9 compares and an add
+        # per window; the plain version is torch's own max-pool backward
+        plain = (lambda x=x, dy=dy, geo=geo:
+                 a1.max_pool_bwd_plain(x, dy, *geo))
+        record("max_pool_bwd", label, got, plain(),
                lambda x=x, y=y, dy=dy, geo=geo: a1.max_pool_bwd(x, y, dy,
                                                                 *geo),
-               lambda x=x, dy=dy, geo=geo: a1.max_pool_bwd_plain(x, dy, *geo),
-               nbytes)
+               plain, work(2 * (x.numel() + y.numel()) * x.element_size(),
+                           10 * y.numel(), CORE_OPS), plain)
         del x, y, dy, got
     torch.cuda.empty_cache()
     return rows
@@ -623,6 +724,8 @@ def _time_steps(name, model, frames, calib, smi, modality="RGB"):
     import torch
 
     from action_detection_torch.infer.scorer import ProposalScorer
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
 
     spec = model.input_spec
     kw = dict(reg_stats=np.asarray(REG_STATS, np.float32),
@@ -633,8 +736,12 @@ def _time_steps(name, model, frames, calib, smi, modality="RGB"):
     chunk = torch.as_tensor(frames).cuda()
     step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
     step_ms = _time_ms(step, reps=10, warmup=2)
+    reset_launch_counts()
+    step()
+    per_step = {k: n for k, n in launch_counts().items() if n}
     line = (f"step: {name} int8-e2e shared-stem {step_ms:.2f} ms per "
-            f"{SLICE_N}-crop step = {SLICE_N / step_ms * 1e3:.0f} crops/s")
+            f"{SLICE_N}-crop step = {SLICE_N / step_ms * 1e3:.0f} crops/s, "
+            f"launches per step {per_step}")
     if modality == "RGB":
         fscorer = ProposalScorer(model, spec, quantize=False, **kw)
         float_ms = _time_ms(lambda: fscorer._score_chunk(chunk, 64), reps=5,
@@ -812,6 +919,26 @@ def profile_cli(out_dir: str, name: str, cli) -> None:
           f"{busy / 1e3:.1f} ms = {busy / wall_us:.1%}", flush=True)
 
 
+def kernels_of(pkg_root: str) -> int:
+    """Phase 3 alone on the kernels of the checkout at ``pkg_root`` (its
+    ``action_detection_torch`` package; the wrappers' signatures are the
+    same in every version), so two versions are timed by one method."""
+    import torch
+
+    sys.path.insert(0, pkg_root)
+    from action_detection_torch.kernels.build import build_library
+
+    smi = _smi()
+    path, secs = build_library()
+    print(f"kernels of {pkg_root}: {smi}, built {path} in {secs:.1f} s",
+          flush=True)
+    rows = check_kernels(torch.cuda.get_device_name(0))
+    print(json.dumps({"kernels_of": pkg_root, "ms": {
+        f"{name}[{r['label']}]": r["ms"] for name, shapes in rows.items()
+        for r in shapes}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -819,9 +946,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     args = sys.argv[1:]
-    if args and (args[0] != "--profile" or len(args) != 2):
-        print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
+    if args and (args[0] not in ("--profile", "--kernels-of")
+                 or len(args) != 2):
+        print("usage: python3 chip_smoke.py [--profile DIR | --kernels-of "
+              "CHECKOUT]", file=sys.stderr)
         return 2
+    if args and args[0] == "--kernels-of":
+        return kernels_of(os.path.abspath(args[1]))
     profile = os.path.abspath(args[1]) if args else None
     sys.path.insert(0, ROOT)
     # the port must be importable before anything is printed
@@ -861,13 +992,18 @@ def main() -> int:
     kernels = []
     for name, shapes in rows.items():
         src, replaces, path, counter = sources[name]
+        lib = [r["library_ms"] for r in shapes if r["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": paths[path][counter],
-            "max_abs_err": max(r[1] for r in shapes),
-            # summed over the shapes checked above
-            "ms": sum(r[2] for r in shapes),
-            "plain_ms": sum(r[3] for r in shapes)})
+            "max_abs_err": max(r["err"] for r in shapes),
+            # summed over the shapes checked above; library_ms over the
+            # shapes that have a library call (K1: its 1x1 shapes)
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": sum(lib) if lib else None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

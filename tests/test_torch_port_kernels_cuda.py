@@ -1,6 +1,10 @@
 """The port's CUDA kernels K1-K3 (K1 with per-axis pads, K3 in both
 modes) and A1 against their plain torch versions.
 
+K1 and K3 take channel counts, pixel strides and addresses that are
+multiples of 16 on the card, so every case here has C % 16 == 0 (and
+``test_cuda_conv_refuses_what_it_does_not_take`` holds the refusals).
+
 These need a card (a CUDA kernel has no CPU mode): each case carries the
 ``cuda`` marker and skips where torch sees no CUDA device. The file imports
 torch and the port only, so it runs on a machine without jax:
@@ -18,7 +22,7 @@ from action_detection_torch.models.backbones.bn_inception import pool_pads
 CONV_CASES = [  # (N, H, W, C, O, k, stride, pad)
     (2, 9, 9, 32, 24, 1, 1, 0),
     (2, 9, 9, 16, 40, 3, 1, 1),
-    (2, 10, 11, 8, 12, 3, 2, 1),
+    (2, 10, 11, 16, 12, 3, 2, 1),
     (1, 7, 7, 64, 20, 3, 2, 1),
     (3, 28, 28, 192, 192, 1, 1, 0),
 ]
@@ -92,11 +96,58 @@ def test_cuda_conv_per_axis_pad_matches_plain(cuda_device, case, out_dtype):
 @pytest.mark.cuda
 def test_cuda_conv_reads_channel_slice(cuda_device):
     x, w, m, b = _conv_inputs((2, 9, 9, 32, 24, 3, 1, 1))
-    xs = x.to(cuda_device)[..., 8:16]
-    got = k.int8_conv(xs, w[..., :8].contiguous().to(cuda_device),
+    xs = x.to(cuda_device)[..., 16:32]
+    got = k.int8_conv(xs, w[..., :16].contiguous().to(cuda_device),
                       m.to(cuda_device), b.to(cuda_device), 1, 1)
-    ref = k.int8_conv_plain(x[..., 8:16], w[..., :8], m, b, 1, 1)
+    ref = k.int8_conv_plain(x[..., 16:32], w[..., :16], m, b, 1, 1)
     assert torch.equal(got.cpu(), ref)
+
+
+# K1's tile tails: (N, H, W, C, O, (KH, KW), stride, pad). Rows N*Ho*Wo not
+# a multiple of the 128-row tile, O past the last column tile, depth
+# KH*KW*C not a multiple of the 128-byte stage.
+TAIL_CASES = [
+    (3, 13, 13, 80, 176, (3, 3), 1, 1),     # K 720, M 507, O 176 (bn 64)
+    (2, 9, 9, 48, 24, (1, 1), 1, 0),        # K 48 < one stage, bn 32
+    (2, 11, 11, 32, 40, (3, 3), 2, 1),      # K 288, M 72 < one row tile
+    (1, 7, 7, 1040, 736, (1, 1), 1, 0),     # K 1040, O 736 (bn 128)
+    (5, 17, 17, 16, 136, (1, 7), 1, (0, 3)),  # K 112, O 136 (bn 64)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TAIL_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+def test_cuda_conv_tile_tails(cuda_device, case, out_dtype):
+    """Masked rows and columns, zero-filled depth; signed inputs, as the
+    calibration conv (the bf16 epilogue) feeds."""
+    N, H, W, C, O, (kh, kw), stride, pad = case
+    g = torch.Generator().manual_seed(H * W * C + O)
+    x = torch.randint(-127, 128, (N, H, W, C), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (O, kh, kw, C), generator=g,
+                      dtype=torch.int8)
+    m = torch.rand(O, generator=g) * 4.0 / (kh * kw * C * 64)
+    b = torch.randn(O, generator=g) * 20
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad, out_dtype)
+    got = k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)), stride,
+                      pad, out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_refuses_what_it_does_not_take(cuda_device):
+    """On the card K1 raises on C % 16 != 0 and on a channel slice that
+    does not start at a multiple of 16 channels; it never falls back."""
+    x, w, m, b = (t.to(cuda_device) for t in _conv_inputs(
+        (2, 9, 9, 32, 24, 3, 1, 1)))
+    before = k.int8_conv.launches
+    with pytest.raises(ValueError, match="C % 16"):
+        k.int8_conv(x[..., :8].contiguous(), w[..., :8].contiguous(), m, b,
+                    1, 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k.int8_conv(x[..., 8:24], w[..., :16].contiguous(), m, b, 1, 1)
+    assert k.int8_conv.launches == before
 
 
 @pytest.mark.cuda
@@ -117,7 +168,7 @@ def test_cuda_max_pool_matches_plain(cuda_device, kw):
 @pytest.mark.cuda
 def test_cuda_avg_pool_matches_plain(cuda_device):
     g = torch.Generator().manual_seed(2)
-    x = torch.randint(-128, 128, (2, 10, 13, 24), generator=g,
+    x = torch.randint(-128, 128, (2, 10, 13, 32), generator=g,
                       dtype=torch.int8)
     before = k.int8_avg_pool.launches
     got = k.int8_avg_pool(x.to(cuda_device), 3, 1, 1)
@@ -132,7 +183,7 @@ def test_cuda_avg_pool_exclude_pad_matches_plain(cuda_device, hw):
     """K3's exclude-pad mode (InceptionV3's 3x3 s1 SAME pools, divisors 9,
     6 and 4) on signed inputs, .5 ties included."""
     g = torch.Generator().manual_seed(hw[0] * 31 + hw[1])
-    x = torch.randint(-128, 128, (3,) + hw + (40,), generator=g,
+    x = torch.randint(-128, 128, (3,) + hw + (48,), generator=g,
                       dtype=torch.int8)
     before = k.int8_avg_pool_exclude_pad.launches
     got = k.int8_avg_pool_exclude_pad(x.to(cuda_device), 3, 1, 1)
@@ -140,6 +191,43 @@ def test_cuda_avg_pool_exclude_pad_matches_plain(cuda_device, hw):
     assert k.int8_avg_pool_exclude_pad.launches == before + 1
     assert torch.equal(got.cpu(), k.int8_avg_pool_plain(
         x, 3, 1, 1, count_include_pad=False))
+
+
+# K3's tile edges: (N, H, W, C) with ragged last tiles on both axes, several
+# channel slabs, one-row and one-column images
+K3_TILE_CASES = [
+    (2, 9, 17, 32),       # tiles of 5 rows and 9 columns, ragged
+    (3, 16, 33, 48),      # 8 x 11 tiles
+    (2, 17, 17, 768),     # two slabs of 24 chunks
+    (4, 8, 8, 2048),      # eight slabs
+    (2, 1, 20, 16),       # one row: divisor 1 x columns
+    (2, 20, 1, 16),       # one column
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_TILE_CASES)
+@pytest.mark.parametrize("exclude_pad", [False, True])
+def test_cuda_avg_pool_tile_edges(cuda_device, case, exclude_pad):
+    """Every tile edge, halo and slab of K3's plan, both divisor modes,
+    signed inputs with .5 ties."""
+    g = torch.Generator().manual_seed(sum(case))
+    x = torch.randint(-128, 128, case, generator=g, dtype=torch.int8)
+    fn = k.int8_avg_pool_exclude_pad if exclude_pad else k.int8_avg_pool
+    got = fn(x.to(cuda_device), 3, 1, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), k.int8_avg_pool_plain(
+        x, 3, 1, 1, count_include_pad=not exclude_pad))
+
+
+@pytest.mark.cuda
+def test_cuda_avg_pool_refuses_what_it_does_not_take(cuda_device):
+    """On the card K3 takes the trunks' 3x3 s1 p1 pool of C % 16 == 0."""
+    x = torch.zeros((1, 5, 5, 32), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="3x3 s1 p1"):
+        k.int8_avg_pool(x, 3, 2, 1)
+    with pytest.raises(ValueError, match="C % 16"):
+        k.int8_avg_pool_exclude_pad(x[..., :24].contiguous(), 3, 1, 1)
 
 
 @pytest.mark.cuda
