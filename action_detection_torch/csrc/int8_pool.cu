@@ -10,36 +10,49 @@
 //   _ForwardOps.avg_pool_same (K3's exclude_pad mode: the sum divided by
 //   the window's in-image cell count, 9, 6 or 4 for 3x3 SAME; counts
 //   _same_pool_counts).
-// XLA lowers them on the TPU; torch has no int8 pools on CUDA.
+// XLA lowers them on the TPU; torch's CUDA max_pool2d takes no int8
+// (chip_smoke.py prints its error).
 //
 // What bounds them on the card: HBM. A pool reads each input byte and
 // writes each output byte once at best (K3 at InceptionV3's 5d: 451.6 MB a
-// 640-crop step, 0.135 ms at 3.35 TB/s). K2 keeps its first form, one
-// thread per output byte (consecutive threads on consecutive channels);
-// it reads each byte through L1/L2 up to nine times and recovers its
-// indices with 64-bit divisions, so it is instruction-bound.
-//
-// K3 is a tiled pass for the only geometry the trunks use, 3x3 s1 p1:
+// 640-crop step, 0.135 ms at 3.35 TB/s; K2 at BNInception's 3c: 200.7 MB,
+// 0.060 ms). Both are one tiled pass on the same frame, so that the bytes
+// and not the instructions set their time:
 // * a block owns a tile of tile_h x tile_w output cells of one image and a
-//   slab of 16-byte channel chunks; it stages the tile and its one-cell
-//   halo in shared memory with 16-byte cp.async copies (cells outside the
-//   image are zero-fill copies), so each input byte crosses HBM about once;
-//   its indices come from blockIdx and threadIdx in 32-bit, with no
-//   per-element division;
+//   slab of 16-byte channel chunks; it stages the input cells the tile's
+//   3x3 windows cover, ((tile_h - 1) * stride + 3) x ((tile_w - 1) *
+//   stride + 3) of them, in shared memory with 16-byte cp.async copies, so
+//   each input byte crosses HBM about once; its indices come from blockIdx
+//   and threadIdx in 32-bit, with no per-element division. The tile comes
+//   from kernels/int8.py:int8_pool_plan, one plan for both kernels; at
+//   stride 2 its tiles are 2 output rows high: many short-lived blocks
+//   overlap one block's loads with another's maxima better than fewer
+//   long ones (8-row tiles took K2 1.1-1.4x longer on the card);
 // * a thread owns one output column of the tile and one 16-channel chunk:
-//   it unpacks each chunk into two 16-bit lanes a word with every byte
-//   offset by +128 (x ^ 0x80, so a zero-filled cell counts as 0), sums
-//   three cells of a row, then slides down the column summing three row
-//   sums: exact integer sums in any order, so the result is bit-exact;
+//   it reduces each staged row's three cells under its window once, then
+//   slides down the column combining three row results (at stride 2,
+//   staged row 2 oy + 2 serves output rows oy and oy + 1), and writes 16
+//   bytes.
+//
+// K2 (3x3, stride 1 or 2, windows from o * stride - pad): its maxima are
+// byte-wise signed __vmaxs4 on 32-bit words (sm_90a emulates it in six
+// integer instructions for four channels, no byte loop).
+// A cell outside the image is staged as 0x80 bytes (-128, the reduce init,
+// never above a value) by a plain shared store: a zero-fill copy would
+// stage 0, which beats every negative value.
+//
+// K3 (3x3 s1 p1; cells outside the image are zero-fill copies):
+// * it unpacks each chunk into two 16-bit lanes a word with every byte
+//   offset by +128 (x ^ 0x80, so a zero-filled cell counts as 0), and sums
+//   rows then columns: exact integer sums in any order, so the result is
+//   bit-exact;
 // * the divisor is 9, or (rows in image) x (columns in image) from the
 //   cell's position in exclude_pad mode: nothing is loaded for it. A value
 //   is rintf(__fdiv_rn(f32(sum), divisor)), clipped, as the JAX package
 //   rounds; where the divisor is 9 (every cell of the include-pad mode,
 //   the interior of the exclude-pad one) the same bits come from an exact
-//   integer form (average9), which halves the instructions per output;
-//   each thread writes 16 bytes.
-// It needs C % 16 == 0 and 16-byte aligned tensors; the wrapper checks
-// and plans the tile (kernels/int8.py:int8_avg_pool_plan).
+//   integer form (average9), which halves the instructions per output.
+// Both need C % 16 == 0 and 16-byte aligned tensors; the wrappers check.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,48 +61,76 @@ namespace {
 
 constexpr int kThreads = 256;
 
-struct PoolShape {
-  int N, H, W, C, Ho, Wo, k, stride, pad_lo;
-};
-
-__global__ void __launch_bounds__(kThreads)
-int8_max_pool_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                     PoolShape s) {
-  const long long total = (long long)s.N * s.Ho * s.Wo * s.C;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % s.C);
-    long long t = idx / s.C;
-    const int ox = (int)(t % s.Wo);
-    t /= s.Wo;
-    const int oy = (int)(t % s.Ho);
-    const long long n = t / s.Ho;
-    int m = -128;
-    for (int ky = 0; ky < s.k; ++ky) {
-      const int iy = oy * s.stride - s.pad_lo + ky;
-      if (iy < 0 || iy >= s.H) continue;
-      for (int kx = 0; kx < s.k; ++kx) {
-        const int ix = ox * s.stride - s.pad_lo + kx;
-        if (ix < 0 || ix >= s.W) continue;
-        const int v = x[((n * s.H + iy) * s.W + ix) * s.C + c];
-        m = v > m ? v : m;
-      }
-    }
-    out[idx] = (int8_t)m;
-  }
-}
-
-unsigned grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 32;  // grid-stride beyond a few waves
-  return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// byte-wise signed max of three 16-byte chunks
+__device__ __forceinline__ int4 max3(const int4 a, const int4 b,
+                                     const int4 c) {
+  return make_int4(
+      (int)__vmaxs4(__vmaxs4((unsigned)a.x, (unsigned)b.x), (unsigned)c.x),
+      (int)__vmaxs4(__vmaxs4((unsigned)a.y, (unsigned)b.y), (unsigned)c.y),
+      (int)__vmaxs4(__vmaxs4((unsigned)a.z, (unsigned)b.z), (unsigned)c.z),
+      (int)__vmaxs4(__vmaxs4((unsigned)a.w, (unsigned)b.w), (unsigned)c.w));
+}
+
+// 3x3 max pool at stride S, windows from o * S - pad; block (slab, tile_w),
+// grid (tiles, slabs, N)
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+int8_max_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                      int H, int W, int C, int Ho, int Wo, int pad,
+                      int tile_h, int tile_w, int tiles_w) {
+  extern __shared__ int4 cells[];  // rows x cols x slab staged input cells
+  const int slab = blockDim.x;
+  const int c = threadIdx.x;
+  const int tx = threadIdx.y;
+  const int oy0 = (blockIdx.x / tiles_w) * tile_h;
+  const int ox0 = (blockIdx.x % tiles_w) * tile_w;
+  const int cbyte = (blockIdx.y * slab + c) * 16;
+  const int8_t* img = x + (long long)blockIdx.z * H * W * C + cbyte;
+  // the input rows and columns under this tile's windows
+  const int rows = (min(tile_h, Ho - oy0) - 1) * S + 3;
+  const int cols = (min(tile_w, Wo - ox0) - 1) * S + 3;
+  const int iy0 = oy0 * S - pad;
+  const int ix0 = ox0 * S - pad;
+  const int neg = (int)0x80808080u;
+
+  for (int r = 0; r < rows; ++r) {
+    const int iy = iy0 + r;
+    const bool row_in = (unsigned)iy < (unsigned)H;
+    for (int col = tx; col < cols; col += tile_w) {
+      const int ix = ix0 + col;
+      int4* dst = &cells[(r * cols + col) * slab + c];
+      if (row_in && (unsigned)ix < (unsigned)W)
+        cp_async16(dst, img + (iy * W + ix) * C, 16);
+      else
+        *dst = make_int4(neg, neg, neg, neg);
+    }
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+  __syncthreads();
+
+  const int ox = ox0 + tx;
+  if (ox >= Wo) return;
+  int8_t* dst = out + ((long long)blockIdx.z * Ho * Wo + ox) * C + cbyte;
+  int4 up2 = make_int4(neg, neg, neg, neg);  // row maxima of the two
+  int4 up1 = up2;                            // staged rows above
+  for (int r = 0; r < rows; ++r) {
+    const int4* p = &cells[(r * cols + S * tx) * slab + c];
+    const int4 row = max3(p[0], p[slab], p[2 * slab]);
+    if (r >= 2 && (r - 2) % S == 0) {
+      const int oy = oy0 + (r - 2) / S;
+      *reinterpret_cast<int4*>(dst + oy * Wo * C) = max3(up2, up1, row);
+    }
+    up2 = up1;
+    up1 = row;
+  }
 }
 
 // adds a 16-channel chunk to eight words of two 16-bit lanes, each byte
@@ -201,17 +242,33 @@ int8_avg_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
 }  // namespace
 
-// x: (N, H, W, C) int8 contiguous; out: (N, Ho, Wo, C) int8. Windows start
-// at o * stride - pad_lo; cells outside the input are padding (-128, never
-// the max). Returns the launch's cudaError_t.
+// x: (N, H, W, C) int8 contiguous, 16-byte aligned, C % 16 == 0; out:
+// (N, Ho, Wo, C). A 3x3 max pool at stride 1 or 2 whose windows start at
+// o * stride - pad; cells outside the input are -128 (never the max). The
+// tile (tile_h x tile_w output cells, slab 16-byte chunks dividing C / 16,
+// slab * tile_w <= 256 threads, the staged cells within 48 KB) comes from
+// kernels/int8.py:int8_pool_plan. Returns the launch's cudaError_t.
 extern "C" int adt_int8_max_pool(const void* x, void* out, int N, int H,
-                                 int W, int C, int Ho, int Wo, int k,
-                                 int stride, int pad_lo, void* stream) {
-  PoolShape s{N, H, W, C, Ho, Wo, k, stride, pad_lo};
-  const long long total = (long long)N * Ho * Wo * C;
-  int8_max_pool_kernel<<<grid_for(total), kThreads, 0,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), s);
+                                 int W, int C, int Ho, int Wo, int stride,
+                                 int pad, int tile_h, int tile_w, int slab,
+                                 void* stream) {
+  const int tiles_w = (Wo + tile_w - 1) / tile_w;
+  const int tiles = ((Ho + tile_h - 1) / tile_h) * tiles_w;
+  const dim3 grid((unsigned)tiles, (unsigned)(C / 16 / slab), (unsigned)N);
+  const dim3 block((unsigned)slab, (unsigned)tile_w);
+  const size_t smem = (size_t)((tile_h - 1) * stride + 3) *
+                      ((tile_w - 1) * stride + 3) * slab * 16;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  int8_t* o = static_cast<int8_t*>(out);
+  if (stride == 1)
+    int8_max_pool3_kernel<1><<<grid, block, smem, s>>>(
+        xi, o, H, W, C, Ho, Wo, pad, tile_h, tile_w, tiles_w);
+  else if (stride == 2)
+    int8_max_pool3_kernel<2><<<grid, block, smem, s>>>(
+        xi, o, H, W, C, Ho, Wo, pad, tile_h, tile_w, tiles_w);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -219,7 +276,7 @@ extern "C" int adt_int8_max_pool(const void* x, void* out, int N, int H,
 // 3x3 s1 p1 average pool, divided by 9 or, when exclude_pad, by the
 // window's in-image cell count. The tile (tile_h x tile_w cells, slab
 // 16-byte chunks, slab dividing C / 16, slab * tile_w <= 256 threads, the
-// halo tile within 48 KB) comes from kernels/int8.py:int8_avg_pool_plan.
+// halo tile within 48 KB) comes from kernels/int8.py:int8_pool_plan.
 // Returns the launch's cudaError_t.
 extern "C" int adt_int8_avg_pool(const void* x, void* out, int N, int H,
                                  int W, int C, int tile_h, int tile_w,

@@ -10,24 +10,26 @@ InceptionV3 trunks:
   1x7/7x1/1x3/3x1 convs), with the requantizing int8 epilogue (runtime) or
   the bf16 dequantizing epilogue (calibration); its tile is
   :func:`int8_conv_plan`;
-* K2 :func:`int8_max_pool` — int8 max pool over explicit padding that
-  never wins (-128), or none (InceptionV3's VALID pools);
+* K2 :func:`int8_max_pool` — int8 3x3 max pool at stride 1 or 2 over
+  explicit padding that never wins (-128), or none (InceptionV3's VALID
+  pools);
 * K3 — int8 3x3 s1 p1 average pool, one tiled kernel with two modes and a
   wrapper each: :func:`int8_avg_pool` counts padded cells (BNInception's
   Caffe pools), :func:`int8_avg_pool_exclude_pad` divides by the in-image
-  cells only (InceptionV3's SAME pools: 9, 6 or 4); its tile is
-  :func:`int8_avg_pool_plan`.
+  cells only (InceptionV3's SAME pools: 9, 6 or 4).
+
+K2 and K3 share one tile plan, :func:`int8_pool_plan`.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. On a CUDA tensor it launches the kernel on the
 current stream, raises if the launch reports an error, and adds one to its
 ``launches`` count; on a CPU tensor it runs the kernel's plain version
 (``*_plain``), which is also what the kernels are compared with. There is
-no fallback from CUDA to the plain version. K1 and K3 read and write 16
+no fallback from CUDA to the plain version. K1-K3 read and write 16
 bytes at a time, so on CUDA they take only channel counts, pixel strides
-and addresses that are multiples of 16 (:func:`int8_conv_refusal`; every
-conv and pool of both trunks meets it); the CPU path keeps the looser
-checks of the plain versions.
+and addresses that are multiples of 16 (:func:`int8_conv_refusal`,
+:func:`_check_pool_input`; every conv and pool of both trunks meets it);
+the CPU path keeps the looser checks of the plain versions.
 
 Every function keeps the JAX package's NHWC layout and its exact rounding:
 the plain versions are bit-identical to ``_conv_i8_e2e``, ``_conv_int8``,
@@ -61,14 +63,16 @@ CONV_STAGES = 4     # ring depth: stage k+2 loads while stage k multiplies
 ConvPlan = collections.namedtuple(
     "ConvPlan", "M K bn m_tiles n_tiles k_stages smem")
 
-# K3's tile (csrc/int8_pool.cu): at most POOL_TILE_H x POOL_TILE_W output
-# cells and POOL_THREADS threads a block, the halo tile within POOL_SMEM
-POOL_TILE_H = 8
+# K2's and K3's tile (csrc/int8_pool.cu): at most POOL_TILE_H[stride] x
+# POOL_TILE_W output cells and POOL_THREADS threads a block, the staged
+# input cells within POOL_SMEM. Stride-2 tiles of 2 rows stage 5 input rows
+# and beat 4- and 8-row tiles on the card (PERF.md §6)
+POOL_TILE_H = {1: 8, 2: 2}
 POOL_TILE_W = 8
 POOL_THREADS = 256
 POOL_SMEM = 48 * 1024
-AvgPoolPlan = collections.namedtuple(
-    "AvgPoolPlan", "tile_h tile_w tiles_h tiles_w slab slabs smem")
+PoolPlan = collections.namedtuple(
+    "PoolPlan", "tile_h tile_w tiles_h tiles_w rows cols slab slabs smem")
 
 
 def conv_pads(pad: ConvPad) -> Tuple[int, int]:
@@ -173,27 +177,32 @@ def _balanced_tile(size: int, most: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def int8_avg_pool_plan(H: int, W: int, C: int,
-                       tile_h: int = POOL_TILE_H,
-                       tile_w: int = POOL_TILE_W) -> AvgPoolPlan:
-    """K3's launch plan for an (N, H, W, C) 3x3 s1 p1 pool: a block owns
-    ``tile_h x tile_w`` output cells (balanced cuts of at most the given
-    sizes) of one image and ``slab`` of the ``C / 16`` 16-byte channel
-    chunks: the largest divisor of ``C / 16`` that keeps the block within
-    ``POOL_THREADS`` threads (one per column and chunk) and its halo tile,
-    ``(tile_h + 2) x (tile_w + 2)`` cells of the slab, within
-    ``POOL_SMEM`` bytes."""
-    _require(C % 16 == 0, f"int8_avg_pool_plan needs C % 16 == 0, got {C}")
-    tile_h = _balanced_tile(H, tile_h)
-    tile_w = _balanced_tile(W, tile_w)
+def int8_pool_plan(Ho: int, Wo: int, C: int, stride: int = 1,
+                   tile_h: Optional[int] = None,
+                   tile_w: int = POOL_TILE_W) -> PoolPlan:
+    """K2's and K3's launch plan for a 3x3 pool at ``stride`` with an
+    (N, Ho, Wo, C) output: a block owns ``tile_h x tile_w`` output cells
+    (balanced cuts of at most the given sizes, ``tile_h`` by default
+    ``POOL_TILE_H[stride]``) of one image and ``slab`` of
+    the ``C / 16`` 16-byte channel chunks. It stages the input cells under
+    the tile's windows, ``rows x cols`` = ``((tile_h - 1) * stride + 3) x
+    ((tile_w - 1) * stride + 3)`` cells of the slab (a 3x3 s1 tile and its
+    one-cell halo). ``slab`` is the largest divisor of ``C / 16`` that keeps
+    the block within ``POOL_THREADS`` threads (one per column and chunk)
+    and its staged cells within ``POOL_SMEM`` bytes."""
+    _require(C % 16 == 0, f"int8_pool_plan needs C % 16 == 0, got {C}")
+    tile_h = _balanced_tile(Ho, tile_h or POOL_TILE_H[stride])
+    tile_w = _balanced_tile(Wo, tile_w)
+    rows = (tile_h - 1) * stride + 3
+    cols = (tile_w - 1) * stride + 3
     chunks = C // 16
     slab = max(d for d in range(1, chunks + 1) if chunks % d == 0
                and d * tile_w <= POOL_THREADS
-               and (tile_h + 2) * (tile_w + 2) * d * 16 <= POOL_SMEM)
-    return AvgPoolPlan(tile_h=tile_h, tile_w=tile_w,
-                       tiles_h=_cdiv(H, tile_h), tiles_w=_cdiv(W, tile_w),
-                       slab=slab, slabs=chunks // slab,
-                       smem=(tile_h + 2) * (tile_w + 2) * slab * 16)
+               and rows * cols * d * 16 <= POOL_SMEM)
+    return PoolPlan(tile_h=tile_h, tile_w=tile_w,
+                    tiles_h=_cdiv(Ho, tile_h), tiles_w=_cdiv(Wo, tile_w),
+                    rows=rows, cols=cols, slab=slab, slabs=chunks // slab,
+                    smem=rows * cols * slab * 16)
 
 
 # --- wrappers ---------------------------------------------------------------
@@ -307,11 +316,23 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _check_pool_input(name: str, x: torch.Tensor) -> None:
+    """K2's and K3's 16-byte rule on the card: ``C % 16 == 0`` and a
+    contiguous NHWC ``x`` starting 16-byte aligned, with 32-bit offsets
+    inside an image."""
+    N, H, W, C = x.shape
+    _require(C % 16 == 0, f"{name} on CUDA needs C % 16 == 0, got C={C}")
+    _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+             f"{name}: x must be contiguous NHWC, 16-byte aligned")
+    _require(H * W * C < 2 ** 31 and N <= 65535,
+             f"{name}: images of 2**31 bytes or more, or over 65535 images")
+
+
 def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
                   pads: Pads) -> torch.Tensor:
-    """int8 NHWC max pool over ``pads = ((top, bottom), (left, right))``
-    (the kernel takes ``top == left``); padding never wins (-128, the reduce
-    init)."""
+    """int8 NHWC max pool over ``pads = ((top, bottom), (left, right))``;
+    padding never wins (-128, the reduce init). On CUDA: 3x3 at stride 1
+    or 2, ``top == left``, pads below 3, ``C % 16 == 0``."""
     on_cuda = _cuda_or_cpu(x)
     _require(x.dim() == 4 and x.dtype == torch.int8, "x must be int8 NHWC")
     if not on_cuda:
@@ -319,20 +340,25 @@ def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
 
     N, H, W, C = x.shape
     (t, b), (l, r) = pads
+    _require(kernel == 3 and stride in (1, 2) and t == l
+             and all(0 <= p < 3 for p in (t, b, l, r)),
+             "int8_max_pool on CUDA takes 3x3 pools at stride 1 or 2 with "
+             f"top == left padding, got k{kernel} s{stride} pads {pads}")
     Ho = (H + t + b - kernel) // stride + 1
     Wo = (W + l + r - kernel) // stride + 1
-    _require(Ho > 0 and Wo > 0 and t == l,
-             "int8_max_pool: unsupported geometry")
-    _require(x.is_contiguous(), "int8_max_pool: x must be contiguous NHWC")
+    _require(Ho > 0 and Wo > 0, f"int8_max_pool: empty output for "
+             f"{tuple(x.shape)} s{stride} pads {pads}")
+    _check_pool_input("int8_max_pool", x)
     out = torch.empty((N, Ho, Wo, C), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
+    plan = int8_pool_plan(Ho, Wo, C, stride)
     from .build import load_library
 
     with torch.cuda.device(x.device):
         rc = load_library().adt_int8_max_pool(
-            x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, kernel, stride,
-            t, _stream_ptr())
+            x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, stride, t,
+            plan.tile_h, plan.tile_w, plan.slab, _stream_ptr())
     _check_launch(rc, "int8_max_pool")
     int8_max_pool.launches += 1
     return out
@@ -351,14 +377,11 @@ def _avg_pool(wrapper, x: torch.Tensor, kernel: int, stride: int, pad: int,
     N, H, W, C = x.shape
     _require((kernel, stride, pad) == (3, 1, 1), f"{name} on CUDA takes the "
              f"trunks' 3x3 s1 p1 pool, got k{kernel} s{stride} p{pad}")
-    _require(C % 16 == 0, f"{name} on CUDA needs C % 16 == 0, got C={C}")
-    _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
-             f"{name}: x must be contiguous NHWC, 16-byte aligned")
-    _require(H * W * C < 2 ** 31, f"{name}: images of 2**31 bytes or more")
+    _check_pool_input(name, x)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    plan = int8_avg_pool_plan(H, W, C)
+    plan = int8_pool_plan(H, W, C)
     from .build import load_library
 
     with torch.cuda.device(x.device):

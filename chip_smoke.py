@@ -14,21 +14,24 @@ before the final line):
               ``action_detection_torch/_build``.
 3. kernels  — K1 (int8 conv, both epilogues), K2 (int8 max pool, both
               variants) and K3 (int8 avg pool) at the BNInception scoring
-              shapes (640 crops); K1 with per-axis pads (5x5, 1x7, 7x1,
-              1x3, VALID 3x3 s2, a fused entry conv and a conv on its
-              channel slice), K2 without padding and K3's exclude-pad mode
-              at InceptionV3's 640-crop shapes; K1 at tile tails (rows,
-              columns and depth not multiples of the tile) with signed
-              inputs; and A1 (max-pool backward) at every BNInception max
-              pool of the training step (1,152 images). Each is held
-              EXACTLY equal to its plain torch version on the same inputs;
-              median ms of both, the bound (``work``: the larger of the
-              bytes over 3.35 TB/s and the operations over the peak of
-              their type) and, where one PyTorch call computes the same
-              function, that call's ms (``torch._int_mm`` for K1's 1x1
-              shapes: the GEMM without the epilogue; torch's max-pool
-              backward for A1). A1 also launches twice on the same inputs
-              (equal bits).
+              shapes (640 crops; K2 at 3c, 4e and 5b); K1 with per-axis
+              pads (5x5, 1x7, 7x1, 1x3, VALID 3x3 s2, a fused entry conv
+              and a conv on its channel slice), K2 without padding and K3's
+              exclude-pad mode at InceptionV3's 640-crop shapes; K1 at tile
+              tails (rows, columns and depth not multiples of the tile) and
+              K2 at grids no tile divides, with signed inputs (K2's with
+              -128 and all-negative windows at the padded edges); and A1
+              (max-pool backward) at every BNInception max pool of the
+              training step (1,152 images). Each is held EXACTLY equal to
+              its plain torch version on the same inputs; median ms of
+              both, the bound (``work``: the larger of the bytes over 3.35
+              TB/s and the operations over the peak of their type) and,
+              where one PyTorch call computes the same function, that
+              call's ms (``torch._int_mm`` for K1's 1x1 shapes: the GEMM
+              without the epilogue; torch's max-pool backward for A1;
+              ``F.max_pool2d`` on the channels-last view for K2, where
+              torch's CUDA max pool takes int8). A1 also launches twice on
+              the same inputs (equal bits).
 4. main     — four paths, each with the launch counts set to 0 just before
               it and read just after, each required to launch its kernels:
               the port's ``ssn_test`` CLI in-process at full width with the
@@ -220,6 +223,51 @@ def check_kernels(card: str) -> list:
               f"({bound_by}) = {bound_ms / ms:.1%} of the bound on {card}",
               flush=True)
 
+    def edge_input(*shape):
+        """Signed int8 with -128 in it; the last rows and columns negative
+        and windows of -128 alone at the bottom-right (padded) corner."""
+        x = act(*shape, lo=-128)
+        neg = torch.randint(-128, 0, shape, generator=g, device=dev,
+                            dtype=torch.int8)
+        x[:, -3:] = neg[:, -3:]
+        x[:, :, -3:] = neg[:, :, -3:]
+        x[:, -3:, -3:, ::2] = -128
+        return x
+
+    library_refusal = []
+
+    def max_pool_library(x, stride, pads, ref):
+        """torch's own max pool on the NHWC tensor viewed as channels-last
+        NCHW (ceil_mode for Caffe-ceil pads), checked equal to ``ref``; None
+        where torch's CUDA max pool refuses int8 (its error printed once)."""
+        (t, b), (l, r) = pads
+        xv = x.permute(0, 3, 1, 2)
+
+        def library():
+            return torch.nn.functional.max_pool2d(
+                xv, 3, stride, t, ceil_mode=b > t or r > l)
+        try:
+            y = library()
+        except (RuntimeError, NotImplementedError) as e:
+            if not library_refusal:
+                library_refusal.append(e)
+                print(f"library: torch's CUDA max_pool2d on int8: "
+                      f"{type(e).__name__}: {str(e).splitlines()[0]}",
+                      flush=True)
+            return None
+        if not torch.equal(y.permute(0, 2, 3, 1), ref):
+            raise AssertionError("torch's max_pool2d differs from K2's "
+                                 "plain version")
+        return library
+
+    def check_max_pool(name, label, x, stride, pads):
+        a = (3, stride, pads)
+        got = k.int8_max_pool(x, *a)
+        ref = k.int8_max_pool_plain(x, *a)
+        record(name, label, got, ref, lambda: k.int8_max_pool(x, *a),
+               lambda: k.int8_max_pool_plain(x, *a), pool_work(x, got, 3),
+               max_pool_library(x, stride, pads, ref))
+
     def check_convs(name, cases):
         for label, x, w, stride, pad in cases:
             O, kh, kw, C = w.shape
@@ -274,18 +322,21 @@ def check_kernels(card: str) -> list:
     ])
     del entry3a
 
-    # K2: the 3c passthrough ceil pool (s2) and the 5b pool branch (s1 p1)
-    for label, x, a in (
-            ("3c_ceil_s2", act(SLICE_N, 28, 28, 320),
-             (3, 2, pool_pads(28, 28, 3, 2, ceil=True))),
-            ("5b_s1_p1", act(SLICE_N, 7, 7, 1024),
-             (3, 1, pool_pads(7, 7, 3, 1, pad=1)))):
-        x = x - 64    # signed values, so -128 padding must never win
-        got = k.int8_max_pool(x, *a)
-        record("int8_max_pool", label, got, k.int8_max_pool_plain(x, *a),
-               lambda x=x, a=a: k.int8_max_pool(x, *a),
-               lambda x=x, a=a: k.int8_max_pool_plain(x, *a),
-               pool_work(x, got, 3))
+    # K2: the 3c and 4e passthrough ceil pools (s2) and the 5b pool branch
+    # (s1 p1) on signed values, so -128 padding must never win; then grids
+    # that no tile divides, with -128 and all-negative edge windows
+    for label, shape, stride, kw in (
+            ("3c_ceil_s2", (SLICE_N, 28, 28, 320), 2, dict(ceil=True)),
+            ("4e_ceil_s2", (SLICE_N, 14, 14, 608), 2, dict(ceil=True)),
+            ("5b_s1_p1", (SLICE_N, 7, 7, 1024), 1, dict(pad=1)),
+            ("tail_27x29_ceil_s2", (SLICE_N - 3, 27, 29, 336), 2,
+             dict(ceil=True)),
+            ("tail_9x11_s1_p1", (SLICE_N - 3, 9, 11, 96), 1, dict(pad=1))):
+        x = (edge_input(*shape) if label.startswith("tail")
+             else act(*shape) - 64)
+        check_max_pool("int8_max_pool", label, x, stride,
+                       pool_pads(shape[1], shape[2], 3, stride, **kw))
+        del x
 
     # K3: the 3a pool branch
     x = act(SLICE_N, 28, 28, 192)
@@ -316,16 +367,9 @@ def check_kernels(card: str) -> list:
     ])
     del entry5b
     # K2 without padding: the Mixed_6a and Mixed_7a pool branches
-    for label, x in (("6a_35_to_17", act(SLICE_N, 35, 35, 288)),
-                     ("7a_17_to_8", act(SLICE_N, 17, 17, 768))):
-        x = x - 64
-        a = (3, 2, ((0, 0), (0, 0)))
-        got = k.int8_max_pool(x, *a)
-        record("int8_max_pool/valid", label, got,
-               k.int8_max_pool_plain(x, *a),
-               lambda x=x, a=a: k.int8_max_pool(x, *a),
-               lambda x=x, a=a: k.int8_max_pool_plain(x, *a),
-               pool_work(x, got, 3))
+    for label, x in (("6a_35_to_17", act(SLICE_N, 35, 35, 288) - 64),
+                     ("7a_17_to_8", act(SLICE_N, 17, 17, 768) - 64)):
+        check_max_pool("int8_max_pool/valid", label, x, 2, ((0, 0), (0, 0)))
     # K3's exclude-pad mode: the Mixed_5d, 6b and 7c pool branches
     for label, x in (("5d_35", act(SLICE_N, 35, 35, 288)),
                      ("6b_17", act(SLICE_N, 17, 17, 768)),

@@ -147,15 +147,26 @@ def test_calibration_conv_bit_exact(bn_setup, name, stride, pad):
 @pytest.mark.parametrize("hw,kw", [
     ((9, 9), dict(kernel=3, stride=2, ceil=True)),
     ((8, 11), dict(kernel=3, stride=2, ceil=True)),
-    ((7, 7), dict(kernel=3, stride=1, pad=1))])
+    ((7, 7), dict(kernel=3, stride=1, pad=1)),
+    ((14, 14), dict(kernel=3, stride=2, ceil=True)),   # 4e: 14 -> 7
+    ((27, 29), dict(kernel=3, stride=2, ceil=True)),   # ragged: 13 x 14
+    ((9, 11), dict(kernel=3, stride=1, pad=1))])
 def test_plain_max_pool_bit_exact(hw, kw):
+    """On uniform signed inputs, and on inputs of -128 and other negative
+    values with windows of -128 alone at the bottom-right (padded) edge:
+    padding must never win."""
     rng = np.random.RandomState(hw[0] * hw[1])
-    x = rng.randint(-128, 128, size=(2,) + hw + (8,)).astype(np.int8)
-    ref = np.asarray(jq._max_pool_i8(jnp.asarray(x), **kw))
+    uniform = rng.randint(-128, 128, size=(2,) + hw + (8,)).astype(np.int8)
+    negative = rng.choice(np.array([-128, -128, -127, -100, -1], np.int8),
+                          size=uniform.shape)
+    negative[:, -3:, -3:, ::2] = -128
     pads = pool_pads(hw[0], hw[1], **kw)
-    got = k.int8_max_pool(torch.from_numpy(x), kw["kernel"], kw["stride"],
-                          pads)
-    np.testing.assert_array_equal(got.numpy(), ref)
+    for x in (uniform, negative):
+        ref = np.asarray(jq._max_pool_i8(jnp.asarray(x), **kw))
+        got = k.int8_max_pool(torch.from_numpy(x), kw["kernel"],
+                              kw["stride"], pads)
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref == -128).any() and (ref > -128).any()
 
 
 @pytest.mark.parametrize("hw", [(7, 7), (10, 13)])

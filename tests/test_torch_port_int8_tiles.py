@@ -1,4 +1,4 @@
-"""K1's and K3's tile plans (``kernels/int8.py``) on the CPU.
+"""K1's, K2's and K3's tile plans (``kernels/int8.py``) on the CPU.
 
 The CUDA kernels have no CPU mode (their cases are in
 tests/test_torch_port_kernels_cuda.py), so their tiling is held here:
@@ -9,14 +9,19 @@ tests/test_torch_port_kernels_cuda.py), so their tiling is held here:
   under the 128-byte swizzle; the B tile likewise from the weights; the
   wgmma operands read back through the descriptors' address map; columns
   and rows past the output masked — bit-exact against ``int8_conv_plain``.
+* **K2** (``csrc/int8_pool.cu``): a numpy model of the shared pool plan
+  at stride 1 and 2 — the staged cells (-128 outside the image), each
+  window inside them, the tiles covering the output once, row maxima slid
+  down a column — bit-exact against ``int8_max_pool_plain`` on signed
+  inputs with -128 and all-negative windows at the padded edges.
 * **K3** (``csrc/int8_pool.cu``): a numpy model of the tile + halo plan,
   the biased 16-bit-lane sums, the position-derived divisor and the exact
   integer form of the division by 9, bit-exact against
   ``int8_avg_pool_plain`` in both modes; the divisor against the JAX
   package's ``_same_pool_counts``; the integer form against the f32
   division at every window sum.
-* **Alignment**: every conv and average pool of the full-width BNInception
-  and InceptionV3 int8 trunks meets the kernels' 16-byte rule, so the
+* **Alignment**: every conv and pool of the full-width BNInception and
+  InceptionV3 int8 trunks meets the kernels' 16-byte rule, so the
   CUDA-only refusals exclude no main-path call.
 """
 
@@ -31,6 +36,7 @@ from action_detection_tpu.models.backbones.inception_v3_int8 import (
 
 from action_detection_torch.kernels import int8 as k
 from action_detection_torch.models.backbones import bn_inception_int8 as bq
+from action_detection_torch.models.backbones.bn_inception import pool_pads
 from action_detection_torch.models.backbones import get_backbone
 from action_detection_torch.models.backbones import inception_v3_int8 as iq
 from action_detection_torch.models.convert import seeded_init
@@ -196,6 +202,137 @@ def test_k1_refusal_names_the_rule():
         1, 4, 4, 8)
 
 
+# --- K2 ---------------------------------------------------------------------
+
+
+def k2_model(x: torch.Tensor, stride: int, pads, **tiles) -> torch.Tensor:
+    """K2 as the kernel tiles it: per block (image, tile, slab) the staged
+    cells under the tile's windows, copied where they lie in the image and
+    -128 elsewhere; each staged row's three-cell maxima under a window
+    column, then the maxima of three such rows down the column. Checks
+    on the way that the staged cells are the -128-padded input, that every
+    window of the tile lies inside them, and that the tiles cover the
+    output exactly once."""
+    N, H, W, C = x.shape
+    (t, b), (l, r) = pads
+    assert t == l
+    S = stride
+    Ho, Wo = (H + t + b - 3) // S + 1, (W + l + r - 3) // S + 1
+    plan = k.int8_pool_plan(Ho, Wo, C, S, **tiles)
+    th, tw, sb = plan.tile_h, plan.tile_w, plan.slab
+    xb = x.numpy()
+    big = 3 * S + 3           # padding past any staged cell
+    padded = np.pad(xb, ((0, 0), (big, big), (big, big), (0, 0)),
+                    constant_values=-128)
+    out = np.zeros((N, Ho, Wo, C), np.int8)
+    cover = np.zeros((N, Ho, Wo, C), np.int64)
+    for n in range(N):
+        for tile in range(plan.tiles_h * plan.tiles_w):
+            oy0 = (tile // plan.tiles_w) * th
+            ox0 = (tile % plan.tiles_w) * tw
+            hh, ww = min(th, Ho - oy0), min(tw, Wo - ox0)
+            rows, cols = (hh - 1) * S + 3, (ww - 1) * S + 3
+            assert rows <= plan.rows and cols <= plan.cols
+            assert rows * cols * sb * 16 <= plan.smem
+            iy = oy0 * S - t + np.arange(rows)
+            ix = ox0 * S - t + np.arange(cols)
+            # every window of the tile inside the staged rows and columns
+            wy = (oy0 + np.arange(hh))[:, None] * S - t + np.arange(3)
+            wx = (ox0 + np.arange(ww))[:, None] * S - t + np.arange(3)
+            assert wy.min() >= iy[0] and wy.max() <= iy[-1]
+            assert wx.min() >= ix[0] and wx.max() <= ix[-1]
+            for s in range(plan.slabs):
+                c0, c1 = s * sb * 16, (s + 1) * sb * 16
+                staged = np.full((rows, cols, c1 - c0), 0x80, np.uint8)
+                for rr in range(rows):         # the kernel's staging loop
+                    for cc in range(cols):
+                        if 0 <= iy[rr] < H and 0 <= ix[cc] < W:
+                            staged[rr, cc] = xb[n, iy[rr], ix[cc],
+                                                c0:c1].view(np.uint8)
+                staged = staged.view(np.int8)
+                np.testing.assert_array_equal(
+                    staged, padded[n, big + iy[0]:big + iy[-1] + 1,
+                                   big + ix[0]:big + ix[-1] + 1, c0:c1])
+                cx = S * np.arange(ww)
+                row = np.maximum(np.maximum(staged[:, cx], staged[:, cx + 1]),
+                                 staged[:, cx + 2])       # (rows, ww, ch)
+                ry = S * np.arange(hh)
+                v = np.maximum(np.maximum(row[ry], row[ry + 1]), row[ry + 2])
+                out[n, oy0:oy0 + hh, ox0:ox0 + ww, c0:c1] = v
+                cover[n, oy0:oy0 + hh, ox0:ox0 + ww, c0:c1] += 1
+    assert (cover == 1).all()
+    return torch.from_numpy(out)
+
+
+def k2_input(shape, seed: int) -> torch.Tensor:
+    """Signed int8 with -128 in it; the last rows and columns negative, and
+    windows of -128 alone at the bottom-right (padded) corner."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-128, 128, shape).astype(np.int8)
+    x[:, -3:] = rng.randint(-128, 0, x[:, -3:].shape)
+    x[:, :, -3:] = rng.randint(-128, 0, x[:, :, -3:].shape)
+    x[:, -3:, -3:, ::2] = -128
+    return torch.from_numpy(x)
+
+
+# (N, H, W, C), stride, pool_pads keywords: the trunks' five K2 pools at
+# their full grids and widths, and edge shapes with ragged tiles
+K2_CASES = [
+    ("3c_ceil_s2", (1, 28, 28, 320), 2, dict(ceil=True)),
+    ("4e_ceil_s2", (1, 14, 14, 608), 2, dict(ceil=True)),
+    ("5b_s1_p1", (1, 7, 7, 1024), 1, dict(pad=1)),
+    ("6a_valid_s2", (1, 35, 35, 288), 2, dict()),
+    ("7a_valid_s2", (1, 17, 17, 768), 2, dict()),
+    ("edge_27x29_ceil_s2", (2, 27, 29, 336), 2, dict(ceil=True)),
+    ("edge_9x11_s1_p1", (2, 9, 11, 96), 1, dict(pad=1)),
+    ("edge_1x1_s1_p1", (2, 1, 1, 16), 1, dict(pad=1)),
+    ("edge_4x3_ceil_s2", (2, 4, 3, 48), 2, dict(ceil=True)),
+]
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=[c[0] for c in K2_CASES])
+def test_k2_plan_model_bit_exact(case):
+    """Staging, windows, coverage and the sliding row maxima of the plan
+    give ``int8_max_pool_plain``'s bits."""
+    _, shape, stride, kw = case
+    pads = pool_pads(shape[1], shape[2], 3, stride, **kw)
+    x = k2_input(shape, sum(shape))
+    ref = k.int8_max_pool_plain(x, 3, stride, pads)
+    assert torch.equal(k2_model(x, stride, pads), ref)
+    assert (ref == -128).any() and (ref > -128).any()    # not trivial
+
+
+@pytest.mark.parametrize("stride,kw", [(2, dict(ceil=True)), (1, dict(pad=1)),
+                                       (2, dict())])
+@pytest.mark.parametrize("tiles", [dict(tile_h=2, tile_w=3),
+                                   dict(tile_h=5, tile_w=1)])
+def test_k2_plan_model_small_tiles(tiles, stride, kw):
+    """Forced small tiles: many tiles, ragged last ones on both axes, two
+    channel slabs."""
+    x = k2_input((2, 13, 11, 32), 7)
+    pads = pool_pads(13, 11, 3, stride, **kw)
+    assert torch.equal(k2_model(x, stride, pads, **tiles),
+                       k.int8_max_pool_plain(x, 3, stride, pads))
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=[c[0] for c in K2_CASES])
+def test_k2_plan_fits_the_block(case):
+    """At every trunk pool and edge shape: tiles cover the output, the slab
+    divides the chunks, the block has at most 256 threads and its staged
+    cells, ((tile - 1) * stride + 3) per axis, fit."""
+    _, (_, H, W, C), stride, kw = case
+    (t, b), (l, r) = pool_pads(H, W, 3, stride, **kw)
+    Ho, Wo = (H + t + b - 3) // stride + 1, (W + l + r - 3) // stride + 1
+    p = k.int8_pool_plan(Ho, Wo, C, stride)
+    assert p.tiles_h * p.tile_h >= Ho > (p.tiles_h - 1) * p.tile_h
+    assert p.tiles_w * p.tile_w >= Wo > (p.tiles_w - 1) * p.tile_w
+    assert p.slab * p.slabs == C // 16
+    assert p.slab * p.tile_w <= k.POOL_THREADS
+    assert p.rows == (p.tile_h - 1) * stride + 3
+    assert p.cols == (p.tile_w - 1) * stride + 3
+    assert p.smem == p.rows * p.cols * p.slab * 16 <= k.POOL_SMEM
+
+
 # --- K3 ---------------------------------------------------------------------
 
 
@@ -232,7 +369,7 @@ def k3_model(x: torch.Tensor, exclude_pad: bool, **tiles) -> torch.Tensor:
     three-row column sums, the divisor from the position, the f32 division
     rounded half to even (its integer form where the divisor is 9)."""
     N, H, W, C = x.shape
-    plan = k.int8_avg_pool_plan(H, W, C, **tiles)
+    plan = k.int8_pool_plan(H, W, C, **tiles)
     th, tw, sb = plan.tile_h, plan.tile_w, plan.slab
     xb = x.numpy().view(np.uint8)
     out = np.zeros((N, H, W, C), np.int8)
@@ -311,13 +448,28 @@ def test_k3_divisor_matches_jax_same_pool_counts(hw):
 def test_k3_plan_fits_the_block(H, W, C):
     """At every trunk pool: tiles cover the image, the slab divides the
     chunks, the block has at most 256 threads and its halo tile fits."""
-    p = k.int8_avg_pool_plan(H, W, C)
+    p = k.int8_pool_plan(H, W, C)
     assert p.tiles_h * p.tile_h >= H > (p.tiles_h - 1) * p.tile_h
     assert p.tiles_w * p.tile_w >= W > (p.tiles_w - 1) * p.tile_w
     assert p.slab * p.slabs == C // 16
     assert p.slab * p.tile_w <= k.POOL_THREADS
+    assert (p.rows, p.cols) == (p.tile_h + 2, p.tile_w + 2)
     assert p.smem == (p.tile_h + 2) * (p.tile_w + 2) * p.slab * 16
     assert p.smem <= k.POOL_SMEM
+
+
+@pytest.mark.parametrize("hwc,plan", [
+    ((28, 28, 192), (7, 7, 4, 4, 12, 1, 15552)),
+    ((35, 35, 288), (7, 7, 5, 5, 18, 1, 23328)),
+    ((17, 17, 768), (6, 6, 3, 3, 24, 2, 24576)),
+    ((8, 8, 2048), (8, 8, 1, 1, 16, 8, 25600))])
+def test_k3_plan_unchanged_by_the_shared_plan(hwc, plan):
+    """K3's tiles at its 28^2, 35^2, 17^2 and 8^2 pools are the ones its
+    own plan gave before K2 shared it: (tile_h, tile_w, tiles_h, tiles_w,
+    slab, slabs, smem)."""
+    p = k.int8_pool_plan(*hwc)
+    assert (p.tile_h, p.tile_w, p.tiles_h, p.tiles_w, p.slab, p.slabs,
+            p.smem) == plan
 
 
 # --- the 16-byte rule on the trunks -------------------------------------------
@@ -352,16 +504,26 @@ def _assert_16_byte_rule(rec):
         assert refusal is None, (shape, strides, offset, refusal)
         assert shape[3] % 16 == 0 and strides[2] % 16 == 0
         assert offset % 16 == 0
+    assert any(name == "int8_max_pool" for name, *_ in rec.pools)
     for name, shape, args, contiguous in rec.pools:
+        assert shape[3] % 16 == 0 and contiguous, (name, shape)
         if name.startswith("int8_avg_pool"):
-            assert args == (3, 1, 1) and shape[3] % 16 == 0 and contiguous
+            assert args == (3, 1, 1)
+        else:   # Caffe-ceil or VALID 3x3 s2, or 3x3 s1 p1
+            kernel, stride, ((t, b), (l, r)) = args
+            assert (kernel, stride) in ((3, 1), (3, 2)), args
+            if stride == 2:
+                assert t == l == 0 and b in (0, 1) and r in (0, 1), args
+            else:
+                assert (t, b, l, r) == (1, 1, 1, 1), args
 
 
 def test_bninception_trunk_meets_the_16_byte_rule(monkeypatch):
     """Every conv of the full-width BNInception int8 trunk (runtime with the
     fused entry convs and their in-place slices, and the calibration face)
-    and every avg pool: C, each entry-split width and each slice offset are
-    multiples of 16, and the pools are 3x3 s1 p1."""
+    and every pool: C, each entry-split width and each slice offset are
+    multiples of 16, the avg pools are 3x3 s1 p1 and the max pools Caffe
+    ceil 3x3 s2 or 3x3 s1 p1."""
     model, _, _ = get_backbone("BNInception", "RGB")
     sd = seeded_init(model, seed=0).state_dict()
     folded = bq.fold_bn(sd)
@@ -387,8 +549,8 @@ def test_bninception_trunk_meets_the_16_byte_rule(monkeypatch):
 
 def test_inceptionv3_trunk_meets_the_16_byte_rule(monkeypatch):
     """Every conv (fused entry convs and their in-place slices, 1x7/7x1/1x3/
-    3x1 pads) and every exclude-pad avg pool of the full-width InceptionV3
-    int8 trunk meets the rule."""
+    3x1 pads), every exclude-pad avg pool and every VALID 3x3 s2 max pool
+    of the full-width InceptionV3 int8 trunk meets the rule."""
     model, _, _ = get_backbone("InceptionV3", "RGB")
     folded = iq.fold_bn_iv3(seeded_init(model, seed=0).state_dict())
     qe = iq.quantize_iv3_e2e(folded, dict({n: 1.0 for n in folded},

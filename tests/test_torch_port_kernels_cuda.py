@@ -1,9 +1,9 @@
 """The port's CUDA kernels K1-K3 (K1 with per-axis pads, K3 in both
 modes) and A1 against their plain torch versions.
 
-K1 and K3 take channel counts, pixel strides and addresses that are
-multiples of 16 on the card, so every case here has C % 16 == 0 (and
-``test_cuda_conv_refuses_what_it_does_not_take`` holds the refusals).
+K1-K3 take channel counts, pixel strides and addresses that are
+multiples of 16 on the card, so every case here has C % 16 == 0 (and the
+``*_refuses_what_it_does_not_take`` cases hold the refusals).
 
 These need a card (a CUDA kernel has no CPU mode): each case carries the
 ``cuda`` marker and skips where torch sees no CUDA device. The file imports
@@ -150,19 +150,60 @@ def test_cuda_conv_refuses_what_it_does_not_take(cuda_device):
     assert k.int8_conv.launches == before
 
 
+def _signed_pool_input(shape, seed):
+    """Signed int8 with -128 in it; the last rows and columns negative and
+    windows of -128 alone at the bottom-right (padded) corner."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    x[:, -3:] = torch.randint(-128, 0, x[:, -3:].shape, generator=g,
+                              dtype=torch.int8)
+    x[:, :, -3:] = torch.randint(-128, 0, x[:, :, -3:].shape, generator=g,
+                                 dtype=torch.int8)
+    x[:, -3:, -3:, ::2] = -128
+    return x
+
+
+# K2's padded pools and tile edges: (N, H, W, C), pool_pads keywords
+K2_CASES = [
+    ((2, 9, 11, 32), dict(kernel=3, stride=2, ceil=True)),
+    ((2, 9, 11, 32), dict(kernel=3, stride=1, pad=1)),
+    ((3, 27, 29, 336), dict(kernel=3, stride=2, ceil=True)),  # ragged tiles
+    ((3, 9, 11, 96), dict(kernel=3, stride=1, pad=1)),
+    ((2, 14, 14, 608), dict(kernel=3, stride=2, ceil=True)),  # 4e, 38 chunks
+    ((2, 1, 1, 16), dict(kernel=3, stride=1, pad=1)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [dict(kernel=3, stride=2, ceil=True),
-                                dict(kernel=3, stride=1, pad=1)])
-def test_cuda_max_pool_matches_plain(cuda_device, kw):
-    g = torch.Generator().manual_seed(1)
-    x = torch.randint(-128, 128, (2, 9, 11, 24), generator=g,
-                      dtype=torch.int8)
-    args = (kw["kernel"], kw["stride"], pool_pads(9, 11, **kw))
+@pytest.mark.parametrize("case", K2_CASES)
+def test_cuda_max_pool_matches_plain(cuda_device, case):
+    """Caffe-ceil s2 and s1 p1 pools across K2's tile edges: padding is
+    -128 and never wins, also over windows that are all negative."""
+    shape, kw = case
+    x = _signed_pool_input(shape, sum(shape))
+    args = (kw["kernel"], kw["stride"], pool_pads(*shape[1:3], **kw))
     before = k.int8_max_pool.launches
     got = k.int8_max_pool(x.to(cuda_device), *args)
     torch.cuda.synchronize()
     assert k.int8_max_pool.launches == before + 1
     assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, *args))
+
+
+@pytest.mark.cuda
+def test_cuda_max_pool_refuses_what_it_does_not_take(cuda_device):
+    """On the card K2 takes 3x3 pools at stride 1 or 2 of C % 16 == 0,
+    contiguous; it never falls back."""
+    x = torch.zeros((1, 9, 9, 32), dtype=torch.int8, device=cuda_device)
+    before = k.int8_max_pool.launches
+    with pytest.raises(ValueError, match="C % 16"):
+        k.int8_max_pool(x[..., :24].contiguous(), 3, 2, ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match="contiguous"):
+        k.int8_max_pool(x[..., 16:], 3, 2, ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match="3x3 pools"):
+        k.int8_max_pool(x, 2, 2, ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match="3x3 pools"):
+        k.int8_max_pool(x, 3, 3, ((0, 0), (0, 0)))
+    assert k.int8_max_pool.launches == before
 
 
 @pytest.mark.cuda
@@ -231,16 +272,15 @@ def test_cuda_avg_pool_refuses_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(35, 35), (17, 17)])
+@pytest.mark.parametrize("hw", [(35, 35), (17, 17), (16, 17), (3, 3)])
 def test_cuda_max_pool_valid_matches_plain(cuda_device, hw):
-    """K2 at zero pads: InceptionV3's VALID 3x3 s2 pools."""
-    g = torch.Generator().manual_seed(hw[0])
-    x = torch.randint(-128, 128, (2,) + hw + (24,), generator=g,
-                      dtype=torch.int8)
+    """K2 at zero pads: InceptionV3's VALID 3x3 s2 pools, and grids whose
+    last window ends before the last row or column."""
+    x = _signed_pool_input((2,) + hw + (48,), hw[0] * 31 + hw[1])
     args = (3, 2, ((0, 0), (0, 0)))
     got = k.int8_max_pool(x.to(cuda_device), *args)
     torch.cuda.synchronize()
-    assert got.shape[1:3] == ((hw[0] - 3) // 2 + 1,) * 2
+    assert got.shape[1:3] == ((hw[0] - 3) // 2 + 1, (hw[1] - 3) // 2 + 1)
     assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, *args))
 
 
