@@ -4,19 +4,30 @@ The JAX package beside it is the reference this port is tested against. The
 port imports torch and never jax, flax, yaml or PIL on its main path, so it
 runs on a machine that has only torch, numpy and the CUDA toolkit.
 
-This slice covers proposal scoring (``cli/ssn_test.py`` ->
-``infer/scorer.py:ProposalScorer`` -> score pickle) for RGB BNInception with
-the int8 end-to-end, shared-stem default, plus the float path and TinyConv.
+The port covers the inference pipeline: sliding windows
+(``cli/gen_sliding_window_proposals.py``), dense actionness
+(``cli/binary_test.py`` -> ``infer/actionness.py``), TAG grouping
+(``cli/gen_bottom_up_proposals.py``), proposal scoring (``cli/ssn_test.py``
+-> ``infer/scorer.py``) and evaluation (``cli/eval_detection_results.py``),
+on BNInception and InceptionV3 (TinyConv for tests) with the int8
+end-to-end, shared-stem default; and the SSN training step.
 
 Package layout (each module mirrors one module of action_detection_tpu):
-  models/    torch model definitions, int8 runtime, weight bridge
-  kernels/   hand-written CUDA int8 conv/pool kernels, nvcc build, plain versions
-  csrc/      the CUDA C++ sources of those kernels
-  ops/       stpp pooling (torch), iou (host numpy)
-  data/      proposal-list I/O, dataset, device transforms, host pipeline
-  train/     checkpoints (.pt) carrying reg_stats
-  infer/     the proposal scorer
-  cli/       ssn_test
+  models/      torch model definitions, int8 runtime, weight bridge
+  kernels/     hand-written CUDA int8 conv/pool and max-pool backward
+               kernels, nvcc build, plain versions, launch counters
+  csrc/        the CUDA C++ sources of those kernels, and the C++ host
+               kernels (NMS, TAG box search)
+  utils/       the build paths, and the ctypes binding of the host kernels
+  ops/         stpp pooling, losses, pooling (torch); iou, nms, tag, mAP,
+               metrics, aggregation (host numpy)
+  data/        proposal-list I/O, dataset DBs, datasets, transforms, pipeline
+  evaluation/  detections, NMS, regression, AP table (host)
+  train/       checkpoints (.pt) carrying reg_stats, optimizer, train step
+  infer/       the shared feature step, the proposal and actionness scorers
+  cli/         ssn_test, binary_test, eval_detection_results,
+               gen_bottom_up_proposals, gen_sliding_window_proposals,
+               gen_proposal_list
 """
 
 from .config import DatasetConfig, SamplingConfig, get_configs

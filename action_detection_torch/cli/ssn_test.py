@@ -8,8 +8,9 @@ shared stem is the default for BNInception and InceptionV3, for RGB and Flow
 (``new_length`` 5: 10-channel x/y stacks, frames read from
 ``<flow_pref>{x,y}_NNNNN.jpg``). The device is explicit
 (``--device``, default ``cuda``); with no card, a CUDA run raises instead of
-continuing on the CPU. What this slice does not cover yet raises a
-``SystemExit`` naming the slice it comes with.
+continuing on the CPU. What the port does not cover yet raises a
+``SystemExit`` naming the ROADMAP.md item it comes with
+(``cli/unported.py``).
 """
 
 from __future__ import annotations
@@ -80,33 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_yet(what: str, slice_: str) -> SystemExit:
-    return SystemExit(f"{what} is not in the PyTorch port yet: it comes with "
-                      f"the {slice_} slice (see ROADMAP.md). The JAX CLI "
-                      "(action_detection_tpu.cli.ssn_test) has it.")
-
-
 def _check_slice(args) -> None:
-    """Refuse, by name, what this slice of the port does not cover."""
-    from ..models.backbones import PORTED_ARCHS
+    """Refuse, by name, what the port does not cover yet."""
+    from .unported import HOST_THROUGHPUT, not_yet, refuse_unported_scoring
 
-    if args.modality == "RGBDiff":
-        raise _not_yet("modality RGBDiff", "RGBDiff")
-    if args.arch not in PORTED_ARCHS:
-        raise _not_yet(f"backbone {args.arch}", "ResNet/VGG")
-    if args.int8_mode == "perlayer":
-        raise _not_yet("--int8_mode perlayer", "remaining-CLI-surface")
     if args.pack:
-        raise _not_yet("--pack", "cross-video packing")
-    if args.devices is not None and len(args.devices) > 1:
-        raise _not_yet("scoring on several devices", "multi-GPU fan-out")
-    if args.test_crops != 10:
-        raise _not_yet(f"--test_crops {args.test_crops}", "host-crop scoring")
-    if args.use_reference or args.use_kinetics_reference:
-        raise _not_yet("--use_reference", "reference-checkpoint tooling")
-    if args.weights.endswith((".pth", ".pth.tar")):
-        raise _not_yet("converting a reference .pth checkpoint",
-                       "reference-checkpoint tooling")
+        raise not_yet("--pack", HOST_THROUGHPUT, "ssn_test")
+    refuse_unported_scoring(args, "ssn_test")
 
 
 def main(argv=None):
@@ -142,8 +123,9 @@ def main(argv=None):
                                  SyntheticFrameProvider,
                                  collect_calibration_frames)
     from ..data.ssn_dataset import SSNDataset
+    from ..infer.features import resolve_device
     from ..infer.scorer import (ProposalScorer, dump_scores_pickle,
-                                resolve_device, score_videos)
+                                score_videos)
     from ..models import SSN
     from ..train import load_checkpoint
 

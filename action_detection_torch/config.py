@@ -1,8 +1,9 @@
 """Dataset-level configuration as Python constants.
 
-The values of ``action_detection_tpu/configs/dataset_cfg.yaml`` for the two
-detection datasets, held as typed dataclasses so the port needs no yaml
-parser (the machines it runs on have none).
+The values of ``action_detection_tpu/configs/dataset_cfg.yaml`` (the
+detection task) and ``dataset_actionness_cfg.yaml`` (the binary actionness
+task of TAG) for the two datasets, held as typed dataclasses so the port
+needs no yaml parser (the machines it runs on have none).
 """
 
 from __future__ import annotations
@@ -118,10 +119,37 @@ DATASETS = {
 }
 
 
-def get_configs(dataset: str) -> DatasetConfig:
-    """The detection-task config for a dataset."""
+# the actionness (TAG) task: sliding-window lists, 3:9 fg:bg sampling and
+# no incomplete proposals; the ActivityNet model has a 100-wide head trained
+# on 0/1 fg/bg targets (reference binary_model.py:124)
+_ACTIONNESS_SAMPLING = dict(prop_per_video=12, fg_ratio=3, bg_ratio=9,
+                            incomplete_ratio=0)
+ACTIONNESS_DATASETS = {
+    "thumos14": dataclasses.replace(
+        DATASETS["thumos14"], train_list="thumos14_sw_val",
+        test_list="thumos14_sw_test", num_class=2,
+        sampling=SamplingConfig(incomplete_overlap_thresh=0.01,
+                                **_ACTIONNESS_SAMPLING)),
+    "activitynet1.2": dataclasses.replace(
+        DATASETS["activitynet1.2"], train_list="activitynet1.2_sw_train",
+        test_list="activitynet1.2_sw_val",
+        sampling=SamplingConfig(**_ACTIONNESS_SAMPLING)),
+}
+
+
+def _lookup(table: dict, dataset: str) -> DatasetConfig:
     try:
-        return DATASETS[dataset]
+        return table[dataset]
     except KeyError:
         raise ValueError(f"unknown dataset {dataset!r} "
-                         f"(known: {sorted(DATASETS)})") from None
+                         f"(known: {sorted(table)})") from None
+
+
+def get_configs(dataset: str) -> DatasetConfig:
+    """The detection-task config for a dataset."""
+    return _lookup(DATASETS, dataset)
+
+
+def get_actionness_configs(dataset: str) -> DatasetConfig:
+    """The binary-actionness-task (TAG) config for a dataset."""
+    return _lookup(ACTIONNESS_DATASETS, dataset)

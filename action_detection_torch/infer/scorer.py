@@ -24,21 +24,13 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from ..data.pipeline import (iter_scaled_frame_chunks, make_decode_pool,
-                             pad_chunk_ticks)
+from ..data.pipeline import iter_scaled_frame_chunks, pad_chunk_ticks
 from ..data.ssn_dataset import SSNDataset, TestSample
-from ..data.transforms import (device_normed_pair, device_oversample_normed,
-                               preprocess_frames)
 from ..models.backbones import InputSpec
-from ..models.backbones.quantize import (calibrate_e2e_backbone,
-                                         int8_e2e_features,
-                                         int8_e2e_features_sharedstem,
-                                         int8_support_error, supports_int8,
-                                         supports_shared_stem)
-from ..models.backbones.bn_inception_int8 import tree_to
 from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
                         reorganized_stpp_pool)
+from .features import CropFeatureScorer
 
 
 @dataclasses.dataclass
@@ -56,18 +48,9 @@ class ScoredVideo:
                 self.reg_scores)
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device with no card raises (the
-    port never continues on the CPU in place of a requested GPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
-                           "device")
-    return dev
-
-
-class ProposalScorer:
-    """Holds the fused test FC, the (quantized) backbone and the decode pool."""
+class ProposalScorer(CropFeatureScorer):
+    """Holds the fused test FC, the (quantized) backbone and the decode pool
+    (the feature step is :class:`~.features.CropFeatureScorer`'s)."""
 
     def __init__(self, model: SSN, input_spec: InputSpec,
                  reg_stats: Optional[np.ndarray] = None,
@@ -83,18 +66,6 @@ class ProposalScorer:
                  decode_threads: Optional[int] = None,
                  shared_stem: Optional[bool] = None,
                  prequantized=None):
-        self.device = resolve_device(device)
-        # parity with the JAX package's Precision.HIGHEST heads and f32 convs
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-        self.model = model.eval()
-        self.arch = model.arch
-        self.input_spec = input_spec
-        self.test_crops = test_crops
-        self.chunk_frames = chunk_frames
-        self.modality = modality
-        self.new_length = model.resolved_new_length
         self.reg_stats = (np.asarray(reg_stats) if reg_stats is not None
                           else None)
         if with_regression and self.reg_stats is None:
@@ -104,33 +75,15 @@ class ProposalScorer:
                 "with_regression=True requires reg_stats (the checkpoint's "
                 "regression-target normalization); pass with_regression=False "
                 "to score without boundary regression")
+        super().__init__(model, input_spec, test_crops=test_crops,
+                         chunk_frames=chunk_frames, modality=modality,
+                         device=device, quantize=quantize,
+                         calibration_frames=calibration_frames,
+                         device_crops=device_crops,
+                         decode_threads=decode_threads,
+                         shared_stem=shared_stem, prequantized=prequantized)
         self.num_class = num_class or model.num_class
         self.with_regression = with_regression
-        if device_crops is None:
-            device_crops = test_crops == 10
-        self.device_crops = device_crops and test_crops == 10
-        if not self.device_crops:
-            raise ValueError("the port scores with 10 device crops only; the "
-                             "host-crop path (test_crops != 10) comes in a "
-                             "later slice")
-        self._decode_pool = make_decode_pool(decode_threads)
-
-        can_share = supports_shared_stem(self.arch)
-        self.shared_stem = bool(shared_stem) and can_share
-        if shared_stem and not can_share:
-            raise ValueError(
-                "shared_stem requires device 10-crop oversampling and a "
-                f"supported backbone (got {self.arch!r})")
-        self._quantize_mode = ({False: None, None: None, True: "e2e"}
-                               .get(quantize, quantize))
-        if self._quantize_mode not in (None, "e2e"):
-            raise ValueError(f"quantize mode {quantize!r} is not in the port "
-                             "yet (only 'e2e')")
-        if self.shared_stem and self._quantize_mode != "e2e":
-            raise ValueError("shared_stem is only wired for the int8-e2e "
-                             f"backbone (quantize={quantize!r})")
-        if prequantized is not None and not self._quantize_mode:
-            raise ValueError("prequantized requires quantize to be set")
 
         kernel, bias = fuse_test_heads(model, self.num_class, stpp_cfg,
                                        with_regression=with_regression)
@@ -147,80 +100,6 @@ class ProposalScorer:
             feat_multiplier=self.stpp.feat_multiplier,
             with_regression=with_regression)
 
-        self._quantized = None
-        self._qp = None
-        if self._quantize_mode:
-            if not supports_int8(self.arch, self._quantize_mode):
-                raise ValueError(int8_support_error(self.arch,
-                                                    self._quantize_mode))
-            if prequantized is not None:
-                # a sibling scorer's export_quantized(): calibration ran once
-                self._quantized = tree_to(prequantized, self.device)
-            else:
-                # the float backbone only feeds calibration (host copy)
-                self._qp = {k: v.detach().cpu() for k, v in
-                            model.base_model.state_dict().items()}
-                if calibration_frames is not None:
-                    self._calibrate(torch.as_tensor(
-                        np.asarray(calibration_frames), device=self.device))
-        else:
-            self.model.to(self.device)
-
-    def export_quantized(self):
-        """The quantized tree (CPU tensors) for a sibling scorer's
-        ``prequantized=``, or None before calibration has run."""
-        if self._quantized is None:
-            return None
-        return tree_to(self._quantized, "cpu")
-
-    @property
-    def needs_lazy_calibration(self) -> bool:
-        """True while this scorer would calibrate on its next scored chunk."""
-        return self._quantize_mode == "e2e" and self._quantized is None
-
-    def close(self) -> None:
-        """Shut down the decode thread pool (idempotent)."""
-        if self._decode_pool is not None:
-            self._decode_pool.shutdown(wait=False)
-            self._decode_pool = None
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
-
-    # --- device work ---
-
-    def _calibrate(self, frames_u8: torch.Tensor) -> None:
-        with torch.no_grad():
-            sample = self._prep_calibration(frames_u8)
-        self._quantized = tree_to(
-            calibrate_e2e_backbone(self.arch, self._qp, sample), self.device)
-        self._qp = None    # the host float copy only feeds calibration
-
-    def _prep_calibration(self, frames: torch.Tensor) -> torch.Tensor:
-        """Normalized CROP-shaped frames for quantization calibration.
-
-        Scale-size inputs give the first crop offset's normal+flip groups;
-        crop-shaped inputs pass through; an oversized dim of a smaller frame
-        is center-cropped (see the JAX package's ``_prep_calibration``).
-        """
-        cs = self.input_spec.input_size
-        H, W = frames.shape[1], frames.shape[2]
-        if H >= cs and W >= cs and not (H == cs and W == cs):
-            crops = device_oversample_normed(frames, self.input_spec,
-                                             self.modality, self.new_length)
-            return crops[: 2 * frames.shape[0]]
-        if H > cs:
-            o = (H - cs) // 2
-            frames = frames[:, o:o + cs]
-        if W > cs:
-            o = (W - cs) // 2
-            frames = frames[:, :, o:o + cs]
-        return preprocess_frames(frames, self.input_spec, self.modality,
-                                 self.new_length)
-
     def _score_chunk(self, frames_u8: torch.Tensor,
                      n_stacks: int) -> torch.Tensor:
         """``(n_stacks, H_scale, W_scale, C)`` uint8 frames on the device ->
@@ -229,23 +108,8 @@ class ProposalScorer:
         Crops are mean-reduced on *features* before the fused FC — identical
         by linearity.
         """
-        if self.needs_lazy_calibration:
-            self._calibrate(frames_u8)
-        qe = self._quantized
+        feats = self._crop_features(frames_u8)
         with torch.no_grad():
-            if self.shared_stem:
-                xn, flip_src = device_normed_pair(
-                    frames_u8, self.input_spec, self.modality,
-                    self.new_length)
-                feats = int8_e2e_features_sharedstem(
-                    self.arch, qe, xn, flip_src, self.input_spec.input_size)
-            else:
-                x = device_oversample_normed(frames_u8, self.input_spec,
-                                             self.modality, self.new_length)
-                if qe is not None:
-                    feats = int8_e2e_features(self.arch, qe, x)
-                else:
-                    feats = self.model.features(x)
             feats = feats.reshape(self.test_crops, n_stacks, -1).mean(dim=0)
             return torch.matmul(feats, self._kernel) + self._bias
 

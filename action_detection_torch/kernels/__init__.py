@@ -1,20 +1,25 @@
 """The port's hand-written CUDA kernels: wrappers, plain versions and the
-launch counters that show which kernels a run went through."""
+launch counters that show which kernels a run went through. The counters
+also cover the C++ host kernels of ``utils/native.py`` (``host_nms``,
+``host_tag_search``), which the evaluation and TAG paths call."""
 
+from ..utils.native import nms_indices, tag_box_search
 from .int8 import (int8_avg_pool, int8_avg_pool_exclude_pad,
                    int8_avg_pool_plain, int8_conv, int8_conv_plain,
                    int8_max_pool, int8_max_pool_plain)
 from .pool_bwd import max_pool_bwd, max_pool_bwd_plain
 
-#: every kernel wrapper; each adds one to its ``launches`` per launch
-KERNELS = (int8_conv, int8_max_pool, int8_avg_pool,
-           int8_avg_pool_exclude_pad, max_pool_bwd)
+#: every counted wrapper by its counter's name; each adds one to its
+#: ``launches`` per launch
+KERNELS = {k.__name__: k for k in (int8_conv, int8_max_pool, int8_avg_pool,
+                                   int8_avg_pool_exclude_pad, max_pool_bwd)}
+KERNELS.update(host_nms=nms_indices, host_tag_search=tag_box_search)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS.values():
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {name: k.launches for name, k in KERNELS.items()}

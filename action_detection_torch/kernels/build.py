@@ -14,16 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from ..utils.build import BUILD_DIR, CSRC, hashed_library_path
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,11 +63,7 @@ def build_library() -> tuple:
     Returns ``(path, seconds spent compiling)``; 0.0 when it was built.
     """
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as f:
-            h.update(f.read())
-    path = os.path.join(BUILD_DIR, f"libadt_kernels_{h.hexdigest()[:16]}.so")
+    path = hashed_library_path("libadt_kernels", NVCC_FLAGS, srcs)
     if os.path.isfile(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)

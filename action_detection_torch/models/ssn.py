@@ -24,38 +24,21 @@ from ..ops.stpp import StppConfig, stpp_train_pool
 from .backbones import get_backbone
 
 
-class SSN(nn.Module):
-    """Three-head SSN classifier over STPP-pooled segment features."""
+class FrozenBNClassifier(nn.Module):
+    """A backbone (``base_model``) under linear heads, the frame of
+    :class:`SSN` and :class:`~.binary.BinaryClassifier`: BatchNorm stays
+    frozen in train mode too, and the head dropout applies to the
+    features."""
 
-    def __init__(self, num_class: int, modality: str = "RGB",
-                 base_model: str = "BNInception",
-                 new_length: Optional[int] = None, dropout: float = 0.8,
-                 with_regression: bool = True,
-                 stpp_cfg: Tuple = (1, 1, 1),
-                 standalone_classifier: bool = True,
-                 starting_segment: int = 2, course_segment: int = 5,
-                 ending_segment: int = 2):
+    def __init__(self, base_model: str, modality: str,
+                 new_length: Optional[int], dropout: float):
         super().__init__()
-        self.num_class = num_class
-        self.modality = modality
         self.arch = base_model
+        self.modality = modality
         self.new_length = new_length
         self.dropout = dropout
-        self.with_regression = with_regression
-        self.stpp = StppConfig.from_raw(stpp_cfg)
-        self.standalone_classifier = standalone_classifier
-        self.seg_split = (starting_segment, starting_segment + course_segment,
-                          starting_segment + course_segment + ending_segment)
-
         self.base_model, self.feature_dim, self.input_spec = get_backbone(
             base_model, modality, new_length)
-        J = self.stpp.feat_multiplier
-        act_in = self.feature_dim if standalone_classifier \
-            else J * self.feature_dim
-        self.activity_fc = nn.Linear(act_in, num_class + 1)
-        self.completeness_fc = nn.Linear(J * self.feature_dim, num_class)
-        if with_regression:
-            self.regressor_fc = nn.Linear(J * self.feature_dim, 2 * num_class)
 
     @property
     def resolved_new_length(self) -> int:
@@ -63,7 +46,7 @@ class SSN(nn.Module):
             return 1 if self.modality == "RGB" else 5
         return self.new_length
 
-    def train(self, mode: bool = True) -> "SSN":
+    def train(self, mode: bool = True) -> "FrozenBNClassifier":
         """Train mode everywhere but the BatchNorm layers (frozen BN)."""
         super().train(mode)
         for m in self.base_model.modules():
@@ -81,6 +64,34 @@ class SSN(nn.Module):
                               device=feats.device) >= self.dropout
             feats = feats * keep / (1.0 - self.dropout)
         return feats
+
+
+class SSN(FrozenBNClassifier):
+    """Three-head SSN classifier over STPP-pooled segment features."""
+
+    def __init__(self, num_class: int, modality: str = "RGB",
+                 base_model: str = "BNInception",
+                 new_length: Optional[int] = None, dropout: float = 0.8,
+                 with_regression: bool = True,
+                 stpp_cfg: Tuple = (1, 1, 1),
+                 standalone_classifier: bool = True,
+                 starting_segment: int = 2, course_segment: int = 5,
+                 ending_segment: int = 2):
+        super().__init__(base_model, modality, new_length, dropout)
+        self.num_class = num_class
+        self.with_regression = with_regression
+        self.stpp = StppConfig.from_raw(stpp_cfg)
+        self.standalone_classifier = standalone_classifier
+        self.seg_split = (starting_segment, starting_segment + course_segment,
+                          starting_segment + course_segment + ending_segment)
+
+        J = self.stpp.feat_multiplier
+        act_in = self.feature_dim if standalone_classifier \
+            else J * self.feature_dim
+        self.activity_fc = nn.Linear(act_in, num_class + 1)
+        self.completeness_fc = nn.Linear(J * self.feature_dim, num_class)
+        if with_regression:
+            self.regressor_fc = nn.Linear(J * self.feature_dim, 2 * num_class)
 
     def forward(self, frames: torch.Tensor, scaling: torch.Tensor,
                 generator: Optional[torch.Generator] = None):

@@ -1,3 +1,5 @@
+# Host-only re-exports: the host CLIs import this package without torch.
+# The device ops (stpp, pooling, losses) are imported by module.
 from .iou import (
     temporal_iou,
     temporal_iou_matrix,
@@ -6,11 +8,4 @@ from .iou import (
     name_proposal,
     get_temporal_proposal_recall,
 )
-from .stpp import (
-    parse_stage_config,
-    StppConfig,
-    ReorganizedScoreLayout,
-    reference_part_bounds,
-    reorganized_score_slices,
-    reorganized_stpp_pool,
-)
+from .nms import temporal_nms, temporal_nms_indices

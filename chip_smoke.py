@@ -9,7 +9,8 @@ before the final line):
 
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
               versions. No CUDA device: exit 1.
-2. build    — nvcc builds the kernels K1-K3 and A1 from
+2. build    — nvcc builds the kernels K1-K3 and A1, and g++ the C++ host
+              kernels (NMS, TAG box search), from
               ``action_detection_torch/csrc`` into
               ``action_detection_torch/_build``.
 3. kernels  — K1 (int8 conv, both epilogues), K2 (int8 max pool, both
@@ -32,7 +33,7 @@ before the final line):
               ``F.max_pool2d`` on the channels-last view for K2, where
               torch's CUDA max pool takes int8). A1 also launches twice on
               the same inputs (equal bits).
-4. main     — four paths, each with the launch counts set to 0 just before
+4. main     — five paths, each with the launch counts set to 0 just before
               it and read just after, each required to launch its kernels:
               the port's ``ssn_test`` CLI in-process at full width with the
               int8-e2e shared-stem default and seeded random weights, on 2
@@ -45,7 +46,20 @@ before the final line):
               segments = 1,152 images per step, frozen BN, dropout 0.8)
               through ``make_train_step``. Each score pickle is checked for
               shapes and finite values, the training metrics for finite
-              values.
+              values. Then the inference pipeline end to end
+              (``run_pipeline``): a THUMOS14-style DB of two 1,560-frame
+              test videos at 30 fps with empty frame files ->
+              ``gen_sliding_window_proposals`` -> ``binary_test``
+              (BNInception RGB at full width, int8-e2e shared stem, K=2,
+              a path of its own: K1-K3 must launch) ->
+              ``gen_bottom_up_proposals --workers 1`` (the C++ host search
+              and NMS must run) -> ``ssn_test`` on the TAG list ->
+              ``eval_detection_results``; then the BNInception RGB and
+              Flow pickles above fused by ``eval_detection_results
+              --score_weights 1 1.5``. Each stage's output is checked
+              (non-empty, finite, 9 IoU columns); ``binary_test``'s wall
+              time and device busy share, one 640-crop actionness chunk's
+              device time and each evaluation's wall time are printed.
 5. checks   — for BNInception and InceptionV3: the int8 trunk held
               bit-exact against the plain kernels on the CPU, the int8
               features against the float backbone (cos > 0.99, rel <
@@ -92,6 +106,8 @@ CORE_OPS = 67e12    # float32 peak outside the tensor cores, ops/s (the same)
 TPU_SRC = "action_detection_tpu/models/backbones/bn_inception_int8.py"
 IV3_SRC = "action_detection_tpu/models/backbones/inception_v3_int8.py"
 REG_STATS = [[0.01, -0.02], [0.1, 0.2]]    # the checkpoints' reg_stats
+PIPELINE_FRAMES = 1560    # frames of each pipeline test video (52 s, 30 fps)
+PIPELINE_INTERVAL = 5     # binary_test's --frame_interval (its default)
 
 
 def _smi() -> str:
@@ -606,7 +622,8 @@ def check_pickle(path: str, num_class: int, n_videos: int = 2) -> list:
 
 def drive(name: str, fn, expect) -> dict:
     """One main path: the launch counts set to 0 just before ``fn()`` and
-    read just after; every kernel in ``expect`` must have launched."""
+    read just after; every kernel in ``expect`` must have launched. Returns
+    the counts, with the path's wall seconds under ``"wall_s"``."""
     import torch
 
     from action_detection_torch.kernels import (launch_counts,
@@ -624,7 +641,7 @@ def drive(name: str, fn, expect) -> dict:
         if launches[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the {name} "
                                  "path")
-    return launches
+    return dict(launches, wall_s=wall)
 
 
 def _seeded_checkpoint(d: str, name: str, num_class: int, arch: str,
@@ -691,6 +708,7 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
             "ssn_test thumos14 Flow (BNInception)", lambda: ssn_test(clif),
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
+        paths["binary_test"] = run_pipeline(d, smi)
 
         check_train_step_small(d)
         if profile:
@@ -718,6 +736,177 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
     for scorer, _ in scorers:
         scorer.close()
     return paths
+
+
+def write_thumos_db(d: str, frames: int = 1560, fps: int = 30) -> tuple:
+    """A THUMOS14-style DB under ``d/thumos_14`` (durations, per-class
+    temporal annotations, avoid lists; the shape of
+    tests/test_video_db_and_tag_cli.py's fixture): two test videos of
+    ``frames`` frames at ``fps`` with two GT instances each, one validation
+    video, and frame folders of empty ``img_*.jpg`` files for the test
+    videos. Returns the data dir and the frame root."""
+    db, root = os.path.join(d, "thumos_14"), os.path.join(d, "frames")
+    duration = frames / fps
+    for subset, vids in (("validation", ["video_validation_0000001"]),
+                         ("test", ["video_test_0000001",
+                                   "video_test_0000002"])):
+        anno = os.path.join(db, f"temporal_annotations_{subset}")
+        os.makedirs(anno)
+        with open(os.path.join(db, f"{subset}_durations.txt"), "w") as f:
+            f.writelines(f"{v}.mp4\n{duration}\n" for v in vids)
+        with open(os.path.join(db, f"{subset}_avoid_videos.txt"), "w") as f:
+            f.write(f"{vids[0]} Ambiguous\n")
+        for c, cls in enumerate(("BaseballPitch", "Diving")):
+            with open(os.path.join(anno, f"{cls}_{subset}.txt"), "w") as f:
+                f.writelines(f"{v} {8.0 + 25 * c + 3 * i:.1f} "
+                             f"{20.0 + 25 * c + 3 * i:.1f}\n"
+                             for i, v in enumerate(vids))
+        if subset == "test":
+            for v in vids:
+                os.makedirs(os.path.join(root, v))
+                for i in range(1, frames + 1):
+                    open(os.path.join(root, v, f"img_{i:05d}.jpg"),
+                         "w").close()
+    return d, root
+
+
+def run_pipeline(d: str, smi: str) -> dict:
+    """Main path, part 5: the inference pipeline end to end in
+    ``d/pipeline``: sliding windows -> ``binary_test`` (BNInception RGB,
+    full width, int8-e2e shared stem, seeded weights) -> TAG grouping ->
+    ``ssn_test`` on the TAG list (the BNInception RGB checkpoint of part 1)
+    -> mAP; then the fused RGB + Flow evaluation of the pickles of parts 1
+    and 4 (``--score_weights 1 1.5``). Two test videos of
+    ``PIPELINE_FRAMES`` frames at 30 fps, actionness every
+    ``PIPELINE_INTERVAL`` frames. Each stage's output is checked; returns
+    ``binary_test``'s launches."""
+    import contextlib
+
+    import numpy as np
+
+    from action_detection_torch.cli.binary_test import main as binary_test
+    from action_detection_torch.cli.eval_detection_results import (
+        main as eval_main)
+    from action_detection_torch.cli.gen_bottom_up_proposals import (
+        main as bottom_up)
+    from action_detection_torch.cli.gen_sliding_window_proposals import (
+        main as sliding_windows)
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.data.proposal_io import load_proposal_file
+    from action_detection_torch.models import BinaryClassifier, seeded_init
+    from action_detection_torch.train import save_checkpoint
+
+    p = os.path.join(d, "pipeline")
+    os.makedirs(p)
+    frames, interval = PIPELINE_FRAMES, PIPELINE_INTERVAL
+    data_dir, root = write_thumos_db(p, frames)
+    sw_list = os.path.join(p, "thumos14_sw_test_proposal_list.txt")
+    sliding_windows(["testing", "rgb", root, sw_list, "--dataset",
+                     "thumos14", "--data_dir", data_dir])
+    groups = load_proposal_file(sw_list)
+    if [g[1] for g in groups] != [frames] * 2 or not all(g[3] for g in
+                                                         groups):
+        raise AssertionError(f"sliding-window list: {[g[:2] for g in groups]}")
+
+    model = seeded_init(BinaryClassifier(dropout=0.0), seed=6).eval()
+    ckpt = os.path.join(p, "binary.pt")
+    save_checkpoint(ckpt, model.state_dict(), None, arch="BNInception")
+    act = os.path.join(p, "actionness.pkl")
+    cli = ["thumos14", "RGB", "testing", ckpt, act, "--synthetic_data",
+           "--prop_file_dir", p, "--frame_interval", str(interval)]
+    launches = drive("binary_test thumos14 RGB (BNInception)",
+                     lambda: binary_test(cli),
+                     ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+    with open(act, "rb") as f:
+        scores = pickle.load(f)
+    T = len(range(0, frames - 1, interval))
+    if sorted(scores) != ["video_test_0000001", "video_test_0000002"] or \
+            not all(a.shape == (T, 10, 2) and np.isfinite(a).all()
+                    for a in scores.values()):
+        raise AssertionError("actionness pickle: " + str(
+            {k: (a.shape, bool(np.isfinite(a).all()))
+             for k, a in scores.items()}))
+    print(f"pipeline: actionness pickle ok ({T}, 10, 2) per video",
+          flush=True)
+    _, wall, busy = profiled_run(lambda: binary_test(cli))
+    print(f"pipeline: binary_test wall {launches['wall_s']:.3f} s; under "
+          f"the profiler wall {wall:.3f} s, device busy {busy:.3f} s = "
+          f"{busy / wall:.1%} ({smi})", flush=True)
+    time_actionness(model, smi)
+
+    tag_list = os.path.join(p, "thumos14_tag_test_proposal_list.txt")
+    drive("gen_bottom_up_proposals", lambda: bottom_up([
+        act, "--dataset", "thumos14", "--subset", "testing", "--data_dir",
+        data_dir, "--frame_path", root, "--write_proposals", tag_list,
+        "--workers", "1"]), ("host_tag_search", "host_nms"))
+    groups = load_proposal_file(tag_list)
+    if len(groups) != 2 or not all(g[3] for g in groups):
+        raise AssertionError(f"TAG list: {[len(g[3]) for g in groups]} "
+                             "proposals per video")
+    print(f"pipeline: TAG proposals per video {[len(g[3]) for g in groups]}",
+          flush=True)
+
+    det = os.path.join(p, "tag_scores.pkl")
+    drive("ssn_test thumos14 RGB on the TAG list", lambda: ssn_test([
+        "thumos14", "RGB", os.path.join(d, "bninception_rgb.pt"), det,
+        "--synthetic_data", "--prop_file_dir", p]),
+        ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+    print(f"pipeline: pickle ok (P={check_pickle(det, 20)})", flush=True)
+
+    dumps = [os.path.join(p, f) for f in ("gt_dump.pc", "pred_dump.pc")]
+    for name, argv in (
+            ("eval_detection_results (TAG list)", [det, "--prop_file_dir", p]),
+            ("eval_detection_results (RGB + Flow fused)",
+             [os.path.join(d, "bninception_rgb.pkl"),
+              os.path.join(d, "bninception_flow.pkl"), "--score_weights",
+              "1", "1.5", "--prop_file_dir", d])):
+        out = {}
+        for f in dumps:
+            if os.path.exists(f):
+                os.remove(f)
+        with contextlib.chdir(p):      # where pandas exists, its dumps
+            run = drive(name, lambda: out.update(
+                ap=eval_main(["thumos14"] + argv)), ("host_nms",))
+        ap = out["ap"]
+        if ap.shape != (20, 9) or not np.isfinite(ap).all():
+            raise AssertionError(f"{name}: AP {ap.shape}")
+        written = all(os.path.exists(f) for f in dumps)
+        print(f"pipeline: {name} wall {run['wall_s']:.3f} s, 9 IoU "
+              f"columns, mean AP {ap.mean():.4f} (seeded weights), pandas "
+              f"dumps {'written' if written else 'skipped'} ({smi})",
+              flush=True)
+    return launches
+
+
+def time_actionness(model, smi) -> None:
+    """Device time of one steady-state 64-tick actionness chunk (640 crops,
+    int8-e2e shared stem, per-crop logits): CUDA events, median of 10."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.infer.actionness import ActionnessScorer
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+
+    rng = np.random.RandomState(2)
+    frames = rng.randint(0, 256, size=(64, 256, 340, 3), dtype=np.uint8)
+    calib = np.concatenate([frames[:2, 16:240, 58:282]] * 5)
+    with ActionnessScorer(model, model.input_spec, chunk_frames=64,
+                          device="cuda", quantize="e2e",
+                          calibration_frames=calib,
+                          shared_stem=True) as scorer:
+        chunk = torch.as_tensor(frames).cuda()
+        step = lambda: scorer._score_chunk(chunk)      # noqa: E731
+        out = step()
+        if out.shape != (64, 10, 2) or not torch.isfinite(out).all():
+            raise AssertionError(f"actionness chunk {tuple(out.shape)}")
+        ms = _time_ms(step, reps=10, warmup=2)
+        reset_launch_counts()
+        step()
+        per_step = {k: n for k, n in launch_counts().items() if n}
+    print(f"step: actionness BNInception int8-e2e shared-stem {ms:.2f} ms "
+          f"per {SLICE_N}-crop chunk = {SLICE_N / ms * 1e3:.0f} crops/s, "
+          f"launches per step {per_step} ({smi})", flush=True)
 
 
 def _int8_checks(name, model, qe, x, stem_quantized, trunk_ops, trunk,
@@ -942,25 +1131,31 @@ def profile_calls(out_dir: str, name: str, fn, reps: int) -> None:
               f"{us / total:6.1%}  {n[:90]}", flush=True)
 
 
-def profile_cli(out_dir: str, name: str, cli) -> None:
-    """Device busy share of one whole ``ssn_test`` run."""
+def profiled_run(fn):
+    """``fn()`` under torch.profiler: returns the profile, the wall seconds
+    and the device's busy seconds (the union of its kernels' intervals)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from action_detection_torch.cli.ssn_test import main as ssn_test
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ssn_test(cli)
+        fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = _busy_us(_device_intervals(prof))
+        wall = time.perf_counter() - t0
+    return prof, wall, _busy_us(_device_intervals(prof)) / 1e6
+
+
+def profile_cli(out_dir: str, name: str, cli) -> None:
+    """Device busy share of one whole ``ssn_test`` run."""
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+
+    prof, wall, busy = profiled_run(lambda: ssn_test(cli))
     with open(_profile_out(out_dir, name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                           row_limit=40))
-    print(f"profile {name}: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms = {busy / wall_us:.1%}", flush=True)
+    print(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy * 1e3:.1f} ms = {busy / wall:.1%}", flush=True)
 
 
 def kernels_of(pkg_root: str) -> int:
@@ -1001,6 +1196,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     # the port must be importable before anything is printed
     from action_detection_torch.kernels.build import build_library
+    from action_detection_torch.utils.native import build_native
 
     smi = _smi()
     card = torch.cuda.get_device_name(0)
@@ -1009,6 +1205,10 @@ def main() -> int:
 
     path, secs = build_library()
     print(f"build: {os.path.relpath(path, ROOT)} in {secs:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    host = build_native()
+    print(f"build: {os.path.relpath(host, ROOT)} (host kernels) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = check_kernels(card)
     paths = main_path(card, smi, profile)

@@ -1,13 +1,18 @@
-"""The port runs on a machine without jax, flax, yaml or PIL.
+"""The port runs on a machine without jax, flax, yaml, PIL, scikit-learn or
+pandas.
 
-A subprocess blocks those four packages (``sys.modules[name] = None`` makes
+A subprocess blocks those six packages (``sys.modules[name] = None`` makes
 any import of them raise), imports every module of action_detection_torch,
 scores a synthetic video through the int8-e2e shared-stem ProposalScorer on
 the CPU (plain kernels) for BNInception RGB (frames already at the scale
 size), InceptionV3 RGB (frames resized by the numpy resize) and BNInception
 and InceptionV3 Flow (10-channel stacks), resizes a THUMOS frame to
 InceptionV3's scale size 341, and takes one BNInception SSN training step
-(the max-pool backward on its plain version)."""
+(the max-pool backward on its plain version). A second one, under the same
+blocks, runs the inference pipeline through the five host and actionness
+CLIs on the CPU: gen_sliding_window_proposals -> binary_test (TinyConv) ->
+gen_bottom_up_proposals -> ssn_test -> eval_detection_results (no pandas:
+its side dumps are skipped), and gen_proposal_list."""
 
 import os
 import subprocess
@@ -16,10 +21,15 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "sklearn", "pandas")
+BLOCK = textwrap.dedent(f"""
     import sys
-    for blocked in ("jax", "jaxlib", "flax", "yaml", "PIL"):
+    BLOCKED = {BLOCKED!r}
+    for blocked in BLOCKED:
         sys.modules[blocked] = None
+""")
+
+SCRIPT = BLOCK + textwrap.dedent("""
 
     import importlib, os, pickle, pkgutil, tempfile
     import numpy as np
@@ -105,18 +115,114 @@ SCRIPT = textwrap.dedent("""
         assert act.shape == (3, 21) and comp.shape == (3, 20)
         assert reg.shape == (3, 20, 2)
         assert all(np.isfinite(a).all() for a in (act, comp, reg))
-    leaked = sorted(m for m in ("jax", "flax", "yaml", "PIL")
-                    if sys.modules.get(m) is not None)
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
     assert not leaked, leaked
     print("ISOLATED-OK", len(names))
 """)
 
+PIPELINE = BLOCK + textwrap.dedent("""
+    import os, pickle, tempfile
+    import numpy as np
 
-def test_port_imports_and_scores_without_jax_flax_yaml_pil():
+    from action_detection_torch.cli import (
+        binary_test, eval_detection_results, gen_bottom_up_proposals,
+        gen_proposal_list, gen_sliding_window_proposals, ssn_test)
+    from action_detection_torch.data.proposal_io import load_proposal_file
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+    from action_detection_torch.models import (SSN, BinaryClassifier,
+                                               seeded_init)
+    from action_detection_torch.train import save_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        db, frames = os.path.join(d, "thumos_14"), os.path.join(d, "frames")
+        for subset, vids in (("validation", ["video_validation_0001"]),
+                             ("test", ["video_test_0001",
+                                       "video_test_0002"])):
+            os.makedirs(os.path.join(db, f"temporal_annotations_{subset}"))
+            with open(os.path.join(db, f"{subset}_durations.txt"), "w") as f:
+                f.writelines(f"{v}.mp4\\n60.0\\n" for v in vids)
+            with open(os.path.join(db, f"{subset}_avoid_videos.txt"),
+                      "w") as f:
+                f.write("")
+            for c, cls in enumerate(("Archery", "Diving")):
+                with open(os.path.join(db, f"temporal_annotations_{subset}",
+                                       f"{cls}_{subset}.txt"), "w") as f:
+                    f.writelines(f"{v} {10 + 25 * c:.1f} {22 + 25 * c:.1f}\\n"
+                                 for v in vids)
+            for v in vids:
+                os.makedirs(os.path.join(frames, v))
+                for i in range(1, 181):        # 3 fps
+                    open(os.path.join(frames, v, f"img_{i:05d}.jpg"),
+                         "w").close()
+
+        gen_sliding_window_proposals.main([
+            "testing", "rgb", frames, "thumos14_sw_test_proposal_list.txt",
+            "--dataset", "thumos14", "--data_dir", d])
+        bmodel = seeded_init(BinaryClassifier(base_model="TinyConv"), seed=0)
+        save_checkpoint("b.pt", bmodel.state_dict(), None, arch="TinyConv")
+        reset_launch_counts()
+        act = binary_test.main([
+            "thumos14", "RGB", "testing", "b.pt", "act.pkl", "--arch",
+            "TinyConv", "--synthetic_data", "--prop_file_dir", d,
+            "--device", "cpu", "--test_batchsize", "8"])
+        assert sorted(act) == ["video_test_0001", "video_test_0002"]
+        assert all(a.shape == (36, 10, 2) and np.isfinite(a).all()
+                   for a in act.values())
+        gen_bottom_up_proposals.main([
+            "act.pkl", "--dataset", "thumos14", "--subset", "testing",
+            "--data_dir", d, "--frame_path", frames, "--workers", "1",
+            "--thresholds", "0.3", "0.5", "0.7", "--write_proposals",
+            "thumos14_tag_test_proposal_list.txt"])
+        counts = launch_counts()
+        assert counts["host_tag_search"] > 0 and counts["host_nms"] == 2
+        groups = load_proposal_file("thumos14_tag_test_proposal_list.txt")
+        assert len(groups) == 2 and all(len(g[3]) > 0 for g in groups)
+
+        smodel = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=1)
+        save_checkpoint("s.pt", smodel.state_dict(),
+                        np.array([[0.0, 0.0], [0.1, 0.1]]), arch="TinyConv")
+        ssn_test.main(["thumos14", "RGB", "s.pt", "det.pkl", "--arch",
+                       "TinyConv", "--synthetic_data", "--prop_file_dir", d,
+                       "--device", "cpu", "--test_batchsize", "8"])
+        reset_launch_counts()
+        ap = eval_detection_results.main(["thumos14", "det.pkl", "det.pkl",
+                                          "--score_weights", "1", "1.5",
+                                          "--prop_file_dir", d, "-j", "2"])
+        assert ap.shape == (20, 9) and np.isfinite(ap).all()
+        assert launch_counts()["host_nms"] > 0
+        assert not os.path.exists("gt_dump.pc")
+
+        with open("thumos14_tag_val_normalized_proposal_list.txt", "w") as f:
+            f.write("# 0\\nvideo_validation_0001\\n60.0\\n3\\n1\\n"
+                    "1 0.1667 0.3667\\n1\\n1 0.7000 0.8000 0.1500 0.4000\\n")
+        gen_proposal_list.main(["thumos14", frames, "--data_dir", d])
+        (g,) = load_proposal_file("thumos14_tag_val_proposal_list.txt")
+        assert g[1] == 180 and g[2] == [["1", "30", "66"]], g
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("PIPELINE-OK")
+""")
+
+
+def _run(script: str) -> str:
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    last = proc.stdout.strip().splitlines()[-1]
-    assert last.startswith("ISOLATED-OK"), proc.stdout
+    return proc.stdout
+
+
+def test_port_imports_and_scores_without_jax_flax_yaml_pil():
+    out = _run(SCRIPT)
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("ISOLATED-OK"), out
     assert int(last.split()[1]) >= 25      # every module was imported
+
+
+def test_pipeline_clis_without_jax_flax_yaml_pil_sklearn_pandas():
+    out = _run(PIPELINE)
+    assert out.strip().splitlines()[-1] == "PIPELINE-OK", out
+    assert "gt_dump.pc and pred_dump.pc skipped" in out
+    assert "Detection Performance on thumos14" in out
