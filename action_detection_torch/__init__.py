@@ -10,7 +10,9 @@ The port covers the inference pipeline: sliding windows
 (``cli/gen_bottom_up_proposals.py``), proposal scoring (``cli/ssn_test.py``
 -> ``infer/scorer.py``) and evaluation (``cli/eval_detection_results.py``),
 on BNInception and InceptionV3 (TinyConv for tests) with the int8
-end-to-end, shared-stem default; and the SSN training step.
+end-to-end, shared-stem default; and training (``cli/ssn_train.py``,
+``cli/binary_train.py`` -> ``train/``), float32 or bf16 on the hand-written
+max-pool backward.
 
 Package layout (each module mirrors one module of action_detection_tpu):
   models/      torch model definitions, int8 runtime, weight bridge
@@ -18,16 +20,18 @@ Package layout (each module mirrors one module of action_detection_tpu):
                kernels, nvcc build, plain versions, launch counters
   csrc/        the CUDA C++ sources of those kernels, and the C++ host
                kernels (NMS, TAG box search)
-  utils/       the build paths, and the ctypes binding of the host kernels
   ops/         stpp pooling, losses, pooling (torch); iou, nms, tag, mAP,
                metrics, aggregation (host numpy)
   data/        proposal-list I/O, dataset DBs, datasets, transforms, pipeline
   evaluation/  detections, NMS, regression, AP table (host)
-  train/       checkpoints (.pt) carrying reg_stats, optimizer, train step
+  train/       checkpoints (.pt) carrying reg_stats, optimizer, train and
+               eval steps, init weights
   infer/       the shared feature step, the proposal and actionness scorers
-  cli/         ssn_test, binary_test, eval_detection_results,
-               gen_bottom_up_proposals, gen_sliding_window_proposals,
-               gen_proposal_list
+  utils/       meters and the device trace, the build paths, the native
+               host library
+  cli/         ssn_train, binary_train, ssn_test, binary_test,
+               eval_detection_results, gen_bottom_up_proposals,
+               gen_sliding_window_proposals, gen_proposal_list
 """
 
 from .config import DatasetConfig, SamplingConfig, get_configs

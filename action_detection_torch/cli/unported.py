@@ -1,4 +1,4 @@
-"""Refusal, by name, of what the scoring CLIs of the port do not cover yet.
+"""Refusal, by name, of what the port's CLIs do not cover yet.
 
 Each refusal names the ROADMAP.md queue 1 item that brings it (by that
 item's heading) and the JAX CLI that has it already.
@@ -10,6 +10,7 @@ from __future__ import annotations
 CHECKPOINT_INTEROP = "Checkpoint interop"
 HOST_THROUGHPUT = "ssn_test host throughput"
 CLI_SURFACE = "The rest of the CLI surface"
+DATA_PARALLEL = "Data parallel"
 
 
 def not_yet(what: str, slice_: str, cli: str) -> SystemExit:
@@ -37,3 +38,20 @@ def refuse_unported_scoring(args, cli: str) -> None:
     if args.weights.endswith((".pth", ".pth.tar")):
         raise not_yet("converting a reference .pth checkpoint",
                       CHECKPOINT_INTEROP, cli)
+
+
+def refuse_unported_training(args, cli: str) -> None:
+    """The refusals ``ssn_train`` and ``binary_train`` share."""
+    from ..models.backbones import PORTED_ARCHS
+
+    if args.modality == "RGBDiff":
+        raise not_yet("modality RGBDiff", CLI_SURFACE, cli)
+    if args.arch not in PORTED_ARCHS:
+        raise not_yet(f"backbone {args.arch}", CLI_SURFACE, cli)
+    if args.devices is not None and len(args.devices) > 1:
+        raise not_yet("training on several devices", DATA_PARALLEL, cli)
+    if (args.coordinator_address is not None
+            or args.num_processes is not None
+            or args.process_id is not None):
+        raise not_yet("multi-host training (--coordinator_address, "
+                      "--num_processes, --process_id)", DATA_PARALLEL, cli)

@@ -9,7 +9,8 @@ needs no yaml parser (the machines it runs on have none).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+import os
+from typing import Optional, Tuple, Union
 
 StageCfg = Union[int, Tuple[int, ...]]
 
@@ -153,3 +154,48 @@ def get_configs(dataset: str) -> DatasetConfig:
 def get_actionness_configs(dataset: str) -> DatasetConfig:
     """The binary-actionness-task (TAG) config for a dataset."""
     return _lookup(ACTIONNESS_DATASETS, dataset)
+
+
+def pretrained_cache_dir() -> str:
+    """Where published pretrained checkpoints are looked up (the reference's
+    model_zoo cache): ``$ADT_MODEL_CACHE``, else
+    ``~/.cache/action_detection_tpu``, the JAX package's rule, so one cache
+    serves both packages."""
+    return os.environ.get(
+        "ADT_MODEL_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache",
+                     "action_detection_tpu"))
+
+
+def resolve_pretrained_init(cfg: DatasetConfig, arch: str, modality: str,
+                            kinetics: bool = False) -> Optional[str]:
+    """A published pretrained-init URL -> its cached local ``.pth`` path.
+
+    None for plain RGB (the reference starts from its backbone
+    constructor's ImageNet weights; there is no file to look up);
+    ``KeyError`` for an arch the config has no URL for; ``FileNotFoundError``
+    naming the path when the file is not in the cache. Nothing is
+    downloaded.
+    """
+    if kinetics:
+        try:
+            url = cfg.kinetics_pretrain[arch][modality]
+        except KeyError:
+            raise KeyError(f"no kinetics_pretrain URL for arch={arch} "
+                           f"modality={modality} in dataset "
+                           f"'{cfg.name}'") from None
+    elif modality == "Flow":
+        try:
+            url = cfg.flow_init[arch]
+        except KeyError:
+            raise KeyError(f"no flow_init URL for arch={arch} in dataset "
+                           f"'{cfg.name}'") from None
+    else:
+        return None
+    path = os.path.join(pretrained_cache_dir(), url.rsplit("/", 1)[-1])
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"pretrained init checkpoint not cached: {path}\n"
+            f"Nothing is downloaded here. Fetch\n  {url}\nout of band and "
+            f"place it at that path (or set $ADT_MODEL_CACHE).")
+    return path

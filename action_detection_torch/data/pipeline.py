@@ -1,7 +1,7 @@
-"""Host input pipeline: frame providers, training batches, scoring chunks.
+"""Host input pipeline: frame providers, training batches, the prefetching
+loader of the training CLIs, scoring chunks.
 
-Port of ``action_detection_tpu/data/pipeline.py`` (training batches and
-scoring chunks; the prefetching loader of the training CLI comes with it).
+Port of ``action_detection_tpu/data/pipeline.py``.
 Providers return uint8 numpy arrays, not PIL images: the synthetic provider
 makes its pixels with the same ``zlib.crc32`` key and ``RandomState.randint``
 draws as the reference, so at the THUMOS scale size (340x256 frames, scale
@@ -13,6 +13,10 @@ imports PIL, inside the function that needs it.
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -132,6 +136,87 @@ def assemble_train_batch(dataset: SSNDataset, video_indices: Sequence[int],
             "labels": np.concatenate(all_labels),
             "reg_targets": np.concatenate(all_reg),
             "prop_type": np.concatenate(all_type)}
+
+
+def assemble_binary_batch(dataset, video_indices: Sequence[int], provider,
+                          transform: Callable, rng: np.random.RandomState,
+                          random_shift: bool = True) -> Dict[str, np.ndarray]:
+    """One uint8 batch of the binary actionness trainer (the JAX
+    ``binary_train``'s ``assemble``): frames (B*P, S, H, W, C), S the course
+    segments, and fg/bg labels (B*P,) i64."""
+    frames, labels = [], []
+    S = dataset.body_seg
+    for vi in video_indices:
+        s = dataset.get_training_sample(vi, rng, random_shift=random_shift)
+        for i in range(s.frame_indices.shape[0]):
+            vid = s.frame_video_ids[i]
+            imgs = load_proposal_frames(provider, vid, s.frame_indices[i],
+                                        dataset.video_dict[vid].num_frames,
+                                        dataset.new_length)
+            stacked = stack_images(transform(imgs, rng))
+            H, W, C = stacked.shape
+            frames.append(stacked.reshape(H, W, S, C // S)
+                          .transpose(2, 0, 1, 3))
+        labels.append(s.labels)
+    return {"frames": np.stack(frames).astype(np.uint8),
+            "labels": np.concatenate(labels)}
+
+
+class PrefetchLoader:
+    """Background-thread batch producer with a bounded queue.
+
+    ``make_batch(i)`` runs on a pool of ``num_threads`` threads; the
+    producer blocks on the bounded hand-off queue (``prefetch`` batches)
+    before it submits more work, so a slow consumer holds it back: at most
+    ``prefetch + num_threads + 2`` batches are made ahead of the consumer.
+    Batches come out in index order. An exception in a worker is raised
+    on the consuming thread; it never hangs the epoch. ``batch_seconds[i]``
+    is the host time ``make_batch(i)`` took.
+    """
+
+    def __init__(self, make_batch: Callable[[int], Dict[str, np.ndarray]],
+                 num_batches: int, prefetch: int = 2, num_threads: int = 2):
+        self.make_batch = make_batch
+        self.num_batches = num_batches
+        self.num_threads = max(num_threads, 1)
+        self.queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self.batch_seconds = [0.0] * num_batches
+        self._producer = threading.Thread(target=self._produce, daemon=True)
+        self._started = False
+
+    def _timed(self, i: int):
+        t0 = time.perf_counter()
+        batch = self.make_batch(i)
+        self.batch_seconds[i] = time.perf_counter() - t0
+        return batch
+
+    def _produce(self) -> None:
+        with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
+            try:
+                pending = deque()
+                for i in range(self.num_batches):
+                    pending.append(pool.submit(self._timed, i))
+                    while len(pending) > self.num_threads:
+                        self.queue.put(pending.popleft().result())
+                while pending:
+                    self.queue.put(pending.popleft().result())
+                self.queue.put(None)
+            except BaseException as e:
+                # re-raised on the consuming thread, which would otherwise
+                # wait for a batch that never comes
+                self.queue.put(e)
+
+    def __iter__(self):
+        if not self._started:
+            self._producer.start()
+            self._started = True
+        while True:
+            item = self.queue.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
 
 
 def make_decode_pool(threads: Optional[int] = None

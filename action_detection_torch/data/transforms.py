@@ -1,17 +1,19 @@
 """Frame transforms: host crop geometry and device-side normalization (torch).
 
-Port of ``action_detection_tpu/data/transforms.py`` without the resizing
-training crops:
+Port of ``action_detection_tpu/data/transforms.py`` on uint8 arrays:
 
 * **Host**: :func:`fill_fix_offset` (copied as is), :func:`scale_frame` (the
-  ``GroupScale`` rule on uint8 arrays, resizing through
-  :func:`resize_bilinear`, a numpy twin of PIL's bilinear resize),
-  :func:`oversample_crops` (the
-  ``GroupOverSample`` 10-crop on uint8 arrays by slicing and flipping, which
-  is bit-identical to PIL's crop + ``FLIP_LEFT_RIGHT``) and the group
-  transforms ``GroupScale``, ``GroupCenterCrop``,
-  ``GroupRandomHorizontalFlip`` and ``Compose`` on uint8 arrays, with the
-  reference's RandomState draws.
+  ``GroupScale`` rule, resizing through :func:`resize_bilinear`, a numpy
+  twin of PIL's bilinear resize), :func:`oversample_crops` (the
+  ``GroupOverSample`` 10-crop by slicing and flipping, bit-identical to
+  PIL's crop + ``FLIP_LEFT_RIGHT``), and the group transforms
+  ``GroupScale``, ``GroupCenterCrop``, ``GroupRandomCrop``,
+  ``GroupRandomHorizontalFlip`` (flow-x planes inverted, ``255 - x``), the
+  TSN training crops ``GroupMultiScaleCrop`` and ``GroupRandomSizedCrop``
+  (a crop is an array slice, the resize :func:`resize_bilinear`, so they
+  equal PIL's ``crop`` + ``resize(BILINEAR)`` bit for bit) and ``Compose``,
+  with the reference's ``RandomState`` draws in the reference's order;
+  :func:`get_train_augmentation` per modality.
 * **Device**: normalization, the 10-crop oversample of normalized frames and
   the flip-source pair of the shared-stem path, on torch tensors of any
   device. Layout stays NHWC, as in the JAX package.
@@ -201,6 +203,105 @@ class GroupRandomHorizontalFlip:
         return ret
 
 
+class GroupRandomCrop:
+    """One random ``size`` crop for the whole group (two ``randint`` draws,
+    x then y, also when the crop is the whole image)."""
+
+    def __init__(self, size):
+        # (height, width), the reference's convention
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+
+    def __call__(self, img_group, rng: np.random.RandomState):
+        h, w = img_group[0].shape[:2]
+        th, tw = self.size
+        x1 = rng.randint(0, w - tw + 1)
+        y1 = rng.randint(0, h - th + 1)
+        if (w, h) == (tw, th):
+            return list(img_group)
+        return [img[y1:y1 + th, x1:x1 + tw] for img in img_group]
+
+
+def _crop_resize(img_group, x1: int, y1: int, w: int, h: int,
+                 out_w: int, out_h: int) -> List[np.ndarray]:
+    """PIL's ``crop((x1, y1, x1 + w, y1 + h)).resize((out_w, out_h),
+    BILINEAR)`` on every image of the group."""
+    return [resize_bilinear(img[y1:y1 + h, x1:x1 + w], out_w, out_h)
+            for img in img_group]
+
+
+class GroupMultiScaleCrop:
+    """Fixed-offset multi-scale cropping (the TSN augmentation).
+
+    Crop sides are the smaller edge times one of ``scales`` (snapped to the
+    input size within 3 pixels), paired with at most ``max_distort`` steps
+    of aspect distortion, placed at one of 13 fixed offsets
+    (:func:`fill_fix_offset`) and resized to ``input_size``.
+    """
+
+    def __init__(self, input_size, scales=None, max_distort: int = 1,
+                 fix_crop: bool = True, more_fix_crop: bool = True):
+        self.scales = scales if scales is not None else [1, 0.875, 0.75, 0.66]
+        self.max_distort = max_distort
+        self.fix_crop = fix_crop
+        self.more_fix_crop = more_fix_crop
+        self.input_size = ([input_size, input_size]
+                           if isinstance(input_size, int) else input_size)
+
+    def __call__(self, img_group, rng: np.random.RandomState):
+        h, w = img_group[0].shape[:2]
+        crop_w, crop_h, off_w, off_h = self.sample_crop((w, h), rng)
+        return _crop_resize(img_group, off_w, off_h, crop_w, crop_h,
+                            self.input_size[0], self.input_size[1])
+
+    def sample_crop(self, im_size: Tuple[int, int],
+                    rng: np.random.RandomState):
+        image_w, image_h = im_size
+        base_size = min(image_w, image_h)
+        crop_sizes = [int(base_size * s) for s in self.scales]
+        crop_h = [self.input_size[1] if abs(x - self.input_size[1]) < 3 else x
+                  for x in crop_sizes]
+        crop_w = [self.input_size[0] if abs(x - self.input_size[0]) < 3 else x
+                  for x in crop_sizes]
+        pairs = [(w, h) for i, h in enumerate(crop_h)
+                 for j, w in enumerate(crop_w)
+                 if abs(i - j) <= self.max_distort]
+        crop_pair = pairs[rng.randint(len(pairs))]
+        if not self.fix_crop:
+            w_off = rng.randint(0, image_w - crop_pair[0] + 1)
+            h_off = rng.randint(0, image_h - crop_pair[1] + 1)
+        else:
+            offsets = fill_fix_offset(self.more_fix_crop, image_w, image_h,
+                                      crop_pair[0], crop_pair[1])
+            w_off, h_off = offsets[rng.randint(len(offsets))]
+        return crop_pair[0], crop_pair[1], w_off, h_off
+
+
+class GroupRandomSizedCrop:
+    """Inception-style random area (0.08-1.0) and aspect (3/4-4/3) crop,
+    resized to ``size``; after 10 misses, scale + random crop."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img_group, rng: np.random.RandomState):
+        h0, w0 = img_group[0].shape[:2]
+        for _ in range(10):
+            area = w0 * h0
+            target_area = rng.uniform(0.08, 1.0) * area
+            aspect_ratio = rng.uniform(3.0 / 4, 4.0 / 3)
+            w = int(round(np.sqrt(target_area * aspect_ratio)))
+            h = int(round(np.sqrt(target_area / aspect_ratio)))
+            if rng.rand() < 0.5:
+                w, h = h, w
+            if w <= w0 and h <= h0:
+                x1 = rng.randint(0, w0 - w + 1)
+                y1 = rng.randint(0, h0 - h + 1)
+                return _crop_resize(img_group, x1, y1, w, h, self.size,
+                                    self.size)
+        return GroupRandomCrop(self.size)(GroupScale(self.size)(img_group),
+                                          rng)
+
+
 class Compose:
     """Chain group transforms, threading the shared RandomState through."""
 
@@ -211,6 +312,19 @@ class Compose:
         for t in self.transforms:
             img_group = t(img_group, rng)
         return img_group
+
+
+def get_train_augmentation(input_size: int, modality: str) -> Compose:
+    """The reference's training augmentation for RGB and Flow (multi-scale
+    crop + random flip; Flow inverts its x planes on a flip)."""
+    if modality == "RGB":
+        return Compose([GroupMultiScaleCrop(input_size, [1, 0.875, 0.75, 0.66]),
+                        GroupRandomHorizontalFlip(is_flow=False)])
+    if modality == "Flow":
+        return Compose([GroupMultiScaleCrop(input_size, [1, 0.875, 0.75]),
+                        GroupRandomHorizontalFlip(is_flow=True)])
+    raise ValueError(f"modality {modality!r} is not in the port (RGBDiff "
+                     "comes with a later slice)")
 
 
 def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,

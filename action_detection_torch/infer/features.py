@@ -27,6 +27,7 @@ from ..models.backbones.quantize import (calibrate_e2e_backbone,
                                          int8_e2e_features_sharedstem,
                                          int8_support_error, supports_int8,
                                          supports_shared_stem)
+from ..train.trainer import float32_convs_and_matmuls
 
 
 def resolve_device(device) -> torch.device:
@@ -59,8 +60,7 @@ class CropFeatureScorer:
                  shared_stem: Optional[bool] = None,
                  prequantized=None):
         self.device = resolve_device(device)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        float32_convs_and_matmuls()
 
         self.model = model.eval()
         self.arch = model.arch

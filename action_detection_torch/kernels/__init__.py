@@ -19,7 +19,12 @@ KERNELS.update(host_nms=nms_indices, host_tag_search=tag_box_search)
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    max_pool_bwd.bf16_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Every counter by name; ``max_pool_bwd/bf16`` counts the launches of
+    ``max_pool_bwd`` in bfloat16 (``--bf16`` training)."""
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    counts["max_pool_bwd/bf16"] = max_pool_bwd.bf16_launches
+    return counts

@@ -220,7 +220,10 @@ def max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
             len(plan), _stream_ptr())
     _check_launch(rc, "max_pool_bwd")
     max_pool_bwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        max_pool_bwd.bf16_launches += 1
     return dx
 
 
 max_pool_bwd.launches = 0
+max_pool_bwd.bf16_launches = 0     # of ``launches``, those in bf16

@@ -29,8 +29,12 @@ class InputSpec:
 
 
 def get_backbone(name: str, modality: str = "RGB",
-                 new_length: Optional[int] = None):
-    """Build a backbone module + its feature dim + input spec."""
+                 new_length: Optional[int] = None, bn_mode: str = "frozen",
+                 remat: bool = False):
+    """Build a backbone module + its feature dim + input spec.
+
+    ``bn_mode`` and ``remat`` are the training options of
+    :mod:`.common` (the JAX package's ``bn_mode``; ``--remat``)."""
     if new_length is None:
         new_length = 1 if modality == "RGB" else 5
     if modality in ("RGB", "RGBDiff"):
@@ -46,7 +50,8 @@ def get_backbone(name: str, modality: str = "RGB",
         else:
             spec = InputSpec(224, (104.0, 117.0, 128.0), (1.0,), bgr=True,
                              div255=False)
-        return BNInception(in_channels), BNINCEPTION_DIM, spec
+        return (BNInception(in_channels, bn_mode, remat), BNINCEPTION_DIM,
+                spec)
     if name == "InceptionV3":
         from .inception_v3 import InceptionV3, FEATURE_DIM as IV3_DIM
 
@@ -55,14 +60,14 @@ def get_backbone(name: str, modality: str = "RGB",
         else:
             spec = InputSpec(299, (104.0, 117.0, 128.0), (1.0,), bgr=True,
                              div255=False)
-        return InceptionV3(in_channels), IV3_DIM, spec
+        return InceptionV3(in_channels, bn_mode, remat), IV3_DIM, spec
     if name == "TinyConv":
         from .tiny import TinyConv, FEATURE_DIM as TINY_DIM
 
         spec = InputSpec(32, (104.0, 117.0, 128.0) if modality != "Flow"
                          else (128.0,), (1.0,), bgr=(modality != "Flow"),
                          div255=False)
-        return TinyConv(in_channels), TINY_DIM, spec
+        return TinyConv(in_channels, bn_mode, remat), TINY_DIM, spec
     raise ValueError(f"backbone {name!r} is not ported yet (ported: "
                      f"{', '.join(PORTED_ARCHS)}; ResNet and VGG come in "
                      f"later slices of the port)")

@@ -10,10 +10,15 @@ Caffe-style ceil-mode max pooling is explicit right/bottom padding with
 -inf (:func:`_ceil_pool_padding`), exactly as the JAX package pads. Every max
 pool goes through :func:`~action_detection_torch.ops.pooling.max_pool_2d`,
 whose backward is the hand-written kernel A1.
+
+Training: ``bn_mode`` (``common.set_bn_mode``; ``partial`` trains
+``conv1_7x7_s2_bn`` alone) and ``remat``, which checkpoints each stem layer
+and each inception module as one stage (``common.run_stage``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.pooling import max_pool_2d
+from .common import BatchNorm2d, run_stage, set_bn_mode
 
 # (name, out_channels per branch, pool kind, stride)
 # branches: 1x1 | 3x3_reduce->3x3 | double_3x3_reduce->double_3x3_1->double_3x3_2 | pool_proj
@@ -112,43 +118,52 @@ def conv_layer_specs(in_channels: int = 3):
 
 
 class BNInception(nn.Module):
-    """BN-Inception feature extractor: (N, 224, 224, C) NHWC -> (N, 1024).
+    """BN-Inception feature extractor: (N, 224, 224, C) NHWC -> (N, 1024)."""
 
-    Every BN is frozen (running statistics), as in SSN testing.
-    """
-
-    def __init__(self, in_channels: int = 3):
+    def __init__(self, in_channels: int = 3, bn_mode: str = "frozen",
+                 remat: bool = False):
         super().__init__()
         for name, cin, cout, k, stride, pad in conv_layer_specs(in_channels):
             setattr(self, name, nn.Conv2d(cin, cout, k, stride, pad,
                                           bias=True))
-            setattr(self, name + "_bn", nn.BatchNorm2d(cout, eps=1e-5))
+            setattr(self, name + "_bn", BatchNorm2d(cout, eps=1e-5))
+        set_bn_mode(self, bn_mode)
+        self.remat = remat
 
     def _cb(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return F.relu(getattr(self, name + "_bn")(getattr(self, name)(x)))
 
+    def _stages(self):
+        """The network as checkpoint stages: the stem layer by layer (its
+        activations are the largest), then each inception module."""
+        return ([lambda x: max_pool(self._cb("conv1_7x7_s2", x), 3, 2,
+                                    ceil=True),
+                 lambda x: self._cb("conv2_3x3_reduce", x),
+                 lambda x: max_pool(self._cb("conv2_3x3", x), 3, 2,
+                                    ceil=True)]
+                + [functools.partial(self._inception, cfg)
+                   for cfg in _INCEPTION_CFG])
+
+    def _inception(self, cfg, x: torch.Tensor) -> torch.Tensor:
+        name, c1, *_rest, pool, stride = cfg
+        branches = []
+        if c1 is not None:
+            branches.append(self._cb(f"{name}_1x1", x))
+        branches.append(self._cb(f"{name}_3x3",
+                                 self._cb(f"{name}_3x3_reduce", x)))
+        bd = self._cb(f"{name}_double_3x3_reduce", x)
+        branches.append(self._cb(f"{name}_double_3x3_2",
+                                 self._cb(f"{name}_double_3x3_1", bd)))
+        if stride == 1:
+            bp = (avg_pool_include_pad(x, 3, 1, 1) if pool == "avg"
+                  else max_pool(x, 3, 1, pad=1))
+            branches.append(self._cb(f"{name}_pool_proj", bp))
+        else:
+            branches.append(max_pool(x, 3, 2, ceil=True))
+        return torch.cat(branches, dim=1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        x = self._cb("conv1_7x7_s2", x)
-        x = max_pool(x, 3, 2, ceil=True)
-        x = self._cb("conv2_3x3_reduce", x)
-        x = self._cb("conv2_3x3", x)
-        x = max_pool(x, 3, 2, ceil=True)
-        for (name, c1, *_rest, pool, stride) in _INCEPTION_CFG:
-            branches = []
-            if c1 is not None:
-                branches.append(self._cb(f"{name}_1x1", x))
-            b3 = self._cb(f"{name}_3x3", self._cb(f"{name}_3x3_reduce", x))
-            branches.append(b3)
-            bd = self._cb(f"{name}_double_3x3_reduce", x)
-            bd = self._cb(f"{name}_double_3x3_2",
-                          self._cb(f"{name}_double_3x3_1", bd))
-            branches.append(bd)
-            if stride == 1:
-                bp = (avg_pool_include_pad(x, 3, 1, 1) if pool == "avg"
-                      else max_pool(x, 3, 1, pad=1))
-                branches.append(self._cb(f"{name}_pool_proj", bp))
-            else:
-                branches.append(max_pool(x, 3, 2, ceil=True))
-            x = torch.cat(branches, dim=1)
+        for stage in self._stages():
+            x = run_stage(stage, x, self.remat)
         return x.mean(dim=(2, 3)).float()

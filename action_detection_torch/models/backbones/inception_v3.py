@@ -11,6 +11,10 @@ Max pools are VALID 3x3 s2 through
 :func:`~action_detection_torch.ops.pooling.max_pool_2d` (A1 is their
 backward); the branch avg pools are 3x3 s1 SAME with
 ``count_include_pad=False`` (edges divide by 6, corners by 4).
+
+Training: ``bn_mode`` (``partial`` trains ``Conv2d_1a_3x3.bn`` alone) and
+``remat``, which checkpoints each stem layer and each Mixed module as one
+stage.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.pooling import max_pool_2d
+from .common import BatchNorm2d, run_stage, set_bn_mode
 
 FEATURE_DIM = 2048
 
@@ -29,13 +34,13 @@ _Pair = Union[int, Tuple[int, int]]
 
 
 class BasicConv2d(nn.Module):
-    """Bias-free conv + frozen BN (eps 1e-3) + ReLU."""
+    """Bias-free conv + BN (eps 1e-3) + ReLU."""
 
     def __init__(self, cin: int, cout: int, kernel: _Pair, stride: int = 1,
                  pad: _Pair = 0):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, pad, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+        self.bn = BatchNorm2d(cout, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))
@@ -159,12 +164,14 @@ class MixedE(nn.Module):
 
 
 class InceptionV3(nn.Module):
-    """Inception V3 feature extractor: (N, 299, 299, C) NHWC -> (N, 2048).
+    """Inception V3 feature extractor: (N, 299, 299, C) NHWC -> (N, 2048)."""
 
-    Every BN is frozen (running statistics), as in SSN testing.
-    """
+    MIXED = ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b",
+             "Mixed_6c", "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b",
+             "Mixed_7c")
 
-    def __init__(self, in_channels: int = 3):
+    def __init__(self, in_channels: int = 3, bn_mode: str = "frozen",
+                 remat: bool = False):
         super().__init__()
         self.Conv2d_1a_3x3 = BasicConv2d(in_channels, 32, 3, stride=2)
         self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
@@ -182,14 +189,20 @@ class InceptionV3(nn.Module):
         self.Mixed_7a = MixedD(768)
         self.Mixed_7b = MixedE(1280)
         self.Mixed_7c = MixedE(2048)
+        set_bn_mode(self, bn_mode)
+        self.remat = remat
+
+    def _stages(self):
+        """The network as checkpoint stages: the stem layer by layer (its
+        activations are the largest), then each Mixed module."""
+        return [self.Conv2d_1a_3x3, self.Conv2d_2a_3x3,
+                lambda x: _max_pool(self.Conv2d_2b_3x3(x)),
+                self.Conv2d_3b_1x1,
+                lambda x: _max_pool(self.Conv2d_4a_3x3(x))] + [
+                    getattr(self, name) for name in self.MIXED]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
-        x = _max_pool(x)
-        x = _max_pool(self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(x)))
-        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
-                     "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e",
-                     "Mixed_7a", "Mixed_7b", "Mixed_7c"):
-            x = getattr(self, name)(x)
+        for stage in self._stages():
+            x = run_stage(stage, x, self.remat)
         return x.mean(dim=(2, 3)).float()

@@ -5,8 +5,8 @@ A TSN-style classifier that averages the features of the course segments of
 a proposal and applies one linear head. At test time the head applies per
 frame (:meth:`BinaryClassifier.score_frames`): dense per-frame actionness
 logits. Module names follow the reference checkpoints: ``base_model`` (the
-backbone) and ``classifier_fc``. BatchNorm stays frozen (running
-statistics), the JAX package's default ``bn_mode``.
+backbone) and ``classifier_fc``. ``bn_mode`` and ``dtype`` train as in
+:class:`~.ssn.FrozenBNClassifier`.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ class BinaryClassifier(FrozenBNClassifier):
 
     def __init__(self, num_class: int = 2, course_segment: int = 5,
                  modality: str = "RGB", base_model: str = "BNInception",
-                 new_length: Optional[int] = None, dropout: float = 0.8):
-        super().__init__(base_model, modality, new_length, dropout)
+                 new_length: Optional[int] = None, dropout: float = 0.8,
+                 bn_mode: str = "frozen", dtype: torch.dtype = torch.float32):
+        super().__init__(base_model, modality, new_length, dropout, bn_mode,
+                         dtype)
         self.num_class = num_class
         self.course_segment = course_segment
         self.classifier_fc = nn.Linear(self.feature_dim, num_class)

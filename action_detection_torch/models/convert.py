@@ -14,6 +14,10 @@
   calibration.
 * :func:`seeded_init` gives a model reproducible random weights with jittered
   BN statistics (so quantization is not trivial) from a numpy seed.
+* :func:`backbone_state_from_reference` reads a reference backbone state
+  dict (``.pth``; ``module.``/``base_model.`` prefixes stripped: the port's
+  module names are the reference's) and :func:`cross_modality_init` makes
+  an RGB first conv a Flow one (the JAX package's ``convert.py``).
 
 Everything here is numpy -> torch; nothing imports jax.
 """
@@ -126,3 +130,31 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.weight.copy_(t(0.001 * rng.randn(*m.weight.shape)))
                 m.bias.zero_()
     return model
+
+
+def strip_prefix(state_dict: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """Remove e.g. the DataParallel ``module.`` prefix from every key."""
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v
+            for k, v in state_dict.items()}
+
+
+def backbone_state_from_reference(state_dict: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A reference backbone state dict (tensors or numpy arrays, possibly
+    under DataParallel's ``module.`` and SSN's ``base_model.``) -> tensors
+    keyed by the port's backbone names. The module names already are the
+    reference's, so this strips the two prefixes and nothing else."""
+    sd = strip_prefix(strip_prefix(state_dict, "module."), "base_model.")
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+
+
+def cross_modality_init(weight: torch.Tensor,
+                        in_channels: int) -> torch.Tensor:
+    """A first-conv weight ``(O, I, H, W)`` -> ``(O, in_channels, H, W)``:
+    its mean over the input channels, tiled (the reference's RGB -> Flow
+    first conv; computed in numpy, as the JAX package's
+    ``convert_first_conv_cross_modality`` does)."""
+    w = weight.detach().cpu().numpy()
+    mean = w.mean(axis=1, keepdims=True)
+    return torch.from_numpy(np.broadcast_to(
+        mean, (w.shape[0], in_channels) + w.shape[2:]).copy())

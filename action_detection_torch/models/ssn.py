@@ -6,8 +6,11 @@ Training: frames ``(P, S, H, W, C)`` -> backbone over P*S -> head dropout
 (:meth:`SSN.forward`). Scoring: the three linear heads fused into one
 per-frame test FC (:func:`fuse_test_heads`).
 
-BatchNorm stays frozen (running statistics) in training too: the JAX
-package's default ``bn_mode="frozen"``, the only mode of the port.
+BatchNorm stays frozen (running statistics) in training unless
+``bn_mode`` says otherwise (``partial``: the backbone's first BN uses batch
+statistics; ``full``: every BN does; ``models/backbones/common.py``).
+``dtype=torch.bfloat16`` (``--bf16``) runs the backbone in bf16 with float32
+parameters; ``remat`` checkpoints the backbone stage by stage.
 
 Module names follow the reference checkpoints: ``base_model`` (the
 backbone), ``activity_fc``, ``completeness_fc`` and ``regressor_fc``.
@@ -22,23 +25,29 @@ from torch import nn
 
 from ..ops.stpp import StppConfig, stpp_train_pool
 from .backbones import get_backbone
+from .backbones.common import BatchNorm2d
 
 
 class FrozenBNClassifier(nn.Module):
     """A backbone (``base_model``) under linear heads, the frame of
-    :class:`SSN` and :class:`~.binary.BinaryClassifier`: BatchNorm stays
-    frozen in train mode too, and the head dropout applies to the
-    features."""
+    :class:`SSN` and :class:`~.binary.BinaryClassifier`: BatchNorm as
+    ``bn_mode`` says (frozen by default, in train mode too), the backbone in
+    ``dtype``, and the head dropout applied to the features."""
 
     def __init__(self, base_model: str, modality: str,
-                 new_length: Optional[int], dropout: float):
+                 new_length: Optional[int], dropout: float,
+                 bn_mode: str = "frozen", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: float32 or bfloat16")
         self.arch = base_model
         self.modality = modality
         self.new_length = new_length
         self.dropout = dropout
+        self.dtype = dtype
         self.base_model, self.feature_dim, self.input_spec = get_backbone(
-            base_model, modality, new_length)
+            base_model, modality, new_length, bn_mode=bn_mode, remat=remat)
 
     @property
     def resolved_new_length(self) -> int:
@@ -47,18 +56,23 @@ class FrozenBNClassifier(nn.Module):
         return self.new_length
 
     def train(self, mode: bool = True) -> "FrozenBNClassifier":
-        """Train mode everywhere but the BatchNorm layers (frozen BN)."""
+        """Train mode everywhere but the frozen BatchNorm layers."""
         super().train(mode)
         for m in self.base_model.modules():
-            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            if isinstance(m, BatchNorm2d) and not m.use_batch_stats:
                 m.eval()
         return self
 
     def features(self, frames: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(N, H, W, C) normalized frames -> (N, D) features, with the head
-        dropout in train mode (mask drawn from ``generator``)."""
-        feats = self.base_model(frames)
+        """(N, H, W, C) normalized frames -> (N, D) float32 features, with
+        the head dropout in train mode (mask drawn from ``generator``).
+        In bf16 the frames are rounded to bf16 first and the backbone runs
+        under autocast, as the JAX backbones cast their input to ``dtype``."""
+        bf16 = self.dtype == torch.bfloat16
+        with torch.autocast(frames.device.type, dtype=torch.bfloat16,
+                            enabled=bf16):
+            feats = self.base_model(frames.to(self.dtype)).float()
         if self.training and self.dropout > 0:
             keep = torch.rand(feats.shape, generator=generator,
                               device=feats.device) >= self.dropout
@@ -76,8 +90,10 @@ class SSN(FrozenBNClassifier):
                  stpp_cfg: Tuple = (1, 1, 1),
                  standalone_classifier: bool = True,
                  starting_segment: int = 2, course_segment: int = 5,
-                 ending_segment: int = 2):
-        super().__init__(base_model, modality, new_length, dropout)
+                 ending_segment: int = 2, bn_mode: str = "frozen",
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(base_model, modality, new_length, dropout, bn_mode,
+                         dtype, remat)
         self.num_class = num_class
         self.with_regression = with_regression
         self.stpp = StppConfig.from_raw(stpp_cfg)

@@ -11,11 +11,20 @@ Port of ``action_detection_tpu/train/optim.py``:
 
 with the step-decay schedule ``lr = base * 0.1^(#epoch boundaries passed)``
 and an optional global-norm gradient clip that leaves the frozen BN
-parameters out. Gradient accumulation (``--iter_size``) and resuming at an
-epoch come with the training CLI.
+parameters out (optax's ``clip_by_global_norm``: ``g / norm * max`` once the
+norm reaches ``max``).
 ``torch.optim.SGD`` (momentum, no dampening, weight decay added to the
 gradient) is the same update as the JAX package's optax chain:
 ``u = g + wd*p; m = u + momentum*m; p -= lr*m``.
+
+``iter_size`` k is ``optax.MultiSteps``: the gradients of k mini-steps are
+averaged (its running mean ``acc += (g - acc) / (i + 1)``), and the k-th
+call clips, decays and applies that average; parameters and momentum do
+not move in between. The schedule counts applied updates, so an epoch is
+``steps_per_epoch // iter_size`` of them, and ``start_epoch`` starts it at
+that epoch's count (a resumed run starts decayed). A resume restarts the
+momentum at zero: the checkpoints hold no optimizer state, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -56,13 +65,29 @@ def label_params(model: nn.Module) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
+def _decay_f32(n: int) -> np.float32:
+    """``0.1 ** n`` as the JAX schedule computes it in float32: XLA's pow
+    with an integer exponent, by binary exponentiation. The decayed LRs are
+    then the JAX optimizer's to the bit; undecayed ones are the base LRs,
+    which torch rounds to float32 itself."""
+    r, b = np.float32(1.0), np.float32(0.1)
+    while n:
+        if n & 1:
+            r = np.float32(r * b)
+        b = np.float32(b * b)
+        n >>= 1
+    return r
+
+
 class SSNOptimizer:
-    """SGD over the trainable groups + step-decay LR + optional clip."""
+    """SGD over the trainable groups + step-decay LR + optional clip, with
+    ``iter_size`` gradient accumulation."""
 
     def __init__(self, model: nn.Module, base_lr: float,
                  lr_steps: Sequence[float], steps_per_epoch: int,
                  momentum: float = 0.9, weight_decay: float = 5e-4,
-                 clip_gradient: Optional[float] = None):
+                 clip_gradient: Optional[float] = None, iter_size: int = 1,
+                 start_epoch: int = 0):
         labels = label_params(model)
         groups: List[dict] = []
         for g, (lr_mult, decay_mult) in _MULTS.items():
@@ -74,20 +99,30 @@ class SSNOptimizer:
                                "weight_decay": weight_decay * decay_mult})
         self.sgd = torch.optim.SGD(groups, lr=base_lr, momentum=momentum,
                                    dampening=0.0, nesterov=False)
+        self.iter_size = max(int(iter_size), 1)
+        effective = max(steps_per_epoch // self.iter_size, 1)
         self.boundaries = (np.asarray(sorted(lr_steps), np.float64)
-                           * steps_per_epoch)
-        self.count = 0
+                           * effective)
+        self.count = start_epoch * effective
+        self.mini_step = 0
+        self._acc: Optional[List[torch.Tensor]] = None
         self.clip_gradient = clip_gradient
         self._base = [g["lr"] for g in self.sgd.param_groups]
         self._set_lr()
 
+    def decays(self) -> int:
+        """LR boundaries passed so far."""
+        return int(np.sum(self.count >= self.boundaries))
+
     def lr_factor(self) -> float:
-        return 0.1 ** int(np.sum(self.count >= self.boundaries))
+        return 0.1 ** self.decays()
 
     def _set_lr(self) -> None:
-        f = self.lr_factor()
+        n = self.decays()
         for g, base in zip(self.sgd.param_groups, self._base):
-            g["lr"] = base * f
+            g["lr"] = base if n == 0 else float(
+                np.float32(base) * _decay_f32(n))
+
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -96,19 +131,46 @@ class SSNOptimizer:
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
-        """Clip (trainable groups only), one SGD update, advance the LR."""
+    def _clip(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+        keep = norm < self.clip_gradient
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.clip_gradient))
+
+    def step(self) -> bool:
+        """Take this mini-step's gradients; on every ``iter_size``-th call
+        clip (trainable groups only), one SGD update of their mean, advance
+        the LR. Returns whether the parameters moved."""
+        params = self.params
+        if self.iter_size > 1:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            if self._acc is None:
+                self._acc = [torch.zeros_like(p) for p in params]
+            n = self.mini_step
+            for acc, g in zip(self._acc, grads):
+                acc.add_((g - acc) / (n + 1))
+            self.mini_step = (n + 1) % self.iter_size
+            if self.mini_step:
+                return False
+            for p, acc in zip(params, self._acc):
+                p.grad = acc
+            self._acc = None
         if self.clip_gradient is not None:
-            nn.utils.clip_grad_norm_(self.params, self.clip_gradient)
+            self._clip()
         self.sgd.step()
         self.count += 1
         self._set_lr()
+        return True
 
 
 def make_optimizer(model: nn.Module, base_lr: float,
                    lr_steps: Sequence[float], steps_per_epoch: int,
                    momentum: float = 0.9, weight_decay: float = 5e-4,
-                   clip_gradient: Optional[float] = None) -> SSNOptimizer:
+                   clip_gradient: Optional[float] = None, iter_size: int = 1,
+                   start_epoch: int = 0) -> SSNOptimizer:
     """The SSN training optimizer over labeled parameter groups."""
     return SSNOptimizer(model, base_lr, lr_steps, steps_per_epoch, momentum,
-                        weight_decay, clip_gradient)
+                        weight_decay, clip_gradient, iter_size, start_epoch)

@@ -1,10 +1,14 @@
-"""SSN trainer: the loss and the train step on one device.
+"""SSN trainer: the losses, the train step and the eval step on one device.
 
 Port of ``action_detection_tpu/train/trainer.py``: the loss composition and
 the proposal-type subsets are the JAX package's. The per-video proposal
 layout is ``[fg | incomplete | bg]`` (1, 6 and 1 rows by config), so each
 head's training subset is a static slice (activity: fg + bg, completeness:
-fg + incomplete, regression: fg). BatchNorm stays frozen.
+fg + incomplete, regression: fg). BatchNorm trains as the model's
+``bn_mode`` says; the running statistics of batch-statistic BNs update
+after each step's backward (``models/backbones/common.py``). The binary
+actionness model's loss (``binary_train``) is plain cross entropy on the
+course-segment mean (:func:`make_binary_loss_fn`).
 
 A step takes a uint8 batch from :func:`~..data.pipeline.assemble_train_batch`
 (moved to the device with :func:`batch_to_device`); preprocessing runs on
@@ -19,13 +23,26 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import SamplingConfig
 from ..data.transforms import preprocess_frames
+from ..models.backbones.common import commit_batch_stats
 from ..ops.losses import (accuracy, activity_cross_entropy,
                           classwise_regression_loss, completeness_loss)
 from .optim import SSNOptimizer
+
+
+def float32_convs_and_matmuls() -> None:
+    """Turn TF32 off for cuDNN convolutions and CUDA matmuls, process-wide.
+
+    Float32 is what the JAX package's parity holds (f32 convs, heads at
+    ``Precision.HIGHEST``) and what every training number on record used;
+    the training CLIs call this at the start of ``main``. The fast option
+    is ``--bf16``, not TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,15 +145,37 @@ def make_loss_fn(model: nn.Module, sampling: SamplingConfig,
     return loss_fn
 
 
-def make_train_step(model: nn.Module, optimizer: SSNOptimizer,
-                    sampling: SamplingConfig,
-                    weights: LossWeights = LossWeights(), seed: int = 0):
-    """One SGD step: ``train_step(batch) -> metrics`` (device tensors).
+def make_binary_loss_fn(model: nn.Module):
+    """The binary actionness loss: softmax cross entropy of the
+    course-segment-mean logits against the fg/bg labels, and the accuracy
+    (``loss_fn(batch, train, generator) -> (loss, metrics)``)."""
+    new_length = model.resolved_new_length
 
-    The head dropout draws from a ``torch.Generator`` seeded with ``seed``
-    on the model's device, advanced by every step.
+    def loss_fn(batch: Dict[str, torch.Tensor], train: bool = True,
+                generator: Optional[torch.Generator] = None):
+        model.train(train)
+        frames = preprocess_frames(batch["frames"], model.input_spec,
+                                   model.modality, new_length)
+        logits = model(frames, generator)
+        loss = F.cross_entropy(logits, batch["labels"])
+        return loss, {"loss": loss, "acc": accuracy(logits, batch["labels"])}
+
+    return loss_fn
+
+
+def make_train_step(model: nn.Module, optimizer: SSNOptimizer,
+                    sampling: Optional[SamplingConfig] = None,
+                    weights: LossWeights = LossWeights(), seed: int = 0,
+                    loss_fn=None):
+    """One SGD mini-step: ``train_step(batch) -> metrics`` (device tensors).
+
+    The loss is the SSN's over ``sampling`` unless ``loss_fn`` is given
+    (``make_binary_loss_fn``). The optimizer applies an update on every
+    ``iter_size``-th call. The head dropout draws from a
+    ``torch.Generator`` seeded with ``seed`` on the model's device,
+    advanced by every step.
     """
-    loss_fn = make_loss_fn(model, sampling, weights)
+    loss_fn = loss_fn or make_loss_fn(model, sampling, weights)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -144,6 +183,7 @@ def make_train_step(model: nn.Module, optimizer: SSNOptimizer,
         optimizer.zero_grad()
         total, metrics = loss_fn(batch, True, generator)
         total.backward()
+        commit_batch_stats(model)
         # gradient norm over every parameter, frozen BN included (the JAX
         # package's optax.global_norm of the whole gradient tree)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -153,3 +193,18 @@ def make_train_step(model: nn.Module, optimizer: SSNOptimizer,
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_eval_step(model: nn.Module,
+                   sampling: Optional[SamplingConfig] = None,
+                   weights: LossWeights = LossWeights(), loss_fn=None):
+    """The loss and metrics of one batch under ``no_grad``, dropout off and
+    BatchNorm on its running statistics: ``eval_step(batch) -> metrics``."""
+    loss_fn = loss_fn or make_loss_fn(model, sampling, weights)
+
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            _, metrics = loss_fn(batch, False)
+        return metrics
+
+    return eval_step

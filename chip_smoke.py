@@ -23,7 +23,10 @@ before the final line):
               K2 at grids no tile divides, with signed inputs (K2's with
               -128 and all-negative windows at the padded edges); and A1
               (max-pool backward) at every BNInception max pool of the
-              training step (1,152 images). Each is held EXACTLY equal to
+              training step (1,152 images) in float32 and in bfloat16, and
+              at InceptionV3's four VALID pools (the InceptionV3 training
+              run's ``IV3_TRAIN_VIDEOS`` x 72 images). Each is held EXACTLY
+              equal to
               its plain torch version on the same inputs; median ms of
               both, the bound (``work``: the larger of the bytes over 3.35
               TB/s and the operations over the peak of their type) and,
@@ -60,6 +63,20 @@ before the final line):
               (non-empty, finite, 9 IoU columns); ``binary_test``'s wall
               time and device busy share, one 640-crop actionness chunk's
               device time and each evaluation's wall time are printed.
+              Then the training CLIs in process (``run_training_clis``),
+              each run a path that must launch A1: ``ssn_train thumos14
+              RGB`` BNInception at -b 16 (1,152 images a step), 3 steps,
+              validation, a checkpoint; ``--resume`` from it for one more
+              epoch under the profiler (LR decayed at epoch 1); the port's
+              ``ssn_test`` on the trained checkpoint; ``--iter_size 2``;
+              ``--bf16`` (every A1 launch in bf16); Flow from the RGB
+              checkpoint (``--init_weights``); the largest InceptionV3 -b
+              with and without ``--remat`` (``iv3_memory``), then
+              ``ssn_train activitynet1.2 RGB --arch InceptionV3``; and
+              ``binary_train`` (-b 4, 240 images) with ``binary_test`` on
+              its checkpoint. Each run prints its CLI wall time, median
+              step time (CUDA events, steps 2 on), images/s, host
+              batch-assembly seconds a step, peak memory and A1 launches.
 5. checks   — for BNInception and InceptionV3: the int8 trunk held
               bit-exact against the plain kernels on the CPU, the int8
               features against the float backbone (cos > 0.99, rel <
@@ -100,6 +117,9 @@ SLICE_N = 640     # 64 ticks x 10 crops: one scoring step
 TRAIN_VIDEOS = 16     # -b 16, the training CLI's default batch
 TRAIN_N = TRAIN_VIDEOS * 8 * 9   # x 8 proposals x 9 segments = 1,152 images
 TRAIN_STEPS = 4
+TRAIN_LIST_VIDEOS = 4  # videos of the training CLIs' SSN train lists
+IV3_TRAIN_VIDEOS = 8   # -b of the InceptionV3 ssn_train run (iv3_memory)
+FLOW_TRAIN_VIDEOS = 4  # -b of the Flow ssn_train run
 HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, ops/s (NVIDIA data sheet)
 CORE_OPS = 67e12    # float32 peak outside the tensor cores, ops/s (the same)
@@ -401,22 +421,26 @@ def check_kernels(card: str) -> list:
     torch.cuda.empty_cache()
 
     # A1: the backward of every BNInception max pool at the training
-    # step's 1,152 images, float32 (the trainer's dtype) and the stem pool
-    # in bfloat16; post-ReLU inputs, so windows of zeros tie
-    for label, (H, C), stride, pads, dtype in (
-            ("stem1_ceil_s2", (112, 64), 2, pool_pads(112, 112, 3, 2, True),
-             torch.float32),
-            ("stem2_ceil_s2", (56, 192), 2, pool_pads(56, 56, 3, 2, True),
-             torch.float32),
-            ("3c_ceil_s2", (28, 320), 2, pool_pads(28, 28, 3, 2, True),
-             torch.float32),
-            ("4e_ceil_s2", (14, 576), 2, pool_pads(14, 14, 3, 2, True),
-             torch.float32),
-            ("5b_s1_p1", (7, 1024), 1, pool_pads(7, 7, 3, 1, pad=1),
-             torch.float32),
-            ("stem1_ceil_s2/bf16", (112, 64), 2,
-             pool_pads(112, 112, 3, 2, True), torch.bfloat16)):
-        x = torch.relu(torch.randn(TRAIN_N, H, H, C, generator=g,
+    # step's 1,152 images, float32 (the trainer's dtype) and bfloat16
+    # (--bf16), and of InceptionV3's four VALID pools at the InceptionV3
+    # run's IV3_TRAIN_VIDEOS x 72 images; post-ReLU inputs, so windows of
+    # zeros tie
+    bni = (("stem1_ceil_s2", (112, 64), 2, pool_pads(112, 112, 3, 2, True)),
+           ("stem2_ceil_s2", (56, 192), 2, pool_pads(56, 56, 3, 2, True)),
+           ("3c_ceil_s2", (28, 320), 2, pool_pads(28, 28, 3, 2, True)),
+           ("4e_ceil_s2", (14, 576), 2, pool_pads(14, 14, 3, 2, True)),
+           ("5b_s1_p1", (7, 1024), 1, pool_pads(7, 7, 3, 1, pad=1)))
+    valid = ((0, 0), (0, 0))
+    iv3 = (("iv3_pool1_147", (147, 64), 2, valid),
+           ("iv3_pool2_71", (71, 192), 2, valid),
+           ("iv3_6a_35", (35, 288), 2, valid),
+           ("iv3_7a_17", (17, 768), 2, valid))
+    for label, (H, C), stride, pads, dtype, N in (
+            [b + (torch.float32, TRAIN_N) for b in bni]
+            + [(f"{b[0]}/bf16",) + b[1:] + (torch.bfloat16, TRAIN_N)
+               for b in bni]
+            + [b + (torch.float32, IV3_TRAIN_VIDEOS * 72) for b in iv3]):
+        x = torch.relu(torch.randn(N, H, H, C, generator=g,
                                    device=dev)).to(dtype)
         geo = ((3, 3), (stride, stride), pads)
         y = _reduce_max(x, *geo).contiguous()
@@ -665,6 +689,7 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
 
     from action_detection_torch.cli.ssn_test import main as ssn_test
     from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.train import float32_convs_and_matmuls
 
     paths = {}
     models = {}
@@ -691,8 +716,8 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
             "ssn_test thumos14 RGB (BNInception)", lambda: ssn_test(cli),
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
-        # the scorer turned TF32 off; the training steps keep it off
-        torch.backends.cudnn.allow_tf32 = False
+        # the training step's float32, set here as the training CLIs set it
+        float32_convs_and_matmuls()
         train = {}
         paths["train"] = drive(
             f"train ({TRAIN_STEPS} steps)",
@@ -709,6 +734,7 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
         paths["binary_test"] = run_pipeline(d, smi)
+        paths.update(run_training_clis(d, smi))
 
         check_train_step_small(d)
         if profile:
@@ -735,6 +761,238 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
         profile_calls(profile, "train_step", train_step, reps=2)
     for scorer, _ in scorers:
         scorer.close()
+    return paths
+
+
+def _train_report(name: str, stats, launches: dict, peak_gib: float,
+                  smi: str, busy=None) -> None:
+    """One line of a training CLI run's numbers."""
+    share = ("" if busy is None else
+             f"; under the profiler wall {busy[0]:.2f} s, device busy "
+             f"{busy[1]:.2f} s = {busy[1] / busy[0]:.1%}")
+    print(f"train {name}: CLI wall {launches['wall_s']:.2f} s; "
+          f"{stats.summary()}; peak {peak_gib:.2f} GiB allocated; A1 launches "
+          f"{launches['max_pool_bwd']} (bf16 {launches['max_pool_bwd/bf16']})"
+          f"{share} ({smi})", flush=True)
+
+
+def iv3_memory(smi: str) -> dict:
+    """The largest -b (videos of 8 proposals x 9 segments of 299^2) whose
+    InceptionV3 SSN training step fits the card, without and with
+    ``--remat``: one forward + backward on a device-made batch (no host
+    work), ``max_memory_allocated`` at -b 1 and 2 give a line, its
+    prediction runs, and it moves by one until -b fits and -b + 1 runs out
+    of memory (peak allocated and reserved printed). Returns ``{remat:
+    (largest b, its peak bytes)}``."""
+    import torch
+
+    from action_detection_torch.config import get_configs
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.train import make_loss_fn
+
+    cfg = get_configs("activitynet1.2")
+    total = torch.cuda.get_device_properties(0).total_memory
+    g = torch.Generator(device="cuda").manual_seed(9)
+    labels = torch.tensor([5] + [7] * 6 + [0], device="cuda")
+    out = {}
+    for remat in (False, True):
+        model = seeded_init(SSN(num_class=100, base_model="InceptionV3",
+                                stpp_cfg=cfg.stpp, remat=remat),
+                            seed=7).cuda()
+        loss_fn = make_loss_fn(model, cfg.sampling)
+        reserved = {}
+
+        def peak(b):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                batch = {"frames": torch.randint(
+                    0, 256, (8 * b, 9, 299, 299, 3), generator=g,
+                    device="cuda", dtype=torch.uint8),
+                    "scaling": torch.ones(8 * b, 2, device="cuda"),
+                    "labels": labels.repeat(b),
+                    "reg_targets": torch.zeros(8 * b, 2, device="cuda")}
+                loss, _ = loss_fn(batch, True)
+                loss.backward()
+                torch.cuda.synchronize()
+                reserved[b] = torch.cuda.max_memory_reserved()
+                return torch.cuda.max_memory_allocated()
+            except torch.cuda.OutOfMemoryError:
+                return None
+            finally:
+                batch = loss = None
+                model.zero_grad(set_to_none=True)
+
+        p1, p2 = peak(1), peak(2)
+        b = max(int((total - (2 * p1 - p2)) // (p2 - p1)), 1)
+        fits = peak(b)
+        while fits is None and b > 1:
+            b -= 1
+            fits = peak(b)
+        over = peak(b + 1)
+        while over is not None:
+            b, fits = b + 1, over
+            over = peak(b + 1)
+        out[remat] = (b, fits)
+        print(f"memory: InceptionV3 training {'with' if remat else 'without'}"
+              f" --remat: -b 1 {p1 / 2**30:.2f} GiB, -b 2 {p2 / 2**30:.2f} "
+              f"GiB; largest -b that fits {b} ({8 * 9 * b} images, peak "
+              f"{fits / 2**30:.2f} GiB allocated, "
+              f"{reserved[b] / 2**30:.2f} GiB reserved, of "
+              f"{total / 2**30:.2f}), -b {b + 1} runs out of memory ({smi})",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_training_clis(d: str, smi: str) -> dict:
+    """Main path, part 6: the training CLIs in process on synthetic frames,
+    each a path of its own (launch counts set to 0 before, A1 required
+    after): ``ssn_train thumos14 RGB`` BNInception at the recipe batch (-b
+    16: 1,152 images a step), one epoch of 3 steps, validation and a
+    checkpoint; ``--resume`` from it for one more epoch under the profiler
+    (it must start at the saved epoch, LR decayed by ``--lr_steps 1 2``);
+    the port's ``ssn_test`` scoring the trained checkpoint; ``--iter_size
+    2`` (2 updates); ``--bf16`` (A1 in bf16); Flow from the RGB checkpoint
+    (``--init_weights``, the 10-channel cross-modality conv1); InceptionV3
+    on ActivityNet v1.2 at ``IV3_TRAIN_VIDEOS`` (after ``iv3_memory``); and
+    ``binary_train`` (-b 4: 240 images) with ``binary_test`` on its
+    checkpoint. Returns each run's launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from action_detection_torch.cli.binary_test import main as binary_test
+    from action_detection_torch.cli.binary_train import main as binary_train
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.cli.ssn_train import main as ssn_train
+    from action_detection_torch.train import load_checkpoint
+
+    t = os.path.join(d, "train")
+    os.makedirs(t)
+    write_fixture(t, n_videos=TRAIN_LIST_VIDEOS, split="thumos14_tag_val")
+    write_fixture(t, split="thumos14_tag_test")
+    write_fixture(t, n_videos=TRAIN_LIST_VIDEOS,
+                  split="activitynet1.2_tag_train", num_class=100)
+    write_fixture(t, split="activitynet1.2_tag_val", num_class=100)
+    write_fixture(t, n_videos=12, split="thumos14_sw_val")
+    write_fixture(t, split="thumos14_sw_test")
+    common = ["--synthetic_data", "--prop_file_dir", t, "--print-freq", "1",
+              "--clip-gradient", "20", "--lr_steps", "1", "2"]
+    rgb = ["thumos14", "RGB", *common, "-b", str(TRAIN_VIDEOS)]
+    ckpt = os.path.join(t, "ssn_thumos14_BNInception_rgb_checkpoint.pt")
+    paths = {}
+
+    def tem(steps: int, videos: int) -> list:
+        """--tem giving ``steps`` steps an epoch at -b ``videos``."""
+        return ["--tem", str(steps * videos // TRAIN_LIST_VIDEOS)]
+
+    def run(key, name, cli, argv, expect=("max_pool_bwd",), profile=False):
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            out["stats"] = cli(argv)
+
+        fn = ((lambda: out.update(busy=profiled_run(call)[1:])) if profile
+              else call)
+        paths[key] = drive(name, fn, expect)
+        _train_report(name, out["stats"], paths[key],
+                      torch.cuda.max_memory_allocated() / 2**30, smi,
+                      out.get("busy"))
+        return out["stats"]
+
+    def expect(cond, what):
+        if not cond:
+            raise AssertionError(what)
+
+    with contextlib.chdir(t):
+        st = run("train_cli", "ssn_train thumos14 RGB (BNInception, -b 16)",
+                 ssn_train, rgb + tem(3, TRAIN_VIDEOS) + ["--epochs", "1"])
+        expect(len(st.step_ms) == 3 and st.images == TRAIN_N
+               and np.isfinite(st.best_loss)
+               and load_checkpoint(ckpt)["epoch"] == 1,
+               f"ssn_train RGB: {len(st.step_ms)} steps of {st.images}, "
+               f"best loss {st.best_loss}")
+        st = run("train_cli_resume", "ssn_train thumos14 RGB --resume",
+                 ssn_train, rgb + tem(3, TRAIN_VIDEOS) + [
+                     "--epochs", "2", "--resume", ckpt], profile=True)
+        expect(len(st.step_ms) == 3 and st.lr_factor == 0.1
+               and load_checkpoint(ckpt)["epoch"] == 2,
+               f"resume: {len(st.step_ms)} steps at LR x{st.lr_factor}")
+        print(f"train: the resumed run started at epoch 1 with the LR x "
+              f"{st.lr_factor} (lr_steps 1 2), best loss {st.best_loss:.5f}",
+              flush=True)
+        scores = os.path.join(t, "trained.pkl")
+        paths["ssn_test_trained"] = drive(
+            "ssn_test thumos14 RGB on the trained checkpoint",
+            lambda: ssn_test(["thumos14", "RGB", ckpt, scores,
+                              "--synthetic_data", "--prop_file_dir", t]),
+            ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+        print(f"train: trained checkpoint scored, pickle ok "
+              f"(P={check_pickle(scores, 20)})", flush=True)
+        st = run("train_cli_iter2", "ssn_train thumos14 RGB --iter_size 2",
+                 ssn_train, rgb + tem(4, TRAIN_VIDEOS) + [
+                     "--epochs", "1", "--iter_size", "2",
+                     "--snapshot_pref", "_iter2"])
+        expect(len(st.step_ms) == 4 and st.updates == 2,
+               f"--iter_size 2: {len(st.step_ms)} steps, {st.updates} "
+               "updates")
+        st = run("train_cli_bf16", "ssn_train thumos14 RGB --bf16",
+                 ssn_train, rgb + tem(2, TRAIN_VIDEOS) + [
+                     "--epochs", "1", "--bf16", "--snapshot_pref", "_bf16"],
+                 expect=("max_pool_bwd", "max_pool_bwd/bf16"))
+        a1 = paths["train_cli_bf16"]
+        expect(a1["max_pool_bwd/bf16"] == a1["max_pool_bwd"],
+               f"--bf16: A1 launches {a1['max_pool_bwd']}, of them bf16 "
+               f"{a1['max_pool_bwd/bf16']}")
+        print("train: --bf16 ran every A1 launch in torch.bfloat16 "
+              f"({a1['max_pool_bwd/bf16']} of {a1['max_pool_bwd']})",
+              flush=True)
+        st = run("train_cli_flow", "ssn_train thumos14 Flow --init_weights "
+                 "<RGB checkpoint>", ssn_train,
+                 ["thumos14", "Flow", *common, "-b", str(FLOW_TRAIN_VIDEOS),
+                  *tem(2, FLOW_TRAIN_VIDEOS), "--epochs", "1",
+                  "--init_weights", ckpt])
+        flow = load_checkpoint(os.path.join(
+            t, "ssn_thumos14_BNInception_flow_checkpoint.pt"))
+        expect(len(st.step_ms) == 2 and flow["state_dict"][
+            "base_model.conv1_7x7_s2.weight"].shape[1] == 10,
+            f"Flow: {len(st.step_ms)} steps")
+        mem = iv3_memory(smi)
+        expect(IV3_TRAIN_VIDEOS < mem[False][0],
+               f"-b {IV3_TRAIN_VIDEOS} leaves no headroom under "
+               f"{mem[False][0]}")
+        st = run("train_cli_iv3", "ssn_train activitynet1.2 RGB --arch "
+                 f"InceptionV3 (-b {IV3_TRAIN_VIDEOS})", ssn_train,
+                 ["activitynet1.2", "RGB", *common, "--arch", "InceptionV3",
+                  "-b", str(IV3_TRAIN_VIDEOS), *tem(2, IV3_TRAIN_VIDEOS),
+                  "--epochs", "1"])
+        expect(len(st.step_ms) == 2 and st.images == IV3_TRAIN_VIDEOS * 72,
+               f"InceptionV3: {len(st.step_ms)} steps of {st.images}")
+        st = run("train_cli_binary", "binary_train thumos14 RGB "
+                 "(BNInception, -b 4)", binary_train,
+                 ["thumos14", "RGB", *common, "--epochs", "1"])
+        expect(len(st.step_ms) == 3 and st.images == 240,
+               f"binary_train: {len(st.step_ms)} steps of {st.images}")
+        act = os.path.join(t, "trained_actionness.pkl")
+        paths["binary_test_trained"] = drive(
+            "binary_test thumos14 RGB on the trained checkpoint",
+            lambda: binary_test(["thumos14", "RGB", "testing", os.path.join(
+                t, "ssn_thumos14_BNInception_rgb_binary_checkpoint.pt"),
+                act, "--synthetic_data", "--prop_file_dir", t]),
+            ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+        with open(act, "rb") as f:
+            a = pickle.load(f)
+        expect(len(a) == 2 and all(v.shape[1:] == (10, 2)
+                                   and np.isfinite(v).all()
+                                   for v in a.values()),
+               "binary_test on the trained checkpoint: " + str(
+                   {k: v.shape for k, v in a.items()}))
+        print("train: binary checkpoint scored by binary_test, (T, 10, 2) "
+              "per video", flush=True)
     return paths
 
 

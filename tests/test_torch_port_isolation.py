@@ -1,7 +1,7 @@
-"""The port runs on a machine without jax, flax, yaml, PIL, scikit-learn or
-pandas.
+"""The port runs on a machine without jax, flax, optax, yaml, PIL,
+scikit-learn or pandas.
 
-A subprocess blocks those six packages (``sys.modules[name] = None`` makes
+A subprocess blocks those packages (``sys.modules[name] = None`` makes
 any import of them raise), imports every module of action_detection_torch,
 scores a synthetic video through the int8-e2e shared-stem ProposalScorer on
 the CPU (plain kernels) for BNInception RGB (frames already at the scale
@@ -12,7 +12,9 @@ InceptionV3's scale size 341, and takes one BNInception SSN training step
 blocks, runs the inference pipeline through the five host and actionness
 CLIs on the CPU: gen_sliding_window_proposals -> binary_test (TinyConv) ->
 gen_bottom_up_proposals -> ssn_test -> eval_detection_results (no pandas:
-its side dumps are skipped), and gen_proposal_list."""
+its side dumps are skipped), and gen_proposal_list. A third trains on the
+CPU through the training CLIs: ssn_train (one TinyConv step, validation, a
+checkpoint), ssn_train --evaluate on it, and binary_train (one step)."""
 
 import os
 import subprocess
@@ -21,7 +23,8 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "sklearn", "pandas")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "sklearn",
+           "pandas")
 BLOCK = textwrap.dedent(f"""
     import sys
     BLOCKED = {BLOCKED!r}
@@ -206,6 +209,51 @@ PIPELINE = BLOCK + textwrap.dedent("""
 """)
 
 
+TRAINING = BLOCK + textwrap.dedent("""
+    import os, tempfile
+    import numpy as np
+
+    from action_detection_torch.cli import binary_train, ssn_train
+
+    def write_list(path, n_videos):
+        # fg, incomplete and background proposals around two GT instances
+        lines = []
+        for v in range(n_videos):
+            gt = [(1 + v % 3, 100, 300), (1 + (v + 1) % 3, 400, 520)]
+            props = [(g[0], 0.85, 0.9, g[1] - 20, g[2] + 5) for g in gt]
+            props += [(g[0], 0.2, 0.9, g[1] + 30, g[1] + 110) for g in gt]
+            props += [(g[0], 0.15, 0.85, g[1] + 50, g[1] + 130) for g in gt]
+            props += [(0, 0.0, 0.0, 530, 595), (0, 0.005, 0.0, 10, 90)]
+            lines.append(f"# {v}\\nvideo_{v}\\n600\\n1\\n{len(gt)}\\n")
+            lines += [f"{g[0]} {g[1]} {g[2]}\\n" for g in gt]
+            lines.append(f"{len(props)}\\n")
+            lines += [f"{p[0]} {p[1]:.4f} {p[2]:.4f} {p[3]} {p[4]}\\n"
+                      for p in props]
+        with open(path, "w") as f:
+            f.writelines(lines)
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        for task in ("tag", "sw"):
+            write_list(f"thumos14_{task}_val_proposal_list.txt", 3)
+            write_list(f"thumos14_{task}_test_proposal_list.txt", 2)
+        common = ["thumos14", "RGB", "--arch", "TinyConv", "--synthetic_data",
+                  "--device", "cpu", "-j", "1", "--epochs", "1", "-b", "2",
+                  "--prop_file_dir", d]
+        stats = ssn_train.main(common + ["--tem", "1"])
+        ckpt = "ssn_thumos14_TinyConv_rgb_checkpoint.pt"
+        assert len(stats.step_ms) == 1 and os.path.exists(ckpt)
+        assert np.isfinite(stats.best_loss)
+        ev = ssn_train.main(common + ["--evaluate", "--resume", ckpt])
+        assert ev.val_losses == [stats.best_loss] and not ev.step_ms
+        b = binary_train.main(common)
+        assert len(b.step_ms) == 1
+        assert os.path.exists("ssn_thumos14_TinyConv_rgb_binary_checkpoint.pt")
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("TRAINING-OK")
+""")
+
 def _run(script: str) -> str:
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -226,3 +274,9 @@ def test_pipeline_clis_without_jax_flax_yaml_pil_sklearn_pandas():
     assert out.strip().splitlines()[-1] == "PIPELINE-OK", out
     assert "gt_dump.pc and pred_dump.pc skipped" in out
     assert "Detection Performance on thumos14" in out
+
+
+def test_training_clis_without_jax_flax_optax_yaml_pil():
+    out = _run(TRAINING)
+    assert out.strip().splitlines()[-1] == "TRAINING-OK", out
+    assert "Testing Results: Loss" in out and "checkpoint saved" in out

@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1-K3 (K1 with per-axis pads, K3 in both
-modes) and A1 against their plain torch versions.
+modes) and A1 (at the test geometries and at the training pools of
+InceptionV3 and bf16 BNInception) against their plain torch versions.
 
 K1-K3 take channel counts, pixel strides and addresses that are
 multiples of 16 on the card, so every case here has C % 16 == 0 (and the
@@ -359,3 +360,46 @@ def test_cuda_max_pool_bwd_across_tiles(cuda_device, case, dtype, inputs):
                                 else torch.int32),
                        again.view(torch.int16 if dtype == torch.bfloat16
                                   else torch.int32))
+
+
+# A1 at the training CLIs' new geometry: InceptionV3's four VALID 3x3 s2
+# pools (f32, and the first in bf16) and the five BNInception pools in bf16
+# (--bf16), at 4 images: (N, H, W, C), stride, padding, dtype
+VALID = ((0, 0), (0, 0))
+A1_TRAIN_CASES = [
+    ((4, 147, 147, 64), 2, VALID, torch.float32),
+    ((4, 71, 71, 192), 2, VALID, torch.float32),
+    ((4, 35, 35, 288), 2, VALID, torch.float32),
+    ((4, 17, 17, 768), 2, VALID, torch.float32),
+    ((4, 147, 147, 64), 2, VALID, torch.bfloat16),
+    ((4, 112, 112, 64), 2, pool_pads(112, 112, 3, 2, ceil=True),
+     torch.bfloat16),
+    ((4, 56, 56, 192), 2, pool_pads(56, 56, 3, 2, ceil=True), torch.bfloat16),
+    ((4, 28, 28, 320), 2, pool_pads(28, 28, 3, 2, ceil=True), torch.bfloat16),
+    ((4, 14, 14, 576), 2, pool_pads(14, 14, 3, 2, ceil=True), torch.bfloat16),
+    ((4, 7, 7, 1024), 1, ((1, 1), (1, 1)), torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", A1_TRAIN_CASES)
+def test_cuda_max_pool_bwd_training_pools(cuda_device, case):
+    """Bit-exact against the plain version at the pools of InceptionV3 and
+    bf16 BNInception training (post-ReLU inputs, so zero windows tie); a
+    bf16 launch also counts in ``max_pool_bwd.bf16_launches``."""
+    from action_detection_torch.ops.pooling import _reduce_max
+
+    shape, s, pad, dtype = case
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.relu(torch.randn(shape, generator=g, device=cuda_device)
+                   ).to(dtype)
+    geo = ((3, 3), (s, s), pad)
+    y = _reduce_max(x, *geo).contiguous()
+    dy = torch.randn(y.shape, generator=g, device=cuda_device).to(dtype)
+    before = (a1.max_pool_bwd.launches, a1.max_pool_bwd.bf16_launches)
+    got = a1.max_pool_bwd(x, y, dy, *geo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, a1.max_pool_bwd_plain(x, dy, *geo))
+    bf16 = int(dtype == torch.bfloat16)
+    assert (a1.max_pool_bwd.launches, a1.max_pool_bwd.bf16_launches) == \
+        (before[0] + 1, before[1] + bf16)
