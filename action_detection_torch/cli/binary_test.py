@@ -2,7 +2,13 @@
 ``action_detection_tpu/cli/binary_test.py``).
 
 Usage: python -m action_detection_torch.cli.binary_test <dataset> <modality>
-       <training|validation|testing> <weights.pt> <scores.pkl> [flags]
+       <training|validation|testing> <weights> <scores.pkl> [flags]
+
+``weights`` is a port ``.pt``, a JAX ``checkpoint.msgpack`` or a reference
+``.pth``/``.pth.tar`` of an actionness model
+(``train/checkpoint.py:load_checkpoint``); ``--use_reference`` /
+``--use_kinetics_reference`` resolve a published checkpoint in the local
+model cache instead.
 
 Scores every ``frame_interval``-th frame of each video of the actionness
 proposal list with the binary actionness classifier and pickles
@@ -76,9 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cut the 10-crop oversample on the host (not "
                              "in the port yet)")
     parser.add_argument("--use_reference", action="store_true", default=False,
-                        help=argparse.SUPPRESS)
+                        help="score the published ImageNet-init reference "
+                             "checkpoint, found in the local model cache "
+                             "($ADT_MODEL_CACHE; the weights argument is "
+                             "ignored)")
     parser.add_argument("--use_kinetics_reference", action="store_true",
-                        default=False, help=argparse.SUPPRESS)
+                        default=False,
+                        help="as --use_reference, the Kinetics-init model")
     parser.add_argument("-j", "--workers", default=None, type=int,
                         help="host decode threads (default adapts to the "
                              "host core count)")
@@ -131,22 +141,24 @@ def main(argv=None):
     from ..infer.features import resolve_device
     from ..models import BinaryClassifier
     from ..train import load_checkpoint
+    from .opts import scoring_weights
 
     device = resolve_device(args.device)
     if args.devices and device.type == "cuda":
         device = resolve_device(f"cuda:{args.devices[0]}")
     cfg = get_actionness_configs(args.dataset)
 
-    ck = load_checkpoint(args.weights)
+    model = BinaryClassifier(num_class=cfg.num_class, modality=args.modality,
+                             base_model=args.arch, dropout=0.0)
+    weights = scoring_weights(args)
+    ck = load_checkpoint(weights)
     if "classifier_fc.weight" not in ck["state_dict"]:
         # the published reference release ships only SSN detection
         # checkpoints: they have no actionness head
         raise SystemExit(
-            f"'{args.weights}' is not an actionness checkpoint (no "
+            f"'{weights}' is not an actionness checkpoint (no "
             "classifier_fc head; it looks like an SSN detection model). "
             "Train one with binary_train.py.")
-    model = BinaryClassifier(num_class=cfg.num_class, modality=args.modality,
-                             base_model=args.arch, dropout=0.0)
     model.load_state_dict(ck["state_dict"])
     spec = model.input_spec
     new_length = model.resolved_new_length

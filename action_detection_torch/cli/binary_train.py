@@ -79,7 +79,7 @@ def main(argv=None):
     start_epoch = (int(resume_ck["epoch"]) if resume_ck is not None
                    else args.start_epoch)
 
-    apply_init_weights(model, args, cfg, "binary_train")
+    apply_init_weights(model, args, cfg)
     stats = RunStats()
     if resume_ck is not None:
         model.load_state_dict(resume_ck["state_dict"])

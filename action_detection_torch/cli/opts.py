@@ -1,4 +1,5 @@
-"""The training CLIs' flags (port of ``action_detection_tpu/cli/opts.py``).
+"""The training CLIs' flags (port of ``action_detection_tpu/cli/opts.py``),
+and the scoring CLIs' weights file.
 
 The JAX CLIs' flags and defaults, plus ``--device``. Flags the port does not
 cover yet are accepted here and refused by name in ``cli/unported.py``.
@@ -7,6 +8,22 @@ cover yet are accepted here and refused by name in ``cli/unported.py``.
 from __future__ import annotations
 
 import argparse
+
+
+def scoring_weights(args) -> str:
+    """The checkpoint ``ssn_test``/``binary_test`` score: ``args.weights``,
+    or with ``--use_reference``/``--use_kinetics_reference`` the published
+    reference checkpoint in the local model cache (raises
+    ``FileNotFoundError`` naming the path when it is not there)."""
+    if not (args.use_reference or args.use_kinetics_reference):
+        return args.weights
+    from ..config import resolve_reference_checkpoint
+
+    path = resolve_reference_checkpoint(
+        args.dataset, args.modality,
+        "ImageNet" if args.use_reference else "Kinetics", args.arch)
+    print(f"using reference model: {path}", flush=True)
+    return path
 
 
 def build_train_parser(description: str) -> argparse.ArgumentParser:

@@ -1,7 +1,14 @@
 """SSN proposal-scoring CLI (torch port of ``action_detection_tpu/cli/ssn_test.py``).
 
 Usage: python -m action_detection_torch.cli.ssn_test <dataset> <modality>
-       <weights.pt> <save_scores> [flags]
+       <weights> <save_scores> [flags]
+
+``weights`` is a port ``.pt``, a JAX ``checkpoint.msgpack`` or a reference
+``.pth``/``.pth.tar`` (``train/checkpoint.py:load_checkpoint``);
+``--use_reference`` / ``--use_kinetics_reference`` score the published
+reference checkpoint from the local model cache (``$ADT_MODEL_CACHE``) in
+its place. Every backbone of the JAX registry scores; ResNet and VGG have
+no int8 path and score in float32.
 
 Same flags and defaults logic as the JAX CLI: int8 end to end with the
 shared stem is the default for BNInception and InceptionV3, for RGB and Flow
@@ -67,9 +74,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_pack", dest="pack", action="store_false",
                         help="per-video scoring (the port's only mode)")
     parser.add_argument("--use_reference", action="store_true", default=False,
-                        help=argparse.SUPPRESS)
+                        help="score the published ImageNet-init reference "
+                             "checkpoint, found in the local model cache "
+                             "($ADT_MODEL_CACHE; the weights argument is "
+                             "ignored)")
     parser.add_argument("--use_kinetics_reference", action="store_true",
-                        default=False, help=argparse.SUPPRESS)
+                        default=False,
+                        help="as --use_reference, the Kinetics-init model")
     parser.add_argument("-j", "--workers", default=None, type=int,
                         help="host decode threads (default adapts to the "
                              "host core count)")
@@ -128,6 +139,7 @@ def main(argv=None):
                                 score_videos)
     from ..models import SSN
     from ..train import load_checkpoint
+    from .opts import scoring_weights
 
     device = resolve_device(args.device)
     if args.devices and device.type == "cuda":
@@ -138,7 +150,7 @@ def main(argv=None):
                 base_model=args.arch, dropout=0.0,
                 with_regression=not args.no_regression, stpp_cfg=cfg.stpp)
     spec = model.input_spec
-    ck = load_checkpoint(args.weights)
+    ck = load_checkpoint(scoring_weights(args))
     model.load_state_dict(ck["state_dict"])
     reg_stats = ck.get("reg_stats")
 

@@ -7,7 +7,6 @@ item's heading) and the JAX CLI that has it already.
 from __future__ import annotations
 
 #: ROADMAP.md queue 1 headings of the slices the refusals point to
-CHECKPOINT_INTEROP = "Checkpoint interop"
 HOST_THROUGHPUT = "ssn_test host throughput"
 CLI_SURFACE = "The rest of the CLI surface"
 DATA_PARALLEL = "Data parallel"
@@ -21,33 +20,20 @@ def not_yet(what: str, slice_: str, cli: str) -> SystemExit:
 
 def refuse_unported_scoring(args, cli: str) -> None:
     """The refusals ``ssn_test`` and ``binary_test`` share."""
-    from ..models.backbones import PORTED_ARCHS
-
     if args.modality == "RGBDiff":
         raise not_yet("modality RGBDiff", CLI_SURFACE, cli)
-    if args.arch not in PORTED_ARCHS:
-        raise not_yet(f"backbone {args.arch}", CLI_SURFACE, cli)
     if args.int8_mode == "perlayer":
         raise not_yet("--int8_mode perlayer", CLI_SURFACE, cli)
     if args.devices is not None and len(args.devices) > 1:
-        raise not_yet("scoring on several devices", CLI_SURFACE, cli)
+        raise not_yet("scoring on several devices", DATA_PARALLEL, cli)
     if args.test_crops != 10:
         raise not_yet(f"--test_crops {args.test_crops}", CLI_SURFACE, cli)
-    if args.use_reference or args.use_kinetics_reference:
-        raise not_yet("--use_reference", CHECKPOINT_INTEROP, cli)
-    if args.weights.endswith((".pth", ".pth.tar")):
-        raise not_yet("converting a reference .pth checkpoint",
-                      CHECKPOINT_INTEROP, cli)
 
 
 def refuse_unported_training(args, cli: str) -> None:
     """The refusals ``ssn_train`` and ``binary_train`` share."""
-    from ..models.backbones import PORTED_ARCHS
-
     if args.modality == "RGBDiff":
         raise not_yet("modality RGBDiff", CLI_SURFACE, cli)
-    if args.arch not in PORTED_ARCHS:
-        raise not_yet(f"backbone {args.arch}", CLI_SURFACE, cli)
     if args.devices is not None and len(args.devices) > 1:
         raise not_yet("training on several devices", DATA_PARALLEL, cli)
     if (args.coordinator_address is not None

@@ -192,10 +192,72 @@ def resolve_pretrained_init(cfg: DatasetConfig, arch: str, modality: str,
                            f"'{cfg.name}'") from None
     else:
         return None
+    return _cached(url, "pretrained init checkpoint")
+
+
+def _cached(url: str, what: str) -> str:
+    """The path of ``url``'s file name in :func:`pretrained_cache_dir`;
+    ``FileNotFoundError`` naming the path when it is not there."""
     path = os.path.join(pretrained_cache_dir(), url.rsplit("/", 1)[-1])
     if not os.path.isfile(path):
         raise FileNotFoundError(
-            f"pretrained init checkpoint not cached: {path}\n"
+            f"{what} not cached: {path}\n"
             f"Nothing is downloaded here. Fetch\n  {url}\nout of band and "
             f"place it at that path (or set $ADT_MODEL_CACHE).")
     return path
+
+
+_REFERENCE = "https://yjxiong.blob.core.windows.net/ssn-reference-models/"
+#: the published reference SSN checkpoints (the values of
+#: ``action_detection_tpu/configs/reference_models.yaml``):
+#: dataset -> init -> arch -> modality -> URL
+REFERENCE_MODELS = {
+    "thumos14": {
+        "ImageNet": {
+            "BNInception": {
+                "RGB": _REFERENCE + "ssn_reference_thumos14_bninception_rgb"
+                                    "-74e71b25d64a.pth.tar",
+                "Flow": _REFERENCE + "ssn_reference_thumos14_bninception_"
+                                     "flow-dfe7aba61375.pth.tar"},
+            "InceptionV3": {
+                "RGB": _REFERENCE + "ssn_reference_thumos14_inceptionv3_rgb"
+                                    "-20e223da6fb7.pth.tar",
+                "Flow": _REFERENCE + "ssn_reference_thumos14_inceptionv3_"
+                                     "flow-918f932dd160.pth.tar"}},
+        "Kinetics": {
+            "BNInception": {
+                "RGB": _REFERENCE + "ssn_kinetics_reference_thumos14_"
+                                    "bninception_rgb-9864666d118b.pth.tar",
+                "Flow": _REFERENCE + "ssn_kinetics_reference_thumos14_"
+                                     "bninception_flow-d4974e0142ea.pth.tar"},
+            "InceptionV3": {
+                "RGB": _REFERENCE + "ssn_kinetics_reference_thumos14_"
+                                    "inceptionv3_rgb-22568ca50690.pth.tar",
+                "Flow": _REFERENCE + "ssn_kinetics_reference_thumos14_"
+                                     "inceptionv3_flow-e09c5c9cd1ee.pth.tar"}}},
+    "activitynet1.2": {
+        "ImageNet": {
+            "BNInception": {
+                "RGB": _REFERENCE + "ssn_reference_activitynet1.2_"
+                                    "bninception_rgb-e2fd10a6c6b0.pth.tar",
+                "Flow": _REFERENCE + "ssn_reference_activitynet1.2_"
+                                     "bninception_flow-dfcdda9fe1f5.pth.tar"}}},
+}
+
+
+def get_reference_model_url(dataset: str, modality: str, init: str,
+                            arch: str) -> str:
+    """The published reference checkpoint's URL; ``init`` is ``ImageNet``
+    or ``Kinetics``. A combination with no published model raises
+    ``KeyError``, as the JAX package's lookup does."""
+    return REFERENCE_MODELS[dataset][init][arch][modality]
+
+
+def resolve_reference_checkpoint(dataset: str, modality: str, init: str,
+                                 arch: str) -> str:
+    """``--use_reference`` / ``--use_kinetics_reference``: the published
+    checkpoint's file name in :func:`pretrained_cache_dir`, where the
+    reference's download would have put it; ``FileNotFoundError`` naming the
+    path when it is not there. Nothing is downloaded."""
+    return _cached(get_reference_model_url(dataset, modality, init, arch),
+                   "reference checkpoint")

@@ -1,7 +1,9 @@
 """Backbone registry: torch feature extractors selectable by name.
 
-Port of ``action_detection_tpu/models/backbones/__init__.py`` for the
-backbones ported so far (BNInception, InceptionV3 and TinyConv).
+Port of ``action_detection_tpu/models/backbones/__init__.py``: every name
+its registry builds (BNInception, InceptionV3, TinyConv, ResNet-18/34/50/
+101/152, VGG-11/13/16/19 plain and ``_bn``); any other name raises
+``ValueError``, as the JAX registry's does.
 """
 
 from __future__ import annotations
@@ -10,8 +12,6 @@ import dataclasses
 from typing import Optional
 
 from .bn_inception import BNInception, FEATURE_DIM as BNINCEPTION_DIM
-
-PORTED_ARCHS = ("BNInception", "InceptionV3", "TinyConv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +68,19 @@ def get_backbone(name: str, modality: str = "RGB",
                          else (128.0,), (1.0,), bgr=(modality != "Flow"),
                          div255=False)
         return TinyConv(in_channels, bn_mode, remat), TINY_DIM, spec
-    raise ValueError(f"backbone {name!r} is not ported yet (ported: "
-                     f"{', '.join(PORTED_ARCHS)}; ResNet and VGG come in "
-                     f"later slices of the port)")
+    if name.startswith(("resnet", "vgg")):
+        # torchvision's input statistics, shared by both families
+        if modality == "Flow":
+            spec = InputSpec(224, (0.5,), (0.226,), bgr=False, div255=True)
+        else:
+            spec = InputSpec(224, (0.485, 0.456, 0.406),
+                             (0.229, 0.224, 0.225), bgr=False, div255=True)
+        if name.startswith("vgg"):
+            from .vgg import VGG, FEATURE_DIM as VGG_DIM
+
+            return VGG(name, in_channels, bn_mode, remat), VGG_DIM, spec
+        from .resnet import ResNet, feature_dim
+
+        return (ResNet(name, in_channels, bn_mode, remat), feature_dim(name),
+                spec)
+    raise ValueError(f"Unknown base model: {name}")

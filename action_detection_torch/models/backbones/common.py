@@ -1,6 +1,6 @@
 """What the float backbones share for training: BatchNorm with the JAX
-package's ``bn_mode`` semantics, and per-stage activation checkpointing
-(``--remat``).
+package's ``bn_mode`` semantics, per-stage activation checkpointing
+(``--remat``) and dropout from an explicit generator.
 
 The JAX package trains BatchNorm three ways (``bn_mode``): ``frozen`` (every
 BN normalizes with its running statistics, the default), ``partial`` (only
@@ -79,6 +79,18 @@ def commit_batch_stats(model: nn.Module, momentum: float = 0.9) -> None:
                 m.running_var.copy_(momentum * m.running_var
                                     + (1 - momentum) * var)
                 m.pending = None
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from ``generator`` (the
+    train step's explicit generator, on ``x``'s device); the caller applies
+    it in train mode only."""
+    if rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) >= rate
+    return x * keep / (1.0 - rate)
 
 
 def run_stage(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,

@@ -6,8 +6,12 @@
   I)``, BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
   running_var``. Module scopes collapse to the flat Caffe blob names
   (BNInception); InceptionV3's tf-slim names keep their module path, flax
-  ``Mixed_5b/branch1x1_conv`` becoming ``Mixed_5b.branch1x1.conv``. The
-  flax ``backbone`` scope becomes ``base_model``.
+  ``Mixed_5b/branch1x1_conv`` becoming ``Mixed_5b.branch1x1.conv``; ResNet
+  and VGG get torchvision's names back (``layer1_0/downsample_bn`` ->
+  ``layer1.0.downsample.1``, ``features_1_bn`` -> ``features.1``,
+  ``classifier_0`` -> ``classifier.0``), the inverse of the JAX package's
+  ``convert.py:_nest_path``. The flax ``backbone`` scope becomes
+  ``base_model``.
 * :func:`quantized_from_jax` maps a JAX int8-e2e tree
   (``quantize_backbone_e2e`` or ``calibrate_e2e_iv3``) onto the port's int8
   runtime tensors, so a test can hold the int8 runtime apart from
@@ -18,6 +22,8 @@
   dict (``.pth``; ``module.``/``base_model.`` prefixes stripped: the port's
   module names are the reference's) and :func:`cross_modality_init` makes
   an RGB first conv a Flow one (the JAX package's ``convert.py``).
+* :func:`ssn_state_from_reference` reads a whole reference SSN or binary
+  checkpoint (the JAX package's ``convert_torch_ssn_checkpoint``).
 
 Everything here is numpy -> torch; nothing imports jax.
 """
@@ -32,8 +38,24 @@ import torch
 from torch import nn
 
 _SCOPES = {"backbone": "base_model"}
-# InceptionV3's layers: <Conv2d_*|branch*>_conv and _bn -> <x>.conv, <x>.bn
-_IV3_LAYER = re.compile(r"^(Conv2d_\w+|branch\w*)_(conv|bn)$")
+# flax layer name -> the port's module path: InceptionV3's
+# <Conv2d_*|branch*>_conv and _bn -> <x>.conv, <x>.bn; ResNet's downsample
+# pair; VGG's torchvision indices (its BN scopes carry a _bn suffix)
+_LAYERS = ((re.compile(r"^(Conv2d_\w+|branch\w*)_(conv|bn)$"), r"\1.\2"),
+           (re.compile(r"^downsample_conv$"), "downsample.0"),
+           (re.compile(r"^downsample_bn$"), "downsample.1"),
+           (re.compile(r"^features_(\d+)(_bn)?$"), r"features.\1"),
+           (re.compile(r"^classifier_(\d+)$"), r"classifier.\1"))
+# ResNet's block scopes: layer1_0 -> layer1.0
+_RESNET_BLOCK = re.compile(r"^layer(\d+)_(\d+)$")
+
+
+def _host(a) -> np.ndarray:
+    """A leaf as numpy (a bfloat16 tensor of the msgpack reader widens to
+    float32 exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a)
 
 
 def _walk(tree: dict, prefix: str, out: Dict[str, np.ndarray],
@@ -42,26 +64,28 @@ def _walk(tree: dict, prefix: str, out: Dict[str, np.ndarray],
         if not isinstance(node, dict):
             continue
         leaf_keys = set(node)
-        iv3 = _IV3_LAYER.match(name)
-        if iv3:
-            name = f"{iv3.group(1)}.{iv3.group(2)}"
+        for pattern, repl in _LAYERS:
+            name = pattern.sub(repl, name)
         if stats and {"mean", "var"} <= leaf_keys:
-            out[f"{prefix}{name}.running_mean"] = np.asarray(node["mean"])
-            out[f"{prefix}{name}.running_var"] = np.asarray(node["var"])
+            out[f"{prefix}{name}.running_mean"] = _host(node["mean"])
+            out[f"{prefix}{name}.running_var"] = _host(node["var"])
         elif not stats and "kernel" in leaf_keys:
-            k = np.asarray(node["kernel"])
+            k = _host(node["kernel"])
             w = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
             out[f"{prefix}{name}.weight"] = w
             if "bias" in node:
-                out[f"{prefix}{name}.bias"] = np.asarray(node["bias"])
+                out[f"{prefix}{name}.bias"] = _host(node["bias"])
         elif not stats and "scale" in leaf_keys:
-            out[f"{prefix}{name}.weight"] = np.asarray(node["scale"])
-            out[f"{prefix}{name}.bias"] = np.asarray(node["bias"])
+            out[f"{prefix}{name}.weight"] = _host(node["scale"])
+            out[f"{prefix}{name}.bias"] = _host(node["bias"])
         else:
             # a module scope: inception_3a/inception_3a_1x1 -> the flat
-            # blob name; InceptionV3's Mixed_* scopes stay; the top-level
-            # backbone scope -> base_model
+            # blob name; InceptionV3's Mixed_* scopes stay; ResNet's
+            # layer1_0 -> layer1.0; the top-level backbone scope ->
+            # base_model
+            block = _RESNET_BLOCK.match(name)
             scope = (name if name.startswith("Mixed_")
+                     else f"layer{block.group(1)}.{block.group(2)}" if block
                      else _SCOPES.get(name) if not prefix else None)
             _walk(node, prefix + scope + "." if scope else prefix, out, stats)
 
@@ -105,7 +129,9 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     layers jittered affine
     parameters and running statistics (the JAX int8 tests' fixture ranges:
     scale 1+0.1N, bias 0.05N, mean 0.05N, var 1+0.3U), linear heads
-    N(0, 0.001) kernels and zero biases, as the JAX SSN initializes them.
+    N(0, 0.001) kernels and zero biases, as the JAX SSN initializes them;
+    a backbone's FC layers (VGG's ``classifier.0`` and ``.3``) He-normal
+    kernels and zero biases, as its convs.
     """
     rng = np.random.RandomState(seed)
 
@@ -113,7 +139,7 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
         return torch.from_numpy(np.asarray(a, np.float32))
 
     with torch.no_grad():
-        for m in model.modules():
+        for name, m in model.named_modules():
             if isinstance(m, nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(t(rng.randn(*m.weight.shape)
@@ -126,6 +152,12 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.bias.copy_(t(0.05 * rng.randn(n)))
                 m.running_mean.copy_(t(0.05 * rng.randn(n)))
                 m.running_var.copy_(t(1.0 + 0.3 * rng.rand(n)))
+            elif isinstance(m, nn.Linear) and name.split(".")[-2:-1] == [
+                    "classifier"]:
+                # a backbone's own FC layer (VGG's fc6, fc7), as a conv
+                m.weight.copy_(t(rng.randn(*m.weight.shape)
+                                 * np.sqrt(2.0 / m.in_features)))
+                m.bias.zero_()
             elif isinstance(m, nn.Linear):
                 m.weight.copy_(t(0.001 * rng.randn(*m.weight.shape)))
                 m.bias.zero_()
@@ -145,7 +177,43 @@ def backbone_state_from_reference(state_dict: Dict[str, Any]
     keyed by the port's backbone names. The module names already are the
     reference's, so this strips the two prefixes and nothing else."""
     sd = strip_prefix(strip_prefix(state_dict, "module."), "base_model.")
-    return {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+#: the linear heads of the SSN and binary models
+HEADS = ("activity_fc", "completeness_fc", "regressor_fc", "classifier_fc")
+
+
+def _tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+
+
+def ssn_state_from_reference(checkpoint: Dict[str, Any], arch: str = ""
+                             ) -> Dict[str, Any]:
+    """A whole reference SSN or binary checkpoint (its ``state_dict``
+    possibly under DataParallel's ``module.``; ``reg_stats`` a tensor or a
+    numpy array) -> the port's checkpoint dict ``{"state_dict",
+    "reg_stats", "arch", "epoch", "best_loss"}``.
+
+    Keeps the ``base_model.*`` weights and the heads (``activity_fc``,
+    ``completeness_fc``, ``regressor_fc``, ``classifier_fc``), as the JAX
+    package's ``convert_torch_ssn_checkpoint`` does; a BN that has no
+    ``num_batches_tracked`` (a checkpoint of an older torch) gets a zero
+    one. ``arch`` stands in where the checkpoint names none."""
+    sd = strip_prefix(checkpoint["state_dict"], "module.")
+    out = {k: _tensor(v) for k, v in sd.items()
+           if k.startswith("base_model.") or k.split(".")[0] in HEADS}
+    for k in list(out):
+        if k.endswith(".running_mean"):
+            out.setdefault(k[:-len("running_mean")] + "num_batches_tracked",
+                           torch.tensor(0, dtype=torch.int64))
+    rs = checkpoint.get("reg_stats")
+    return {"state_dict": out,
+            "reg_stats": None if rs is None else _tensor(rs).numpy(),
+            "arch": checkpoint.get("arch", arch),
+            "epoch": int(checkpoint.get("epoch", 0)),
+            "best_loss": float(checkpoint.get("best_loss", float("inf")))}
 
 
 def cross_modality_init(weight: torch.Tensor,

@@ -25,7 +25,8 @@ from torch import nn
 
 from ..ops.stpp import StppConfig, stpp_train_pool
 from .backbones import get_backbone
-from .backbones.common import BatchNorm2d
+from .backbones.common import BatchNorm2d, dropout
+from .backbones.vgg import VGG
 
 
 class FrozenBNClassifier(nn.Module):
@@ -66,17 +67,19 @@ class FrozenBNClassifier(nn.Module):
     def features(self, frames: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(N, H, W, C) normalized frames -> (N, D) float32 features, with
-        the head dropout in train mode (mask drawn from ``generator``).
+        the head dropout in train mode (mask drawn from ``generator``, as
+        VGG's classifier dropouts are).
         In bf16 the frames are rounded to bf16 first and the backbone runs
         under autocast, as the JAX backbones cast their input to ``dtype``."""
         bf16 = self.dtype == torch.bfloat16
+        # VGG's classifier dropouts draw from the same generator
+        kw = ({"generator": generator} if isinstance(self.base_model, VGG)
+              else {})
         with torch.autocast(frames.device.type, dtype=torch.bfloat16,
                             enabled=bf16):
-            feats = self.base_model(frames.to(self.dtype)).float()
-        if self.training and self.dropout > 0:
-            keep = torch.rand(feats.shape, generator=generator,
-                              device=feats.device) >= self.dropout
-            feats = feats * keep / (1.0 - self.dropout)
+            feats = self.base_model(frames.to(self.dtype), **kw).float()
+        if self.training:
+            feats = dropout(feats, self.dropout, generator)
         return feats
 
 

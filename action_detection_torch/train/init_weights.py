@@ -7,10 +7,14 @@ an uncached file warns and keeps the seeded init) > the seeded init with
 the JAX CLI's loud warning. Nothing is downloaded.
 
 ``--init_weights`` takes a port ``.pt`` checkpoint (its ``base_model.*``
-weights and running statistics are grafted) or a reference backbone
-``.pth``/``.pth.tar`` state dict (``module.``/``base_model.`` stripped,
-``models/convert.py:backbone_state_from_reference``). A first conv whose
-input channels differ (an RGB backbone into a Flow model) is converted by
+weights and running statistics are grafted), a reference or torchvision
+backbone ``.pth``/``.pth.tar`` state dict (``module.``/``base_model.``
+stripped, ``models/convert.py:backbone_state_from_reference``; keys the
+backbone does not have, such as an ImageNet dump's ``fc.*`` or VGG's
+``classifier.6.*``, are left out) or a JAX ``checkpoint.msgpack`` (its
+``backbone`` trees, ``models/convert.py:state_dict_from_jax``); the format
+is read from the file's first bytes. A first conv whose input channels
+differ (an RGB backbone into a Flow model) is converted by
 ``cross_modality_init``. Every backbone weight must be in the file.
 """
 
@@ -18,11 +22,12 @@ from __future__ import annotations
 
 import os
 
-import torch
 from torch import nn
 
 from ..config import DatasetConfig, resolve_pretrained_init
-from ..models.convert import backbone_state_from_reference, cross_modality_init
+from ..models.convert import (backbone_state_from_reference,
+                              cross_modality_init, state_dict_from_jax)
+from .checkpoint import read_file
 
 
 def first_conv_name(backbone: nn.Module) -> str:
@@ -31,13 +36,23 @@ def first_conv_name(backbone: nn.Module) -> str:
                 if isinstance(m, nn.Conv2d))
 
 
+def backbone_state(path: str) -> dict:
+    """The backbone weights and running statistics of the checkpoint at
+    ``path``, keyed by the port's backbone names."""
+    kind, raw = read_file(path)
+    if kind == "torch":
+        return backbone_state_from_reference(raw.get("state_dict", raw))
+    params, stats = raw["params"], raw.get("batch_stats") or {}
+    return state_dict_from_jax(params.get("backbone", params),
+                               stats.get("backbone", stats))
+
+
 def load_backbone_weights(model: nn.Module, path: str) -> None:
     """Graft the backbone of the checkpoint at ``path`` onto
     ``model.base_model`` (weights and running statistics; the model's own
     ``num_batches_tracked`` stay). Raises ``ValueError`` naming the missing
     keys when the file lacks any backbone weight."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    sd = backbone_state_from_reference(raw.get("state_dict", raw))
+    sd = backbone_state(path)
     backbone = model.base_model
     own = backbone.state_dict()
     key = first_conv_name(backbone) + ".weight"
@@ -53,19 +68,13 @@ def load_backbone_weights(model: nn.Module, path: str) -> None:
     backbone.load_state_dict({k: sd[k] for k in wanted}, strict=False)
 
 
-def apply_init_weights(model: nn.Module, args, cfg: DatasetConfig,
-                       cli: str = "ssn_train") -> None:
+def apply_init_weights(model: nn.Module, args, cfg: DatasetConfig) -> None:
     """The reference's init policy on ``model`` (in place); ``args`` has
     ``init_weights``, ``kinetics_pretrain``, ``arch`` and ``modality``."""
     if args.init_weights:
         if not os.path.isfile(args.init_weights):
             print(f"=> no weights file found at '{args.init_weights}'")
             return
-        if not args.init_weights.endswith((".pt", ".pth", ".pth.tar")):
-            from ..cli.unported import CHECKPOINT_INTEROP, not_yet
-
-            raise not_yet("--init_weights from a JAX msgpack checkpoint",
-                          CHECKPOINT_INTEROP, cli)
         load_backbone_weights(model, args.init_weights)
         print(f"=> loaded init weights from '{args.init_weights}'")
         return

@@ -35,24 +35,26 @@ import numpy as np
 import torch
 from torch import nn
 
-# the first convolution of each supported backbone (cross-modality
-# finetuning gives it its own lr/decay multipliers)
-FIRST_CONV_NAMES = ("conv1_7x7_s2", "Conv2d_1a_3x3_conv", "conv1",
-                    "features_0")
+# the first convolution of each backbone, by its path in the backbone
+# (cross-modality finetuning gives it its own lr/decay multipliers):
+# BNInception, InceptionV3, ResNet, VGG
+FIRST_CONV_NAMES = ("conv1_7x7_s2", "Conv2d_1a_3x3.conv", "conv1",
+                    "features.0")
 
 _MULTS = {"first_conv_weight": (1.0, 1.0), "first_conv_bias": (2.0, 0.0),
           "normal_weight": (1.0, 1.0), "normal_bias": (2.0, 0.0)}
 
 
 def label_param(name: str, module: nn.Module) -> str:
-    """The optimization group of one parameter, from its module."""
-    path = name.split(".")
-    layer, leaf = path[:-1], path[-1]
+    """The optimization group of one parameter, from its module: BN
+    layers by type, whatever their name (VGG's ``features.1`` is one); the
+    first conv only at the backbone's top level (``conv1`` also names a
+    conv in every ResNet block)."""
+    layer, _, leaf = name.rpartition(".")
     if isinstance(module, nn.modules.batchnorm._BatchNorm):
         return "bn_frozen"
-    # the first conv only at the backbone's top level
-    first = (len(layer) >= 1 and layer[-1] in FIRST_CONV_NAMES
-             and (len(layer) == 1 or layer[-2] == "base_model"))
+    first = (layer[len("base_model."):] if layer.startswith("base_model.")
+             else layer) in FIRST_CONV_NAMES
     if leaf == "bias":
         return "first_conv_bias" if first else "normal_bias"
     return "first_conv_weight" if first else "normal_weight"

@@ -23,10 +23,13 @@ before the final line):
               K2 at grids no tile divides, with signed inputs (K2's with
               -128 and all-negative windows at the padded edges); and A1
               (max-pool backward) at every BNInception max pool of the
-              training step (1,152 images) in float32 and in bfloat16, and
-              at InceptionV3's four VALID pools (the InceptionV3 training
-              run's ``IV3_TRAIN_VIDEOS`` x 72 images). Each is held EXACTLY
-              equal to
+              training step (1,152 images) in float32 and in bfloat16, at
+              InceptionV3's four VALID pools (the InceptionV3 training
+              run's ``IV3_TRAIN_VIDEOS`` x 72 images); A1 at ResNet's stem
+              pool (3x3 s2, pad 1) and VGG-16's five 2x2 s2 pools, float32
+              and bfloat16, follows in phase 4 at their training runs'
+              images, once the memory probe has fixed their -b. Each is
+              held EXACTLY equal to
               its plain torch version on the same inputs; median ms of
               both, the bound (``work``: the larger of the bytes over 3.35
               TB/s and the operations over the peak of their type) and,
@@ -49,7 +52,17 @@ before the final line):
               segments = 1,152 images per step, frozen BN, dropout 0.8)
               through ``make_train_step``. Each score pickle is checked for
               shapes and finite values, the training metrics for finite
-              values. Then the inference pipeline end to end
+              values. Then ``ssn_test`` of THUMOS14 RGB with ``--arch
+              resnet101`` and ``--arch vgg16`` (float32: they have no int8
+              path, so their paths launch no kernel), each with the time of
+              a 640-crop float step. Then the checkpoint phase
+              (``run_checkpoints``): one seeded BNInception SSN written as
+              the port's ``.pt``, as a JAX ``checkpoint.msgpack`` (the
+              port's msgpack writer) and as a reference ``.pth.tar`` under
+              its published file name in a model cache, scored by
+              ``ssn_test`` from each and by ``--use_reference`` with
+              ``$ADT_MODEL_CACHE`` there: four equal pickles. Then the
+              inference pipeline end to end
               (``run_pipeline``): a THUMOS14-style DB of two 1,560-frame
               test videos at 30 fps with empty frame files ->
               ``gen_sliding_window_proposals`` -> ``binary_test``
@@ -71,10 +84,13 @@ before the final line):
               ``ssn_test`` on the trained checkpoint; ``--iter_size 2``;
               ``--bf16`` (every A1 launch in bf16); Flow from the RGB
               checkpoint (``--init_weights``); the largest InceptionV3 -b
-              with and without ``--remat`` (``iv3_memory``), then
-              ``ssn_train activitynet1.2 RGB --arch InceptionV3``; and
+              with and without ``--remat`` (``train_memory``), then
+              ``ssn_train activitynet1.2 RGB --arch InceptionV3``;
               ``binary_train`` (-b 4, 240 images) with ``binary_test`` on
-              its checkpoint. Each run prints its CLI wall time, median
+              its checkpoint; and for ResNet-101 and VGG-16 the largest -b
+              with and without ``--remat``, then ``ssn_train thumos14 RGB``
+              at the largest of -b 4, 8, 16 below the largest that fits,
+              float32 and ``--bf16``. Each run prints its CLI wall time, median
               step time (CUDA events, steps 2 on), images/s, host
               batch-assembly seconds a step, peak memory and A1 launches.
 5. checks   — for BNInception and InceptionV3: the int8 trunk held
@@ -116,9 +132,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_N = 640     # 64 ticks x 10 crops: one scoring step
 TRAIN_VIDEOS = 16     # -b 16, the training CLI's default batch
 TRAIN_N = TRAIN_VIDEOS * 8 * 9   # x 8 proposals x 9 segments = 1,152 images
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_LIST_VIDEOS = 4  # videos of the training CLIs' SSN train lists
-IV3_TRAIN_VIDEOS = 8   # -b of the InceptionV3 ssn_train run (iv3_memory)
+IV3_TRAIN_VIDEOS = 8   # -b of the InceptionV3 ssn_train run (train_memory)
+# the -b the ResNet-101 and VGG-16 ssn_train runs choose from: the largest
+# below the largest that fits without --remat (train_memory)
+RECIPE_BATCHES = (4, 8, 16)
 FLOW_TRAIN_VIDEOS = 4  # -b of the Flow ssn_train run
 HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, ops/s (NVIDIA data sheet)
@@ -211,14 +230,86 @@ def pool_work(x, out, k: int) -> tuple:
                 out.numel() * k * k, CORE_OPS)
 
 
+def record_row(rows: dict, card: str, name: str, label: str, got, ref, fn,
+               plain, bound, library=None) -> None:
+    """Check ``got == ref``; time the kernel, its plain version and the
+    library call (``plain`` itself where the plain version is one); add the
+    row to ``rows[name]``. ``bound`` is ``work(...)``'s pair."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}[{label}] differs from its plain "
+                             f"version: max |diff| {err}")
+    ms = _time_kernel_ms(fn, reps=10)
+    plain_ms = _time_kernel_ms(plain, reps=2, graph=False)
+    lib_ms = (plain_ms if library is plain else
+              _time_kernel_ms(library, reps=10) if library else None)
+    bound_ms, bound_by = bound
+    rows[name].append(dict(label=label, err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms))
+    lib = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
+    print(f"kernel {name}[{label}]: equal, max|d|={err} {ms:.3f} ms "
+          f"(plain {plain_ms:.3f} ms{lib}); bound {bound_ms:.3f} ms "
+          f"({bound_by}) = {bound_ms / ms:.1%} of the bound on {card}",
+          flush=True)
+
+
+def check_a1(rows: dict, card: str, cases, seed: int = 0) -> None:
+    """A1 at each ``(label, (H, C), kernel, stride, pads, dtype, N)`` case:
+    launched twice on the same post-ReLU input (equal bits; windows of
+    zeros tie), held EXACTLY equal to its plain version, timed beside it,
+    its bound and torch's max-pool backward (``rows["max_pool_bwd"]``)."""
+    import torch
+
+    from action_detection_torch.kernels import pool_bwd as a1
+    from action_detection_torch.ops.pooling import _reduce_max
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for label, (H, C), k, stride, pads, dtype, N in cases:
+        x = torch.relu(torch.randn(N, H, H, C, generator=g,
+                                   device="cuda")).to(dtype)
+        geo = ((k, k), (stride, stride), pads)
+        y = _reduce_max(x, *geo).contiguous()
+        dy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+        got = a1.max_pool_bwd(x, y, dy, *geo)
+        again = a1.max_pool_bwd(x, y, dy, *geo)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(got.view(bits), again.view(bits)):
+            raise AssertionError(f"max_pool_bwd[{label}]: two launches on "
+                                 "the same inputs differ")
+        del again
+        # |x| + |y| + |dy| + |dx| across HBM once; k*k compares and an add
+        # per window; the plain version is torch's own max-pool backward
+        plain = (lambda x=x, dy=dy, geo=geo:
+                 a1.max_pool_bwd_plain(x, dy, *geo))
+        record_row(rows, card, "max_pool_bwd", label, got, plain(),
+                   lambda x=x, y=y, dy=dy, geo=geo: a1.max_pool_bwd(
+                       x, y, dy, *geo),
+                   plain, work(2 * (x.numel() + y.numel()) * x.element_size(),
+                               (k * k + 1) * y.numel(), CORE_OPS), plain)
+        del x, y, dy, got
+        torch.cuda.empty_cache()
+
+
+def both_dtypes(pools, n: int) -> list:
+    """float32 and bfloat16 ``check_a1`` cases of ``pools`` at ``n``
+    images."""
+    import torch
+
+    return ([b + (torch.float32, n) for b in pools]
+            + [(f"{b[0]}/bf16",) + b[1:] + (torch.bfloat16, n)
+               for b in pools])
+
+
 def check_kernels(card: str) -> list:
     """Phase 3: K1-K3 against their plain versions at the slice's shapes."""
     import torch
 
     from action_detection_torch.kernels import int8 as k
-    from action_detection_torch.kernels import pool_bwd as a1
     from action_detection_torch.models.backbones.bn_inception import pool_pads
-    from action_detection_torch.ops.pooling import _reduce_max
 
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -237,27 +328,8 @@ def check_kernels(card: str) -> list:
             "max_pool_bwd": []}
 
     def record(name, label, got, ref, fn, plain, bound, library=None):
-        """Check ``got == ref``; time the kernel, its plain version and the
-        library call (``plain`` itself where the plain version is one);
-        ``bound`` is ``work(...)``'s pair."""
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"{name}[{label}] differs from its plain "
-                                 f"version: max |diff| {err}")
-        ms = _time_kernel_ms(fn, reps=10)
-        plain_ms = _time_kernel_ms(plain, reps=2, graph=False)
-        lib_ms = (plain_ms if library is plain else
-                  _time_kernel_ms(library, reps=10) if library else None)
-        bound_ms, bound_by = bound
-        rows[name].append(dict(label=label, err=err, ms=ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=lib_ms))
-        lib = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
-        print(f"kernel {name}[{label}]: equal, max|d|={err} {ms:.3f} ms "
-              f"(plain {plain_ms:.3f} ms{lib}); bound {bound_ms:.3f} ms "
-              f"({bound_by}) = {bound_ms / ms:.1%} of the bound on {card}",
-              flush=True)
+        record_row(rows, card, name, label, got, ref, fn, plain, bound,
+                   library)
 
     def edge_input(*shape):
         """Signed int8 with -128 in it; the last rows and columns negative
@@ -423,45 +495,20 @@ def check_kernels(card: str) -> list:
     # A1: the backward of every BNInception max pool at the training
     # step's 1,152 images, float32 (the trainer's dtype) and bfloat16
     # (--bf16), and of InceptionV3's four VALID pools at the InceptionV3
-    # run's IV3_TRAIN_VIDEOS x 72 images; post-ReLU inputs, so windows of
-    # zeros tie
-    bni = (("stem1_ceil_s2", (112, 64), 2, pool_pads(112, 112, 3, 2, True)),
-           ("stem2_ceil_s2", (56, 192), 2, pool_pads(56, 56, 3, 2, True)),
-           ("3c_ceil_s2", (28, 320), 2, pool_pads(28, 28, 3, 2, True)),
-           ("4e_ceil_s2", (14, 576), 2, pool_pads(14, 14, 3, 2, True)),
-           ("5b_s1_p1", (7, 1024), 1, pool_pads(7, 7, 3, 1, pad=1)))
+    # run's IV3_TRAIN_VIDEOS x 72 images (ResNet's and VGG's pools:
+    # run_training_clis, once their runs' -b is known)
+    bni = (("stem1_ceil_s2", (112, 64), 3, 2, pool_pads(112, 112, 3, 2, True)),
+           ("stem2_ceil_s2", (56, 192), 3, 2, pool_pads(56, 56, 3, 2, True)),
+           ("3c_ceil_s2", (28, 320), 3, 2, pool_pads(28, 28, 3, 2, True)),
+           ("4e_ceil_s2", (14, 576), 3, 2, pool_pads(14, 14, 3, 2, True)),
+           ("5b_s1_p1", (7, 1024), 3, 1, pool_pads(7, 7, 3, 1, pad=1)))
     valid = ((0, 0), (0, 0))
-    iv3 = (("iv3_pool1_147", (147, 64), 2, valid),
-           ("iv3_pool2_71", (71, 192), 2, valid),
-           ("iv3_6a_35", (35, 288), 2, valid),
-           ("iv3_7a_17", (17, 768), 2, valid))
-    for label, (H, C), stride, pads, dtype, N in (
-            [b + (torch.float32, TRAIN_N) for b in bni]
-            + [(f"{b[0]}/bf16",) + b[1:] + (torch.bfloat16, TRAIN_N)
-               for b in bni]
-            + [b + (torch.float32, IV3_TRAIN_VIDEOS * 72) for b in iv3]):
-        x = torch.relu(torch.randn(N, H, H, C, generator=g,
-                                   device=dev)).to(dtype)
-        geo = ((3, 3), (stride, stride), pads)
-        y = _reduce_max(x, *geo).contiguous()
-        dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
-        got = a1.max_pool_bwd(x, y, dy, *geo)
-        again = a1.max_pool_bwd(x, y, dy, *geo)
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        if not torch.equal(got.view(bits), again.view(bits)):
-            raise AssertionError(f"max_pool_bwd[{label}]: two launches on "
-                                 "the same inputs differ")
-        del again
-        # |x| + |y| + |dy| + |dx| across HBM once; 9 compares and an add
-        # per window; the plain version is torch's own max-pool backward
-        plain = (lambda x=x, dy=dy, geo=geo:
-                 a1.max_pool_bwd_plain(x, dy, *geo))
-        record("max_pool_bwd", label, got, plain(),
-               lambda x=x, y=y, dy=dy, geo=geo: a1.max_pool_bwd(x, y, dy,
-                                                                *geo),
-               plain, work(2 * (x.numel() + y.numel()) * x.element_size(),
-                           10 * y.numel(), CORE_OPS), plain)
-        del x, y, dy, got
+    iv3 = (("iv3_pool1_147", (147, 64), 3, 2, valid),
+           ("iv3_pool2_71", (71, 192), 3, 2, valid),
+           ("iv3_6a_35", (35, 288), 3, 2, valid),
+           ("iv3_7a_17", (17, 768), 3, 2, valid))
+    check_a1(rows, card, both_dtypes(bni, TRAIN_N)
+             + [b + (torch.float32, IV3_TRAIN_VIDEOS * 72) for b in iv3])
     torch.cuda.empty_cache()
     return rows
 
@@ -682,9 +729,10 @@ def _seeded_checkpoint(d: str, name: str, num_class: int, arch: str,
     return model, path
 
 
-def main_path(card: str, smi: str, profile: str = None) -> dict:
-    """Phases 4 and 5: the four main paths at full width, then the checks
-    and the timings. Returns each path's launch counts."""
+def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
+    """Phases 4 and 5: the main paths at full width, then the checks and
+    the timings (``rows``: the kernel rows, which the training phase
+    extends). Returns each path's launch counts."""
     import torch
 
     from action_detection_torch.cli.ssn_test import main as ssn_test
@@ -703,7 +751,9 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
                 ("inceptionv3_rgb", "activitynet1.2", "InceptionV3", "RGB",
                  100, 3),
                 ("bninception_flow", "thumos14", "BNInception", "Flow", 20,
-                 4)):
+                 4),
+                ("resnet101_rgb", "thumos14", "resnet101", "RGB", 20, 5),
+                ("vgg16_rgb", "thumos14", "vgg16", "RGB", 20, 6)):
             models[key], ckpt = _seeded_checkpoint(d, key, K, arch,
                                                    modality, seed)
             out = os.path.join(d, f"{key}.pkl")
@@ -733,8 +783,18 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
             "ssn_test thumos14 Flow (BNInception)", lambda: ssn_test(clif),
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
+        for key, arch in (("resnet101_rgb", "resnet101"),
+                          ("vgg16_rgb", "vgg16")):
+            # float32 backbones: no int8 path, so no kernel to launch
+            cli, out, K = clis[key]
+            paths[key] = drive(f"ssn_test thumos14 RGB --arch {arch}",
+                               lambda cli=cli: ssn_test(cli), ())
+            print(f"main path: pickle ok (P={check_pickle(out, K)})",
+                  flush=True)
+            time_float_step(models.pop(key), smi)
+        paths.update(run_checkpoints(d, smi))
         paths["binary_test"] = run_pipeline(d, smi)
-        paths.update(run_training_clis(d, smi))
+        paths.update(run_training_clis(d, smi, rows))
 
         check_train_step_small(d)
         if profile:
@@ -764,6 +824,139 @@ def main_path(card: str, smi: str, profile: str = None) -> dict:
     return paths
 
 
+def time_float_step(model, smi) -> float:
+    """Steady-state 640-crop scoring step of a float32 backbone (ResNet and
+    VGG have no int8 path; TF32 off) on 64 ticks of 340x256 frames: CUDA
+    events, median of 5."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.infer.scorer import ProposalScorer
+
+    frames = np.random.RandomState(0).randint(0, 256, size=(64, 256, 340, 3),
+                                              dtype=np.uint8)
+    scorer = ProposalScorer(model, model.input_spec,
+                            reg_stats=np.asarray(REG_STATS, np.float32),
+                            num_class=model.num_class, chunk_frames=64,
+                            device="cuda", quantize=False)
+    chunk = torch.as_tensor(frames).cuda()
+    step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
+    if not torch.isfinite(step()).all():
+        raise AssertionError(f"{model.arch}: non-finite scores")
+    ms = _time_ms(step, reps=5, warmup=1)
+    scorer.close()
+    model.to("cpu")
+    print(f"step: {model.arch} float32 {ms:.2f} ms per {SLICE_N}-crop step "
+          f"= {SLICE_N / ms * 1e3:.0f} crops/s, TF32 off ({smi})", flush=True)
+    return ms
+
+
+def flax_trees(state_dict) -> tuple:
+    """A port BNInception SSN state dict as the JAX package's flax
+    ``(params, batch_stats)`` trees: the backbone under ``backbone``, each
+    ``inception_*`` layer under its module's scope
+    (``action_detection_tpu/models/convert.py:_nest_path``), kernels HWIO
+    and (in, out), BN ``scale``/``bias`` and ``mean``/``var``."""
+    params, stats = {}, {}
+    for key, t in state_dict.items():
+        layer, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = layer.split(".")
+        if path[0] == "base_model":
+            name = path[1]
+            path = ["backbone"] + (["_".join(name.split("_")[:2])]
+                                   if name.startswith("inception_") else []
+                                   ) + [name]
+        node = stats if leaf.startswith("running_") else params
+        for p in path:
+            node = node.setdefault(p, {})
+        a = t.numpy()
+        if leaf == "weight":
+            node["kernel" if a.ndim > 1 else "scale"] = (
+                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
+        else:
+            node[{"bias": "bias", "running_mean": "mean",
+                  "running_var": "var"}[leaf]] = a
+    return params, stats
+
+
+def run_checkpoints(d: str, smi: str) -> dict:
+    """Main path, part 4: one seeded BNInception SSN (THUMOS14 RGB) written
+    three ways, as the port's ``.pt``, as the JAX package's
+    ``checkpoint.msgpack`` (``train/flax_msgpack.py``'s writer on the flax
+    trees) and as a reference ``.pth.tar`` (``module.`` keys, no
+    ``num_batches_tracked``, numpy ``reg_stats``) under its published file
+    name in a model cache; ``ssn_test`` scores each, and ``--use_reference``
+    with ``$ADT_MODEL_CACHE`` at that cache, each a path of its own (K1-K3
+    must launch). The four pickles must be equal."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.config import get_reference_model_url
+    from action_detection_torch.train import flax_msgpack
+
+    c = os.path.join(d, "checkpoints")
+    cache = os.path.join(c, "cache")
+    os.makedirs(cache)
+    model, pt = _seeded_checkpoint(c, "bni", 20, "BNInception", "RGB", 11)
+    sd = model.state_dict()
+    params, stats = flax_trees(sd)
+    msgpack = os.path.join(c, "checkpoint.msgpack")
+    with open(msgpack, "wb") as f:
+        f.write(flax_msgpack.serialize({
+            "epoch": np.int64(0), "arch": "BNInception",
+            "best_loss": np.float64(np.inf),
+            "reg_stats": np.asarray(REG_STATS), "params": params,
+            "batch_stats": stats, "extra": {}}))
+    url = get_reference_model_url("thumos14", "RGB", "ImageNet",
+                                  "BNInception")
+    pth = os.path.join(cache, url.rsplit("/", 1)[-1])
+    torch.save({"epoch": 80, "arch": "BNInception", "best_loss": 0.5,
+                "reg_stats": np.asarray(REG_STATS),
+                "state_dict": {"module." + k: v for k, v in sd.items()
+                               if not k.endswith("num_batches_tracked")}},
+               pth)
+    sizes = {n: os.path.getsize(p) / 2**20 for n, p in (
+        ("pt", pt), ("msgpack", msgpack), ("pth.tar", pth))}
+    paths, pickles = {}, {}
+    old = os.environ.get("ADT_MODEL_CACHE")
+    for name, weights, extra in (("pt", pt, []), ("msgpack", msgpack, []),
+                                 ("pth.tar", pth, []),
+                                 ("use_reference", "none.pt",
+                                  ["--use_reference"])):
+        out = os.path.join(c, f"{name}.pkl")
+        os.environ["ADT_MODEL_CACHE"] = cache
+        try:
+            paths[f"ssn_test_{name}"] = drive(
+                f"ssn_test thumos14 RGB on the {name} checkpoint",
+                lambda: ssn_test(["thumos14", "RGB", weights, out,
+                                  "--synthetic_data", "--prop_file_dir", d]
+                                 + extra),
+                ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+        finally:
+            if old is None:
+                os.environ.pop("ADT_MODEL_CACHE")
+            else:
+                os.environ["ADT_MODEL_CACHE"] = old
+        check_pickle(out, 20)
+        with open(out, "rb") as f:
+            pickles[name] = pickle.load(f)
+    ref = pickles["pt"]
+    for name, got in pickles.items():
+        if set(got) != set(ref) or not all(
+                np.array_equal(a, b) for vid in ref
+                for a, b in zip(got[vid], ref[vid])):
+            raise AssertionError(f"the {name} checkpoint scores differently "
+                                 "from the .pt")
+    print(f"checkpoints: .pt {sizes['pt']:.1f} MiB, JAX msgpack "
+          f"{sizes['msgpack']:.1f} MiB, reference .pth.tar "
+          f"{sizes['pth.tar']:.1f} MiB and --use_reference give equal "
+          f"pickles ({smi})", flush=True)
+    return paths
+
+
 def _train_report(name: str, stats, launches: dict, peak_gib: float,
                   smi: str, busy=None) -> None:
     """One line of a training CLI run's numbers."""
@@ -776,38 +969,50 @@ def _train_report(name: str, stats, launches: dict, peak_gib: float,
           f"{share} ({smi})", flush=True)
 
 
-def iv3_memory(smi: str) -> dict:
-    """The largest -b (videos of 8 proposals x 9 segments of 299^2) whose
-    InceptionV3 SSN training step fits the card, without and with
+def train_memory(arch: str, dataset: str, size: int, smi: str) -> dict:
+    """The largest -b (videos of 8 proposals x 9 segments of ``size^2``)
+    whose ``arch`` SSN training step fits the card, without and with
     ``--remat``: one forward + backward on a device-made batch (no host
-    work), ``max_memory_allocated`` at -b 1 and 2 give a line, its
-    prediction runs, and it moves by one until -b fits and -b + 1 runs out
-    of memory (peak allocated and reserved printed). Returns ``{remat:
-    (largest b, its peak bytes)}``."""
+    work) for each -b tried. ``max_memory_allocated`` at -b 1 and 2 give a
+    line; until a -b runs out of memory, the next -b is where the line
+    through the last two that fit reaches the card's memory (at most 8x the
+    largest that fits; twice it where the line does not rise), then a
+    bisection between the largest -b that fits and the smallest that does
+    not. With ``--remat`` the search starts from the largest -b without it.
+    Peak allocated and reserved memory and each probe's time are printed.
+    Returns ``{remat: (largest b, its peak bytes)}``."""
     import torch
 
     from action_detection_torch.config import get_configs
     from action_detection_torch.models import SSN, seeded_init
     from action_detection_torch.train import make_loss_fn
 
-    cfg = get_configs("activitynet1.2")
+    cfg = get_configs(dataset)
     total = torch.cuda.get_device_properties(0).total_memory
     g = torch.Generator(device="cuda").manual_seed(9)
     labels = torch.tensor([5] + [7] * 6 + [0], device="cuda")
     out = {}
     for remat in (False, True):
-        model = seeded_init(SSN(num_class=100, base_model="InceptionV3",
+        model = seeded_init(SSN(num_class=cfg.num_class, base_model=arch,
                                 stpp_cfg=cfg.stpp, remat=remat),
                             seed=7).cuda()
         loss_fn = make_loss_fn(model, cfg.sampling)
-        reserved = {}
+        reserved, probes = {}, []
 
         def peak(b):
+            t = time.perf_counter()
+            got = _peak(b)
+            probes.append(f"-b {b} " + (f"{got / 2**30:.1f} GiB" if got
+                                        else "out of memory")
+                          + f" {time.perf_counter() - t:.1f} s")
+            return got
+
+        def _peak(b):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             try:
                 batch = {"frames": torch.randint(
-                    0, 256, (8 * b, 9, 299, 299, 3), generator=g,
+                    0, 256, (8 * b, 9, size, size, 3), generator=g,
                     device="cuda", dtype=torch.uint8),
                     "scaling": torch.ones(8 * b, 2, device="cuda"),
                     "labels": labels.repeat(b),
@@ -823,30 +1028,47 @@ def iv3_memory(smi: str) -> dict:
                 batch = loss = None
                 model.zero_grad(set_to_none=True)
 
+        t0 = time.perf_counter()
         p1, p2 = peak(1), peak(2)
-        b = max(int((total - (2 * p1 - p2)) // (p2 - p1)), 1)
-        fits = peak(b)
-        while fits is None and b > 1:
-            b -= 1
-            fits = peak(b)
-        over = peak(b + 1)
-        while over is not None:
-            b, fits = b + 1, over
-            over = peak(b + 1)
+        fit = {1: p1, 2: p2}
+        lo, hi = 2, None        # the largest -b that fits, the smallest not
+        if remat:               # recomputing never needs more memory
+            lo = max(lo, out[False][0])
+        while hi is None or hi - lo > 1:
+            if hi is None:
+                (b1, q1), (b2, q2) = sorted(fit.items())[-2:]
+                slope = (q2 - q1) / (b2 - b1)
+                b = (b2 + int((total - q2) // slope) if slope > 0
+                     else 2 * b2)
+                b = min(max(b, lo + 1), 8 * lo)
+            else:
+                b = (lo + hi) // 2
+            got = peak(b)
+            if got is None:
+                hi = b
+            else:
+                lo, fit[b] = b, got
+        if lo not in fit:
+            fit[lo] = peak(lo)
+            if fit[lo] is None:
+                raise AssertionError(f"{arch}: -b {lo} fits without --remat "
+                                     "but not with it")
+        b, fits = lo, fit[lo]
         out[remat] = (b, fits)
-        print(f"memory: InceptionV3 training {'with' if remat else 'without'}"
+        print(f"memory: {arch} training {'with' if remat else 'without'}"
               f" --remat: -b 1 {p1 / 2**30:.2f} GiB, -b 2 {p2 / 2**30:.2f} "
               f"GiB; largest -b that fits {b} ({8 * 9 * b} images, peak "
               f"{fits / 2**30:.2f} GiB allocated, "
               f"{reserved[b] / 2**30:.2f} GiB reserved, of "
-              f"{total / 2**30:.2f}), -b {b + 1} runs out of memory ({smi})",
-              flush=True)
+              f"{total / 2**30:.2f}), -b {b + 1} runs out of memory; "
+              f"{len(probes)} probes in {time.perf_counter() - t0:.1f} s: "
+              f"{', '.join(probes)} ({smi})", flush=True)
         del model
         torch.cuda.empty_cache()
     return out
 
 
-def run_training_clis(d: str, smi: str) -> dict:
+def run_training_clis(d: str, smi: str, rows: dict) -> dict:
     """Main path, part 6: the training CLIs in process on synthetic frames,
     each a path of its own (launch counts set to 0 before, A1 required
     after): ``ssn_train thumos14 RGB`` BNInception at the recipe batch (-b
@@ -854,11 +1076,17 @@ def run_training_clis(d: str, smi: str) -> dict:
     checkpoint; ``--resume`` from it for one more epoch under the profiler
     (it must start at the saved epoch, LR decayed by ``--lr_steps 1 2``);
     the port's ``ssn_test`` scoring the trained checkpoint; ``--iter_size
-    2`` (2 updates); ``--bf16`` (A1 in bf16); Flow from the RGB checkpoint
+    2`` (2 mini-steps, 1 update); ``--bf16`` (A1 in bf16); Flow from the
+    RGB checkpoint
     (``--init_weights``, the 10-channel cross-modality conv1); InceptionV3
-    on ActivityNet v1.2 at ``IV3_TRAIN_VIDEOS`` (after ``iv3_memory``); and
+    on ActivityNet v1.2 at ``IV3_TRAIN_VIDEOS`` (after ``train_memory``);
     ``binary_train`` (-b 4: 240 images) with ``binary_test`` on its
-    checkpoint. Returns each run's launches."""
+    checkpoint; and ResNet-101 and VGG-16: ``train_memory``, A1 at their
+    pools (``check_a1``, rows added to ``rows``) at the images of the
+    largest -b of ``RECIPE_BATCHES`` below the largest that fits without
+    ``--remat`` (a video of headroom), then
+    ``ssn_train`` at that -b, float32 and ``--bf16`` (A1 required, in bf16
+    alone under ``--bf16``). Returns each run's launches."""
     import contextlib
 
     import numpy as np
@@ -934,10 +1162,10 @@ def run_training_clis(d: str, smi: str) -> dict:
         print(f"train: trained checkpoint scored, pickle ok "
               f"(P={check_pickle(scores, 20)})", flush=True)
         st = run("train_cli_iter2", "ssn_train thumos14 RGB --iter_size 2",
-                 ssn_train, rgb + tem(4, TRAIN_VIDEOS) + [
+                 ssn_train, rgb + tem(2, TRAIN_VIDEOS) + [
                      "--epochs", "1", "--iter_size", "2",
                      "--snapshot_pref", "_iter2"])
-        expect(len(st.step_ms) == 4 and st.updates == 2,
+        expect(len(st.step_ms) == 2 and st.updates == 1,
                f"--iter_size 2: {len(st.step_ms)} steps, {st.updates} "
                "updates")
         st = run("train_cli_bf16", "ssn_train thumos14 RGB --bf16",
@@ -961,7 +1189,7 @@ def run_training_clis(d: str, smi: str) -> dict:
         expect(len(st.step_ms) == 2 and flow["state_dict"][
             "base_model.conv1_7x7_s2.weight"].shape[1] == 10,
             f"Flow: {len(st.step_ms)} steps")
-        mem = iv3_memory(smi)
+        mem = train_memory("InceptionV3", "activitynet1.2", 299, smi)
         expect(IV3_TRAIN_VIDEOS < mem[False][0],
                f"-b {IV3_TRAIN_VIDEOS} leaves no headroom under "
                f"{mem[False][0]}")
@@ -993,6 +1221,48 @@ def run_training_clis(d: str, smi: str) -> dict:
                    {k: v.shape for k, v in a.items()}))
         print("train: binary checkpoint scored by binary_test, (T, 10, 2) "
               "per video", flush=True)
+        valid = ((0, 0), (0, 0))
+        pools = {"resnet101": (("resnet_stem_s2_p1", (112, 64), 3, 2,
+                                ((1, 1), (1, 1))),),
+                 "vgg16": tuple((f"vgg16_pool{i + 1}_{hw}", (hw, c), 2, 2,
+                                 valid)
+                                for i, (hw, c) in enumerate(
+                                    ((224, 64), (112, 128), (56, 256),
+                                     (28, 512), (14, 512))))}
+        for arch in ("resnet101", "vgg16"):
+            mem = train_memory(arch, "thumos14", 224, smi)
+            # a video of headroom: at the edge, whether a -b fits depends
+            # on the allocator's state (VGG-16's largest -b came out 14, 15
+            # and 16 in three runs on one H100 80GB)
+            videos = max([b for b in RECIPE_BATCHES if b < mem[False][0]],
+                         default=0)
+            expect(videos > 0, f"{arch}: -b {RECIPE_BATCHES[0]} leaves no "
+                   f"headroom (largest -b {mem[False][0]})")
+            print(f"train: {arch} runs at -b {videos}, the largest of "
+                  f"{RECIPE_BATCHES} below the largest that fits without "
+                  "--remat", flush=True)
+            check_a1(rows, torch.cuda.get_device_name(0),
+                     both_dtypes(pools[arch], videos * 72), seed=1)
+            for bf16 in (False, True):
+                tag = "/bf16" if bf16 else ""
+                st = run(f"train_cli_{arch}{tag}",
+                         f"ssn_train thumos14 RGB --arch {arch} (-b {videos})"
+                         f"{' --bf16' if bf16 else ''}", ssn_train,
+                         rgb[:-2] + ["-b", str(videos), "--arch", arch,
+                                     *tem(2, videos), "--epochs", "1",
+                                     "--snapshot_pref", f"_{arch}{tag[1:]}"]
+                         + (["--bf16"] if bf16 else []),
+                         expect=("max_pool_bwd",) + (("max_pool_bwd/bf16",)
+                                                     if bf16 else ()))
+                expect(len(st.step_ms) == 2 and st.images == videos * 72
+                       and np.isfinite(st.best_loss),
+                       f"{arch}{tag}: {len(st.step_ms)} steps of "
+                       f"{st.images}, best loss {st.best_loss}")
+                a1 = paths[f"train_cli_{arch}{tag}"]
+                expect(not bf16 or a1["max_pool_bwd/bf16"]
+                       == a1["max_pool_bwd"], f"{arch} --bf16: A1 launches "
+                       f"{a1['max_pool_bwd']}, of them bf16 "
+                       f"{a1['max_pool_bwd/bf16']}")
     return paths
 
 
@@ -1451,6 +1721,7 @@ def main() -> int:
     if args and args[0] == "--kernels-of":
         return kernels_of(os.path.abspath(args[1]))
     profile = os.path.abspath(args[1]) if args else None
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     # the port must be importable before anything is printed
     from action_detection_torch.kernels.build import build_library
@@ -1469,7 +1740,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = check_kernels(card)
-    paths = main_path(card, smi, profile)
+    print(f"timing: build and kernel phase {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
+    paths = main_path(card, smi, rows, profile)
+    print(f"timing: the whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     conv, pool = ("action_detection_torch/csrc/int8_conv.cu",
                   "action_detection_torch/csrc/int8_pool.cu")

@@ -272,13 +272,10 @@ def test_binary_test_cli_int8_sharedstem_matches_jax_cli(tmp_path,
 
 @pytest.mark.parametrize("flags,named", [
     (["RGBDiff"], "modality RGBDiff"),
-    (["RGB", "--arch", "resnet50"], "backbone resnet50"),
     (["RGB", "--int8_mode", "perlayer"], "--int8_mode perlayer"),
     (["RGB", "--host_crops"], "--host_crops"),
     (["RGB", "--test_crops", "1"], "--test_crops 1"),
     (["Flow", "--devices", "0", "1"], "scoring on several devices"),
-    (["RGB", "--use_reference"], "--use_reference"),
-    (["RGB", "--use_kinetics_reference"], "--use_reference"),
 ])
 def test_binary_test_refuses_unported_by_name(flags, named):
     with pytest.raises(SystemExit, match=named):
@@ -286,17 +283,67 @@ def test_binary_test_refuses_unported_by_name(flags, named):
                   + flags[1:])
 
 
+@pytest.mark.parametrize("arch", ["resnet18", "vgg11"])
+def test_binary_test_scores_resnet_and_vgg(tmp_path, capsys, arch):
+    """``--arch resnet18``/``vgg11``: no int8 path (the CLI says so), the
+    float backbone at 224^2 scores every tick's 10 crops."""
+    write_proposal_list(tmp_path / "thumos14_sw_test_proposal_list.txt",
+                        n_videos=1)
+    torch.manual_seed(0)        # torch's own init: VGG's 133M weights
+    model = BinaryClassifier(base_model=arch)
+    save_checkpoint(str(tmp_path / "b.pt"), model.state_dict(), None,
+                    arch=arch)
+    got = port_main(["thumos14", "RGB", "testing", str(tmp_path / "b.pt"),
+                     str(tmp_path / "s.pkl"), "--arch", arch,
+                     "--synthetic_data", "--prop_file_dir", str(tmp_path),
+                     "--frame_interval", "300", "--test_batchsize", "2",
+                     "--device", "cpu"])
+    assert f"int8 off: no int8 path wired for {arch}" in \
+        capsys.readouterr().out
+    assert got["video_0"].shape == (2, 10, 2)
+    assert np.isfinite(got["video_0"]).all()
+
+
+@pytest.mark.parametrize("flag,init", [("--use_reference", "ImageNet"),
+                                       ("--use_kinetics_reference",
+                                        "Kinetics")])
+def test_binary_test_use_reference_names_the_missing_file(
+        tmp_path, monkeypatch, flag, init):
+    """``--use_reference``/``--use_kinetics_reference`` look the published
+    checkpoint up in $ADT_MODEL_CACHE and, when it is not there, raise
+    naming the path it looked at."""
+    from action_detection_torch import config
+
+    monkeypatch.setenv("ADT_MODEL_CACHE", str(tmp_path))
+    url = config.get_reference_model_url("thumos14", "RGB", init,
+                                         "BNInception")
+    path = str(tmp_path / url.rsplit("/", 1)[-1])
+    with pytest.raises(FileNotFoundError, match=path.replace(".", r"\.")):
+        port_main(["thumos14", "RGB", "testing", "w.pt", "s.pkl", flag,
+                   "--device", "cpu"])
+
+
 def test_binary_test_refuses_pth_ssn_checkpoints_and_missing_cards(
         tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="reference .pth"):
-        port_main(["thumos14", "RGB", "testing", "w.pth.tar", "s.pkl"])
     from action_detection_torch.models import SSN, seeded_init
+
+    write_proposal_list(tmp_path / "thumos14_sw_test_proposal_list.txt",
+                        n_videos=1)
+    # a reference SSN .pth.tar (the published release has no actionness
+    # model) reads, and is refused for its missing head
+    ref = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=1)
+    torch.save({"state_dict": {"module." + k: v for k, v in
+                               ref.state_dict().items()},
+                "reg_stats": np.ones((2, 2), np.float32)},
+               str(tmp_path / "w.pth.tar"))
+    with pytest.raises(SystemExit, match="not an actionness checkpoint"):
+        port_main(["thumos14", "RGB", "testing", str(tmp_path / "w.pth.tar"),
+                   str(tmp_path / "s.pkl"), "--arch", "TinyConv",
+                   "--prop_file_dir", str(tmp_path), "--device", "cpu"])
 
     ssn = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=0)
     save_checkpoint(str(tmp_path / "ssn.pt"), ssn.state_dict(), None,
                     arch="TinyConv")
-    write_proposal_list(tmp_path / "thumos14_sw_test_proposal_list.txt",
-                        n_videos=1)
     args = ["thumos14", "RGB", "testing", str(tmp_path / "ssn.pt"),
             str(tmp_path / "s.pkl"), "--arch", "TinyConv", "--prop_file_dir",
             str(tmp_path)]

@@ -1,10 +1,12 @@
 """Port parity, Flow: 10-channel x/y stacks of new_length 5 through the
 int8-e2e shared-stem BNInception scorer (the flow-x inversion of flipped
 crops rides in the shared stem's flip source) and through the port's
-ssn_test CLI, against the JAX package on the same frames and weights; and
-the CLI's refusals of what the port does not cover yet."""
+ssn_test CLI, against the JAX package on the same frames and weights; the
+float ResNet and VGG backbones through both CLIs; and the CLI's refusals of
+what the port does not cover yet."""
 
 import pytest
+import torch
 
 from action_detection_torch.cli.ssn_test import main as port_main
 
@@ -56,10 +58,55 @@ def test_flow_frames_are_read_with_flow_pref(tmp_path, monkeypatch):
                     "modality": "Flow"}
 
 
+@pytest.mark.parametrize("arch,modality", [("resnet18", "Flow"),
+                                           ("vgg11", "RGB")])
+def test_ssn_test_scores_resnet_and_vgg_as_the_jax_cli(tmp_path, monkeypatch,
+                                                       capsys, arch,
+                                                       modality):
+    """``--arch resnet18`` (Flow: a 10-channel ``conv1``) and ``vgg11``
+    (RGB): no int8 path, so both CLIs print so and score the float backbone
+    at 224^2; from one reference-style ``.pth.tar`` the port's pickle is
+    within 1e-4 of the JAX CLI's."""
+    import pickle
+
+    import numpy as np
+
+    from action_detection_tpu.cli.ssn_test import main as jax_main
+
+    from action_detection_torch.models import SSN
+
+    from tests.test_datasets import write_proposal_list
+    from tests.test_torch_port_checkpoints import _reference_pth
+
+    monkeypatch.chdir(tmp_path)
+    write_proposal_list(tmp_path / "thumos14_tag_test_proposal_list.txt",
+                        n_videos=1, seed=5)
+    torch.manual_seed(2)        # torch's own init: VGG's 133M weights
+    model = SSN(num_class=20, base_model=arch, modality=modality,
+                dropout=0.0)
+    _reference_pth("w.pth.tar", model.state_dict(), arch=arch)
+    common = ["--arch", arch, "--synthetic_data", "--prop_file_dir",
+              str(tmp_path), "--frame_interval", "300", "--test_batchsize",
+              "2"]
+    port_main(["thumos14", modality, "w.pth.tar", "p.pkl"] + common
+              + ["--device", "cpu"])
+    jax_main(["thumos14", modality, "w.pth.tar", "j.pkl"] + common
+             + ["--devices", "0"])
+    assert f"int8 off: no int8 path wired for {arch}" in \
+        capsys.readouterr().out
+    with open("p.pkl", "rb") as f:
+        got = pickle.load(f)
+    with open("j.pkl", "rb") as f:
+        ref = pickle.load(f)
+    assert set(got) == set(ref) == {"video_0"}
+    for g, r in zip(got["video_0"], ref["video_0"]):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-4)
+    assert np.abs(ref["video_0"][1]).max() > 1e-2
+
+
 @pytest.mark.parametrize("flags,named", [
     (["RGBDiff"], "modality RGBDiff"),
-    (["RGB", "--arch", "resnet50"], "backbone resnet50"),
-    (["Flow", "--arch", "vgg16"], "backbone vgg16"),
     (["RGB", "--int8_mode", "perlayer"], "--int8_mode perlayer"),
     (["Flow", "--pack"], "--pack"),
     (["RGB", "--devices", "0", "1"], "scoring on several devices"),

@@ -1,5 +1,5 @@
 """The port runs on a machine without jax, flax, optax, yaml, PIL,
-scikit-learn or pandas.
+scikit-learn, pandas or msgpack.
 
 A subprocess blocks those packages (``sys.modules[name] = None`` makes
 any import of them raise), imports every module of action_detection_torch,
@@ -12,7 +12,10 @@ InceptionV3's scale size 341, and takes one BNInception SSN training step
 blocks, runs the inference pipeline through the five host and actionness
 CLIs on the CPU: gen_sliding_window_proposals -> binary_test (TinyConv) ->
 gen_bottom_up_proposals -> ssn_test -> eval_detection_results (no pandas:
-its side dumps are skipped), and gen_proposal_list. A third trains on the
+its side dumps are skipped), and gen_proposal_list; ssn_test also scores
+one TinyConv SSN from a JAX checkpoint.msgpack and from a reference-style
+.pth.tar (written by the test process, which has flax) to the pickle of its
+.pt. A third trains on the
 CPU through the training CLIs: ssn_train (one TinyConv step, validation, a
 checkpoint), ssn_train --evaluate on it, and binary_train (one step)."""
 
@@ -24,7 +27,7 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "sklearn",
-           "pandas")
+           "pandas", "msgpack")
 BLOCK = textwrap.dedent(f"""
     import sys
     BLOCKED = {BLOCKED!r}
@@ -197,6 +200,22 @@ PIPELINE = BLOCK + textwrap.dedent("""
         assert launch_counts()["host_nms"] > 0
         assert not os.path.exists("gt_dump.pc")
 
+        # one model as .pt, JAX msgpack and reference .pth.tar
+        pickles = []
+        for name in ("w.pt", "w.msgpack", "w.pth.tar"):
+            ssn_test.main(["thumos14", "RGB",
+                           os.path.join(os.environ["ADT_WEIGHTS_DIR"], name),
+                           name + ".pkl", "--arch", "TinyConv",
+                           "--synthetic_data", "--prop_file_dir", d,
+                           "--device", "cpu", "--test_batchsize", "8"])
+            with open(name + ".pkl", "rb") as f:
+                pickles.append(pickle.load(f))
+        for other in pickles[1:]:
+            assert set(other) == set(pickles[0])
+            for vid, arrays in pickles[0].items():
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(arrays, other[vid]))
+
         with open("thumos14_tag_val_normalized_proposal_list.txt", "w") as f:
             f.write("# 0\\nvideo_validation_0001\\n60.0\\n3\\n1\\n"
                     "1 0.1667 0.3667\\n1\\n1 0.7000 0.8000 0.1500 0.4000\\n")
@@ -254,8 +273,8 @@ TRAINING = BLOCK + textwrap.dedent("""
     print("TRAINING-OK")
 """)
 
-def _run(script: str) -> str:
-    env = dict(os.environ, PYTHONPATH=ROOT)
+def _run(script: str, **env_extra) -> str:
+    env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -269,8 +288,37 @@ def test_port_imports_and_scores_without_jax_flax_yaml_pil():
     assert int(last.split()[1]) >= 25      # every module was imported
 
 
-def test_pipeline_clis_without_jax_flax_yaml_pil_sklearn_pandas():
-    out = _run(PIPELINE)
+def _weights(d: str) -> str:
+    """One TinyConv SSN as the port's .pt, the JAX package's msgpack (its
+    own writer, flax) and a reference-style .pth.tar (``module.`` keys,
+    numpy reg_stats)."""
+    import numpy as np
+    import torch
+
+    from action_detection_tpu.models.convert import (
+        convert_torch_ssn_checkpoint)
+    from action_detection_tpu.train import save_checkpoint as jax_save
+
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.train import save_checkpoint
+
+    model = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=2)
+    rs = np.array([[0.0, 0.0], [0.1, 0.1]], np.float32)
+    save_checkpoint(os.path.join(d, "w.pt"), model.state_dict(), rs,
+                    arch="TinyConv")
+    ck = convert_torch_ssn_checkpoint({"state_dict": model.state_dict()},
+                                      "TinyConv")
+    jax_save(os.path.join(d, "w.msgpack"), ck["params"], rs,
+             batch_stats=ck["batch_stats"], arch="TinyConv")
+    torch.save({"state_dict": {"module." + k: v for k, v in
+                               model.state_dict().items()},
+                "reg_stats": rs, "arch": "TinyConv", "epoch": 1},
+               os.path.join(d, "w.pth.tar"))
+    return d
+
+
+def test_pipeline_clis_without_jax_flax_yaml_pil_sklearn_pandas(tmp_path):
+    out = _run(PIPELINE, ADT_WEIGHTS_DIR=_weights(str(tmp_path)))
     assert out.strip().splitlines()[-1] == "PIPELINE-OK", out
     assert "gt_dump.pc and pred_dump.pc skipped" in out
     assert "Detection Performance on thumos14" in out

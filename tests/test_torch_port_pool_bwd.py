@@ -33,7 +33,13 @@ BN_POOLS = [(3, 2, pool_pads(112, 112, 3, 2, ceil=True), 112, 112, 64),
             (3, 2, pool_pads(28, 28, 3, 2, ceil=True), 28, 28, 320),
             (3, 2, pool_pads(14, 14, 3, 2, ceil=True), 14, 14, 576),
             (3, 1, pool_pads(7, 7, 3, 1, pad=1), 7, 7, 1024)]
-GEOMETRIES = [c + (5,) for c in POOL_CASES] + BN_POOLS
+# the float max pools ResNet and VGG bring: ResNet's stem (3x3 s2, pad 1 on
+# every side) and VGG-16's five 2x2 s2 unpadded pools (windows that do not
+# overlap), at their real sizes and channels
+NEW_POOLS = [(3, 2, ((1, 1), (1, 1)), 112, 112, 64)] + [
+    (2, 2, ((0, 0), (0, 0)), hw, hw, c)
+    for hw, c in ((224, 64), (112, 128), (56, 256), (28, 512), (14, 512))]
+GEOMETRIES = [c + (5,) for c in POOL_CASES] + BN_POOLS + NEW_POOLS
 
 
 def _plan(case, bf16=False, vec=None, **kw):
@@ -86,13 +92,13 @@ def test_plan_tiles_cover_the_image(case, tile_windows):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("case", BN_POOLS)
+@pytest.mark.parametrize("case", BN_POOLS + NEW_POOLS)
 def test_plan_shared_memory_layout(case, bf16):
     """The regions (x, y, dy, offsets, cover tables) are 16-byte aligned,
-    do not overlap and fit the limit; BNInception's pools take 16-byte
-    vectors and the default 8x8-window tile, whose slab is 128 bytes wide
-    except on 5b's 7x7 images, where it doubles so that a block has two
-    cells per thread to gather."""
+    do not overlap and fit the limit; BNInception's, ResNet's and VGG's
+    pools take 16-byte vectors and the default 8x8-window tile, whose slab
+    is 128 bytes wide except on 5b's 7x7 images, where it doubles so that a
+    block has two cells per thread to gather."""
     plan = _plan(case, bf16=bf16)
     es = 2 if bf16 else 4
     win = plan.win_h * plan.win_w * plan.slab
@@ -231,3 +237,30 @@ def test_model_sums_in_window_order(case, kind):
                                   torch.from_numpy(_f32(dy)).to(got.dtype),
                                   k2, s2, pad)
     assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("kind", ["tied", "bf16"])
+@pytest.mark.parametrize("case", NEW_POOLS)
+def test_plain_version_at_resnet_and_vgg_pools(case, kind):
+    """A1's plain version at ResNet's stem pool and VGG-16's five pools, at
+    their real image sizes (5 channels, 2 images), bit-exact against the
+    JAX SelectAndScatter VJP and the Pallas kernel in interpret mode (as
+    tests/test_pooling.py runs it); inputs with ties, integer dy; and the
+    tile model on the plan of the smallest VGG grid."""
+    k, s, pad, H, W, _ = case
+    x, y, k2, s2, pad, bf16 = _case_inputs((k, s, pad, H, W), kind,
+                                           seed=H + k)
+    dy = ((jnp.arange(y.size) % 7 + 1).reshape(y.shape)).astype(x.dtype)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    got = a1.max_pool_bwd_plain(torch.from_numpy(_f32(x)).to(tdt),
+                                torch.from_numpy(_f32(dy)).to(tdt),
+                                k2, s2, pad)
+    assert got.dtype == tdt
+    _, vjp = jax.vjp(lambda v: fnn.max_pool(v, k2, strides=s2,
+                                            padding=list(pad)), x)
+    np.testing.assert_array_equal(got.float().numpy(), _f32(vjp(dy)[0]))
+    np.testing.assert_array_equal(
+        got.float().numpy(), _f32(max_pool_bwd_pallas(x, y, dy, k2, s2, pad)))
+    if H == 14:
+        model = _model_dx(x, y, dy, k2, s2, pad, bf16, 2)
+        assert torch.equal(model, got)

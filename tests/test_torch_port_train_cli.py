@@ -7,8 +7,9 @@ the JAX ``save_checkpoint`` and its ``state_dict_from_jax`` twin as
 one) with validation: the final checkpoints' weights agree within 1e-4 of
 each tensor's largest value, and the validation loss (the checkpoints'
 ``best_loss``) within 1e-5 relative. The port's checkpoints then score
-through its ``ssn_test`` and ``binary_test`` on the CPU. Also each
-refusal of the training CLIs names its ROADMAP item."""
+through its ``ssn_test`` and ``binary_test`` on the CPU. Both CLIs train
+ResNet and VGG; each refusal of the training CLIs names its ROADMAP
+item."""
 
 import os
 import pickle
@@ -159,11 +160,42 @@ def test_binary_train_cli_matches_jax_cli(workdir, monkeypatch):
                for a in act.values())
 
 
+@pytest.mark.parametrize("cli,arch,flags", [
+    (ssn_train, "resnet18", ["--remat"]), (binary_train, "resnet18",
+                                           ["--bf16"]),
+    (ssn_train, "vgg11", []), (binary_train, "vgg11", ["--bf16"])])
+def test_training_clis_train_resnet_and_vgg(tmp_path, monkeypatch, cli, arch,
+                                            flags):
+    """``--arch resnet18``/``vgg11`` at 224^2, one step of one video (3
+    segments a proposal), validation, a checkpoint whose state dict is the
+    model's (f32, ``--bf16``, ``--remat``)."""
+    from action_detection_torch.models import SSN, BinaryClassifier
+
+    monkeypatch.chdir(tmp_path)
+    for task in ("tag", "sw"):
+        write_proposal_list(tmp_path / f"thumos14_{task}_val_proposal_list.txt",
+                            n_videos=1)
+        write_proposal_list(
+            tmp_path / f"thumos14_{task}_test_proposal_list.txt",
+            n_videos=1, seed=7)
+    stats = cli.main(["thumos14", "RGB", "--arch", arch, "--synthetic_data",
+                      "--dropout", "0", "-j", "1", "--epochs", "1", "-b", "1",
+                      "--tem", "1", "--num_body_segments", "1",
+                      "--num_aug_segments", "1", "--prop_file_dir",
+                      str(tmp_path), "--device", "cpu"] + flags)
+    assert len(stats.step_ms) == 1 and np.isfinite(stats.best_loss)
+    binary = cli is binary_train
+    ck = load_checkpoint(f"ssn_thumos14_{arch}_rgb"
+                         f"{'_binary' if binary else ''}_checkpoint.pt")
+    model = (BinaryClassifier(num_class=2, base_model=arch) if binary
+             else SSN(num_class=20, base_model=arch))
+    assert set(ck["state_dict"]) == set(model.state_dict())
+    assert ck["arch"] == arch and ck["epoch"] == 1
+
+
 @pytest.mark.parametrize("cli", [ssn_train, binary_train])
 @pytest.mark.parametrize("extra,item", [
     (["RGBDiff"], "The rest of the CLI surface"),
-    (["RGB", "--arch", "resnet50"], "The rest of the CLI surface"),
-    (["RGB", "--arch", "vgg16"], "The rest of the CLI surface"),
     (["RGB", "--gpus", "0", "1"], "Data parallel"),
     (["RGB", "--coordinator_address", "localhost:1234"], "Data parallel"),
     (["RGB", "--num_processes", "2", "--process_id", "0"], "Data parallel"),
