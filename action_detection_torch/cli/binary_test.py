@@ -15,7 +15,9 @@ proposal list with the binary actionness classifier and pickles
 ``{video basename: (ticks, crops, num_class)}`` raw logits for TAG grouping
 (``num_class`` 2 for thumos14, 100 for activitynet1.2). Same flags and
 defaults as the JAX CLI: int8 end to end with the shared stem for
-BNInception and InceptionV3, 10 device crops. The device is explicit
+BNInception and InceptionV3, 10 device crops; ``--int8_mode perlayer``
+(BNInception), RGB, Flow and RGBDiff, and host crops (``--host_crops``, or
+``--test_crops 1``). The device is explicit
 (``--device``, default ``cuda``; with no card a CUDA run raises). What the
 port does not cover yet raises a ``SystemExit`` naming the ROADMAP.md item
 it comes with (``cli/unported.py``).
@@ -49,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "CUDA device with no card is an error")
     parser.add_argument("--frame_interval", type=int, default=5)
     parser.add_argument("--test_batchsize", type=int, default=64,
-                        help="frame ticks per device chunk (10 crops each)")
+                        help="frame ticks per device chunk")
     parser.add_argument("--max_num", type=int, default=-1)
     parser.add_argument("--test_crops", type=int, default=10)
     parser.add_argument("--flow_pref", type=str, default="")
@@ -64,8 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="force the float backbone")
     parser.add_argument("--int8_mode", choices=["e2e", "perlayer"],
                         default="e2e",
-                        help="e2e: int8 activations end to end (the only "
-                             "mode of the port so far)")
+                        help="e2e: int8 activations end to end (default); "
+                             "perlayer: bf16 activations quantized at each "
+                             "conv (BNInception)")
     parser.add_argument("--shared_stem", action="store_true", default=None,
                         help="run the stem once per frame+flip and slice the "
                              "10 crop windows on the stride-8 trunk-input "
@@ -79,8 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="one local device index (multi-device fan-out "
                              "is not in the port yet)")
     parser.add_argument("--host_crops", action="store_true",
-                        help="cut the 10-crop oversample on the host (not "
-                             "in the port yet)")
+                        help="cut the 10-crop oversample on the host instead "
+                             "of on the device (debugging, parity checks)")
     parser.add_argument("--use_reference", action="store_true", default=False,
                         help="score the published ImageNet-init reference "
                              "checkpoint, found in the local model cache "
@@ -100,10 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_slice(args) -> None:
     """Refuse, by name, what the port does not cover yet."""
-    from .unported import CLI_SURFACE, not_yet, refuse_unported_scoring
+    from .unported import refuse_unported_scoring
 
-    if args.host_crops:
-        raise not_yet("--host_crops", CLI_SURFACE, "binary_test")
     refuse_unported_scoring(args, "binary_test")
 
 
@@ -111,18 +112,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_slice(args)
 
-    from ..models.backbones.quantize import (int8_support_error,
-                                             supports_int8,
-                                             supports_shared_stem)
+    from ..models.backbones.quantize import supports_shared_stem
+    from .opts import scoring_int8, scoring_weights
 
-    use_int8 = (args.int8 if args.int8 is not None
-                else supports_int8(args.arch, args.int8_mode))
-    if use_int8 and not supports_int8(args.arch, args.int8_mode):
-        raise SystemExit(int8_support_error(args.arch, args.int8_mode))
-    if args.int8 is None and not use_int8:
-        print(f"int8 off: no int8 path wired for {args.arch}; "
-              "running the float backbone", flush=True)
-    can_share = (use_int8 and args.int8_mode == "e2e"
+    use_int8 = scoring_int8(args)
+    use_device_crops = args.test_crops == 10 and not args.host_crops
+    can_share = (use_device_crops and use_int8 and args.int8_mode == "e2e"
                  and supports_shared_stem(args.arch))
     use_shared = (args.shared_stem if args.shared_stem is not None
                   else can_share)
@@ -130,18 +125,19 @@ def main(argv=None):
         raise SystemExit("--shared_stem requires int8-e2e, 10 device crops, "
                          f"and a wired backbone (got arch={args.arch}, "
                          f"int8={use_int8}/{args.int8_mode}, "
-                         f"crops={args.test_crops})")
+                         f"crops={args.test_crops}, "
+                         f"host_crops={args.host_crops})")
 
     from ..config import get_actionness_configs
     from ..data.binary_dataset import BinaryDataset
     from ..data.pipeline import (DirectoryFrameProvider,
                                  SyntheticFrameProvider,
-                                 collect_calibration_frames)
+                                 collect_calibration_frames, frame_template,
+                                 make_test_transform)
     from ..infer.actionness import ActionnessScorer
     from ..infer.features import resolve_device
     from ..models import BinaryClassifier
     from ..train import load_checkpoint
-    from .opts import scoring_weights
 
     device = resolve_device(args.device)
     if args.devices and device.type == "cuda":
@@ -150,6 +146,11 @@ def main(argv=None):
 
     model = BinaryClassifier(num_class=cfg.num_class, modality=args.modality,
                              base_model=args.arch, dropout=0.0)
+    spec = model.input_spec
+    new_length = model.resolved_new_length
+    # raises on a crop count other than 1 or 10, as the JAX CLI does
+    transform = make_test_transform(spec.input_size, spec.scale_size,
+                                    args.test_crops)
     weights = scoring_weights(args)
     ck = load_checkpoint(weights)
     if "classifier_fc.weight" not in ck["state_dict"]:
@@ -160,8 +161,6 @@ def main(argv=None):
             "classifier_fc head; it looks like an SSN detection model). "
             "Train one with binary_train.py.")
     model.load_state_dict(ck["state_dict"])
-    spec = model.input_spec
-    new_length = model.resolved_new_length
 
     subset_lists = ({"validation": cfg.train_list, "testing": cfg.test_list}
                     if args.dataset == "thumos14" else
@@ -178,27 +177,28 @@ def main(argv=None):
     if args.synthetic_data:
         provider = SyntheticFrameProvider(modality=args.modality)
     else:
-        tmpl = ("img_{:05d}.jpg" if args.modality == "RGB"
-                else args.flow_pref + "{}_{:05d}.jpg")
-        provider = DirectoryFrameProvider(args.data_root, tmpl, args.modality)
+        provider = DirectoryFrameProvider(
+            args.data_root, frame_template(args.modality, args.flow_pref),
+            args.modality)
 
     calibration_frames = None
     if use_int8:
         # None (every video empty) leaves the scorer's lazy first-chunk
         # calibration, which then never runs: nothing is scored
         calibration_frames = collect_calibration_frames(
-            dataset, provider, spec.input_size, spec.scale_size,
-            new_length=new_length)
+            dataset, provider, transform, new_length=new_length)
 
     n = len(dataset.video_list)
     if args.max_num > 0:
         n = min(n, args.max_num)
     results = {}
     t0 = time.time()
-    with ActionnessScorer(model, spec, chunk_frames=args.test_batchsize,
+    with ActionnessScorer(model, spec, test_crops=args.test_crops,
+                          chunk_frames=args.test_batchsize,
                           modality=args.modality, device=device,
                           quantize=args.int8_mode if use_int8 else False,
                           calibration_frames=calibration_frames,
+                          device_crops=use_device_crops,
                           decode_threads=args.workers,
                           shared_stem=use_shared) as scorer:
         for idx in range(n):

@@ -1,5 +1,5 @@
 """The training CLIs' flags (port of ``action_detection_tpu/cli/opts.py``),
-and the scoring CLIs' weights file.
+and the scoring CLIs' weights file and int8 choice.
 
 The JAX CLIs' flags and defaults, plus ``--device``. Flags the port does not
 cover yet are accepted here and refused by name in ``cli/unported.py``.
@@ -24,6 +24,29 @@ def scoring_weights(args) -> str:
         "ImageNet" if args.use_reference else "Kinetics", args.arch)
     print(f"using reference model: {path}", flush=True)
     return path
+
+
+def scoring_int8(args) -> bool:
+    """Whether ``ssn_test``/``binary_test`` score on an int8 backbone, by
+    the JAX CLIs' rule: ``--int8``/``--no_int8`` where given, else int8
+    wherever ``--int8_mode`` is wired for ``--arch``. An int8 mode the arch
+    lacks exits, when asked for by ``--int8`` or by a mode other than the
+    default ``e2e``; a float run without int8 says so."""
+    from ..models.backbones.quantize import int8_support_error, supports_int8
+
+    use_int8 = (args.int8 if args.int8 is not None
+                else supports_int8(args.arch, args.int8_mode))
+    if use_int8 and not supports_int8(args.arch, args.int8_mode):
+        raise SystemExit(int8_support_error(args.arch, args.int8_mode))
+    if args.int8 is None and not use_int8:
+        if args.int8_mode != "e2e":
+            # an explicitly asked quantized mode never runs as float
+            raise SystemExit(
+                int8_support_error(args.arch, args.int8_mode)
+                + "; pass --no_int8 to run the float backbone")
+        print(f"int8 off: no int8 path wired for {args.arch}; "
+              "running the float backbone", flush=True)
+    return use_int8
 
 
 def build_train_parser(description: str) -> argparse.ArgumentParser:

@@ -11,9 +11,12 @@ its place. Every backbone of the JAX registry scores; ResNet and VGG have
 no int8 path and score in float32.
 
 Same flags and defaults logic as the JAX CLI: int8 end to end with the
-shared stem is the default for BNInception and InceptionV3, for RGB and Flow
+shared stem is the default for BNInception and InceptionV3, for RGB, Flow
 (``new_length`` 5: 10-channel x/y stacks, frames read from
-``<flow_pref>{x,y}_NNNNN.jpg``). The device is explicit
+``<flow_pref>{x,y}_NNNNN.jpg``) and RGBDiff (``new_length`` 5: the
+differences of 6 RGB frames, ``img_NNNNN.jpg``); ``--int8_mode perlayer``
+(BNInception) quantizes each conv's bf16 input instead; ``--test_crops 1``
+scores one center crop cut on the host. The device is explicit
 (``--device``, default ``cuda``); with no card, a CUDA run raises instead of
 continuing on the CPU. What the port does not cover yet raises a
 ``SystemExit`` naming the ROADMAP.md item it comes with
@@ -40,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_raw_scores", type=str, default=None)
     parser.add_argument("--frame_interval", type=int, default=6)
     parser.add_argument("--test_batchsize", type=int, default=64,
-                        help="frame ticks per device chunk (10 crops each)")
+                        help="frame ticks per device chunk")
     parser.add_argument("--no_regression", action="store_true", default=False)
     parser.add_argument("--max_num", type=int, default=-1)
     parser.add_argument("--test_crops", type=int, default=10)
@@ -56,8 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="force the float backbone")
     parser.add_argument("--int8_mode", choices=["e2e", "perlayer"],
                         default="e2e",
-                        help="e2e: int8 activations end to end (the only "
-                             "mode of the port so far)")
+                        help="e2e: int8 activations end to end (default); "
+                             "perlayer: bf16 activations quantized at each "
+                             "conv (BNInception)")
     parser.add_argument("--shared_stem", action="store_true", default=None,
                         help="run the stem once per frame+flip and slice the "
                              "10 crop windows on the stride-8 trunk-input "
@@ -105,17 +109,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_slice(args)
 
-    from ..models.backbones.quantize import (int8_support_error,
-                                             supports_int8,
-                                             supports_shared_stem)
+    from ..models.backbones.quantize import supports_shared_stem
+    from .opts import scoring_int8, scoring_weights
 
-    use_int8 = (args.int8 if args.int8 is not None
-                else supports_int8(args.arch, args.int8_mode))
-    if use_int8 and not supports_int8(args.arch, args.int8_mode):
-        raise SystemExit(int8_support_error(args.arch, args.int8_mode))
-    if args.int8 is None and not use_int8:
-        print(f"int8 off: no int8 path wired for {args.arch}; "
-              "running the float backbone", flush=True)
+    use_int8 = scoring_int8(args)
 
     use_shared = (args.shared_stem if args.shared_stem is not None
                   else (use_int8 and args.int8_mode == "e2e"
@@ -132,14 +129,14 @@ def main(argv=None):
     from ..config import get_configs
     from ..data.pipeline import (DirectoryFrameProvider,
                                  SyntheticFrameProvider,
-                                 collect_calibration_frames)
+                                 collect_calibration_frames, frame_template,
+                                 make_test_transform)
     from ..data.ssn_dataset import SSNDataset
     from ..infer.features import resolve_device
     from ..infer.scorer import (ProposalScorer, dump_scores_pickle,
                                 score_videos)
     from ..models import SSN
     from ..train import load_checkpoint
-    from .opts import scoring_weights
 
     device = resolve_device(args.device)
     if args.devices and device.type == "cuda":
@@ -150,6 +147,9 @@ def main(argv=None):
                 base_model=args.arch, dropout=0.0,
                 with_regression=not args.no_regression, stpp_cfg=cfg.stpp)
     spec = model.input_spec
+    # raises on a crop count other than 1 or 10, as the JAX CLI does
+    transform = make_test_transform(spec.input_size, spec.scale_size,
+                                    args.test_crops)
     ck = load_checkpoint(scoring_weights(args))
     model.load_state_dict(ck["state_dict"])
     reg_stats = ck.get("reg_stats")
@@ -163,16 +163,16 @@ def main(argv=None):
     if args.synthetic_data:
         provider = SyntheticFrameProvider(modality=args.modality)
     else:
-        tmpl = ("img_{:05d}.jpg" if args.modality == "RGB"
-                else args.flow_pref + "{}_{:05d}.jpg")
-        provider = DirectoryFrameProvider(args.data_root, tmpl, args.modality)
+        provider = DirectoryFrameProvider(
+            args.data_root, frame_template(args.modality, args.flow_pref),
+            args.modality)
 
     calibration_frames = None
     if use_int8:
         # None (every sampled video empty) falls back to the scorer's lazy
         # first-chunk calibration
         calibration_frames = collect_calibration_frames(
-            dataset, provider, spec.input_size, spec.scale_size,
+            dataset, provider, transform,
             new_length=model.resolved_new_length)
 
     def scorer_factory(dev):

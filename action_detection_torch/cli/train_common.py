@@ -28,14 +28,16 @@ def setup(args, cli: str):
 
 def frame_provider(args):
     """Synthetic frames (``--synthetic_data``) or JPEGs under
-    ``--data_root`` (``img_*`` for RGB, ``<flow_prefix>{x,y}_*`` for Flow)."""
-    from ..data.pipeline import DirectoryFrameProvider, SyntheticFrameProvider
+    ``--data_root`` (``img_*`` for RGB and RGBDiff, ``<flow_prefix>{x,y}_*``
+    for Flow)."""
+    from ..data.pipeline import (DirectoryFrameProvider,
+                                 SyntheticFrameProvider, frame_template)
 
     if args.synthetic_data:
         return SyntheticFrameProvider(modality=args.modality)
-    tmpl = ("img_{:05d}.jpg" if args.modality == "RGB"
-            else args.flow_prefix + "{}_{:05d}.jpg")
-    return DirectoryFrameProvider(args.data_root, tmpl, args.modality)
+    return DirectoryFrameProvider(
+        args.data_root, frame_template(args.modality, args.flow_prefix),
+        args.modality)
 
 
 class RunStats:

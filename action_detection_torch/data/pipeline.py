@@ -23,7 +23,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from .ssn_dataset import SSNDataset
-from .transforms import oversample_crops, scale_frame, stack_images
+from .transforms import (Compose, GroupCenterCrop, GroupOverSample,
+                         GroupScale, scale_frame, stack_images)
 
 
 class DirectoryFrameProvider:
@@ -55,6 +56,15 @@ class DirectoryFrameProvider:
                     directory, self.image_tmpl.format(axis, idx))) as img:
                 out.append(np.asarray(img.convert("L")))
         return out
+
+
+def frame_template(modality: str, flow_prefix: str = "") -> str:
+    """The frame file names of a modality under a video's directory:
+    ``img_NNNNN.jpg`` for RGB and RGBDiff, ``<flow_prefix>{x,y}_NNNNN.jpg``
+    for Flow."""
+    if modality in ("RGB", "RGBDiff"):
+        return "img_{:05d}.jpg"
+    return flow_prefix + "{}_{:05d}.jpg"
 
 
 class SyntheticFrameProvider:
@@ -295,32 +305,53 @@ def iter_scaled_frame_chunks(provider, video_id: str, frame_ticks: np.ndarray,
         yield np.stack([next(arrays) for _ in range(min(batch_ticks, n - lo))])
 
 
-def oversample_tick(provider, video_id: str, tick, frame_cnt: int,
-                    crop_size: int, scale_size: int,
-                    new_length: int = 1) -> np.ndarray:
-    """One tick's 10 oversample crops as ``(10, crop, crop, C_in)`` uint8.
+def make_test_transform(crop_size: int, scale_size: int,
+                        test_crops: int) -> Compose:
+    """The host-crop test transform: scale + center crop at 1 crop, the
+    10-crop oversample at 10; any other count raises, as in the JAX
+    package."""
+    if test_crops == 1:
+        return Compose([GroupScale(scale_size), GroupCenterCrop(crop_size)])
+    if test_crops == 10:
+        return Compose([GroupOverSample(crop_size, scale_size)])
+    raise ValueError(f"unsupported number of crops {test_crops}")
 
-    The ``iter_test_frame_batches`` layout at ``batch_ticks=1`` with the
-    10-crop transform: the crop group is stacked along channels, then split
-    into per-crop stacks of ``C_in`` channels.
+
+def iter_test_frame_batches(provider, video_id: str, frame_ticks: np.ndarray,
+                            frame_cnt: int, transform: Compose,
+                            new_length: int = 1, batch_ticks: int = 32
+                            ) -> Iterator[np.ndarray]:
+    """Yield host-cropped uint8 arrays ``(crops * n_ticks, H, W, C_in)``.
+
+    Crop-major, tick-minor (the transform emits every tick's frames for
+    crop 0, then for crop 0 flipped, ...), the layout the scorers reshape
+    to ``(crops, n_ticks, ...)``. A tick stacks ``frames_per_segment``
+    images (RGBDiff: ``new_length + 1``) of 3 channels, or 2 flow planes
+    each.
     """
-    frames = load_proposal_frames(provider, video_id, [tick], frame_cnt,
-                                  new_length)
-    stacked = stack_images(oversample_crops(frames, crop_size, scale_size))
-    H, W, c_total = stacked.shape
-    c_in = c_total // 10
-    return stacked.reshape(H, W, 10, c_in).transpose(2, 0, 1, 3)
+    n_per_tick = frames_per_segment(provider.modality, new_length)
+    c_in = (2 * n_per_tick if provider.modality == "Flow"
+            else 3 * n_per_tick)
+    for lo in range(0, len(frame_ticks), batch_ticks):
+        frames = load_proposal_frames(provider, video_id,
+                                      frame_ticks[lo: lo + batch_ticks],
+                                      frame_cnt, new_length)
+        stacked = stack_images(transform(frames))
+        H, W, c_total = stacked.shape
+        yield stacked.reshape(H, W, c_total // c_in, c_in) \
+            .transpose(2, 0, 1, 3)
 
 
-def collect_calibration_frames(dataset, provider, crop_size: int,
-                               scale_size: int, new_length: int = 1,
+def collect_calibration_frames(dataset, provider, transform: Compose,
+                               new_length: int = 1,
                                max_videos: int = 8) -> Optional[np.ndarray]:
-    """10-crop oversampled first ticks of up to ``max_videos`` test videos,
-    spread across the list, for int8 calibration.
+    """The first tick of up to ``max_videos`` test videos, spread across
+    the list, through the test ``transform``
+    (:func:`make_test_transform`), for int8 calibration.
 
     Zero-tick videos are skipped and replaced by the next unseen index;
-    returns None when every video is empty. Same selection policy as the
-    JAX package's ``collect_calibration_frames`` with the 10-crop transform.
+    returns None when every video is empty. The JAX package's selection
+    policy.
     """
     n_vids = len(dataset.video_list)
     if n_vids == 0:
@@ -337,9 +368,9 @@ def collect_calibration_frames(dataset, provider, crop_size: int,
         s = dataset.get_test_sample(i)
         if len(s.frame_ticks) == 0:
             continue
-        chunks.append(oversample_tick(provider, s.video_id, s.frame_ticks[0],
-                                      s.num_frames, crop_size, scale_size,
-                                      new_length))
+        chunks.append(next(iter_test_frame_batches(
+            provider, s.video_id, s.frame_ticks, s.num_frames, transform,
+            new_length=new_length, batch_ticks=1)))
     if not chunks:
         return None
     return np.concatenate(chunks, axis=0)

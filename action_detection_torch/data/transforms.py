@@ -7,15 +7,17 @@ Port of ``action_detection_tpu/data/transforms.py`` on uint8 arrays:
   twin of PIL's bilinear resize), :func:`oversample_crops` (the
   ``GroupOverSample`` 10-crop by slicing and flipping, bit-identical to
   PIL's crop + ``FLIP_LEFT_RIGHT``), and the group transforms
-  ``GroupScale``, ``GroupCenterCrop``, ``GroupRandomCrop``,
+  ``GroupScale``, ``GroupCenterCrop``, ``GroupOverSample``,
+  ``GroupRandomCrop``,
   ``GroupRandomHorizontalFlip`` (flow-x planes inverted, ``255 - x``), the
   TSN training crops ``GroupMultiScaleCrop`` and ``GroupRandomSizedCrop``
   (a crop is an array slice, the resize :func:`resize_bilinear`, so they
   equal PIL's ``crop`` + ``resize(BILINEAR)`` bit for bit) and ``Compose``,
   with the reference's ``RandomState`` draws in the reference's order;
   :func:`get_train_augmentation` per modality.
-* **Device**: normalization, the 10-crop oversample of normalized frames and
-  the flip-source pair of the shared-stem path, on torch tensors of any
+* **Device**: normalization, RGBDiff's frame differences
+  (:func:`rgb_diff`), the 10-crop oversample of normalized frames and the
+  flip-source pair of the shared-stem path, on torch tensors of any
   device. Layout stays NHWC, as in the JAX package.
 """
 
@@ -187,6 +189,18 @@ class GroupCenterCrop:
         return out
 
 
+class GroupOverSample:
+    """The 10-crop test oversample (:func:`oversample_crops`) as a group
+    transform."""
+
+    def __init__(self, crop_size: int, scale_size: Optional[int] = None):
+        self.crop_size = crop_size
+        self.scale_size = scale_size
+
+    def __call__(self, img_group, rng=None):
+        return oversample_crops(img_group, self.crop_size, self.scale_size)
+
+
 class GroupRandomHorizontalFlip:
     """Flip the whole group with p=0.5; invert flow-x images when flipping."""
 
@@ -308,23 +322,26 @@ class Compose:
     def __init__(self, transforms):
         self.transforms = list(transforms)
 
-    def __call__(self, img_group, rng: np.random.RandomState):
+    def __call__(self, img_group,
+                 rng: Optional[np.random.RandomState] = None):
         for t in self.transforms:
             img_group = t(img_group, rng)
         return img_group
 
 
 def get_train_augmentation(input_size: int, modality: str) -> Compose:
-    """The reference's training augmentation for RGB and Flow (multi-scale
-    crop + random flip; Flow inverts its x planes on a flip)."""
+    """The reference's per-modality training augmentation (multi-scale crop
+    + random flip; Flow inverts its x planes on a flip)."""
     if modality == "RGB":
         return Compose([GroupMultiScaleCrop(input_size, [1, 0.875, 0.75, 0.66]),
                         GroupRandomHorizontalFlip(is_flow=False)])
     if modality == "Flow":
         return Compose([GroupMultiScaleCrop(input_size, [1, 0.875, 0.75]),
                         GroupRandomHorizontalFlip(is_flow=True)])
-    raise ValueError(f"modality {modality!r} is not in the port (RGBDiff "
-                     "comes with a later slice)")
+    if modality == "RGBDiff":
+        return Compose([GroupMultiScaleCrop(input_size, [1, 0.875, 0.75]),
+                        GroupRandomHorizontalFlip(is_flow=False)])
+    raise ValueError(f"unknown modality {modality}")
 
 
 def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,
@@ -355,22 +372,43 @@ def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,
 def preprocess_frames(frames: torch.Tensor, spec, modality: str = "RGB",
                       new_length: int = 1,
                       dtype: torch.dtype = None) -> torch.Tensor:
-    """Device-side preprocessing (NHWC): normalize with the backbone's
-    input statistics. RGBDiff's frame differences come with a later slice."""
+    """Device-side preprocessing (NHWC) for any modality.
+
+    RGB/Flow: normalize with the backbone's input statistics. RGBDiff: the
+    BGR roll with no mean/std, then the consecutive-frame differences
+    (:func:`rgb_diff`; the reference trains RGBDiff with an identity
+    normalization), ``3 * (new_length + 1)`` channels in, ``3 *
+    new_length`` out."""
     if modality == "RGBDiff":
-        raise ValueError("RGBDiff is not in the port yet (Flow/RGBDiff slice)")
+        x = normalize_stack(frames, (0.0,), (1.0,), bgr=spec.bgr,
+                            div255=spec.div255, channels_per_image=3,
+                            dtype=dtype)
+        return rgb_diff(x, new_length)
     channels = 1 if modality == "Flow" else 3
     return normalize_stack(frames, spec.mean, spec.std, bgr=spec.bgr,
                            div255=spec.div255, channels_per_image=channels,
                            dtype=dtype)
 
 
+def rgb_diff(frames: torch.Tensor, new_length: int) -> torch.Tensor:
+    """Consecutive-frame differences: ``(..., H, W, 3 * (new_length + 1))``
+    stacked frames -> ``(..., H, W, 3 * new_length)``."""
+    shape = tuple(frames.shape)
+    n_frames = shape[-1] // 3
+    if n_frames != new_length + 1:
+        raise ValueError(f"rgb_diff: {n_frames} frames in the stack, "
+                         f"new_length {new_length} needs {new_length + 1}")
+    x = frames.reshape(shape[:-1] + (n_frames, 3))
+    diffs = x[..., 1:, :] - x[..., :-1, :]
+    return diffs.reshape(shape[:-1] + (3 * new_length,))
+
+
 def device_normed_pair(frames: torch.Tensor, spec, modality: str = "RGB",
                        new_length: int = 1, dtype: torch.dtype = None):
     """Normalized frames + the flip SOURCE tensor.
 
-    ``flip_src`` equals ``xn`` except for Flow, whose flow-x planes are
-    inverted on flip: the inverted planes are normalized from
+    ``flip_src`` equals ``xn`` (RGBDiff: the difference tensor, never
+    inverted) except for Flow, whose flow-x planes are inverted on flip: the inverted planes are normalized from
     ``255 - frames`` directly, which is elementwise and bit-identical to the
     host path's invert-then-normalize.
     """

@@ -1,13 +1,18 @@
-"""The feature step the two scorers share: uint8 scale-size frames on the
-device -> per-crop backbone features of the 10-crop oversample.
+"""The feature step the two scorers share: uint8 frames on the device ->
+per-crop backbone features.
 
-:class:`CropFeatureScorer` holds the backbone (float, or int8 end to end
-after calibration), the shared-stem choice and the host decode pool.
-:class:`~.scorer.ProposalScorer` (SSN proposal scoring) means the features
-over the crops before its fused FC; :class:`~.actionness.ActionnessScorer`
-(dense actionness for TAG) keeps every crop's score. Constructing either
-turns TF32 off for cuDNN and matmuls, for parity with the JAX package's
-float32 convs and ``Precision.HIGHEST`` heads.
+:class:`CropFeatureScorer` holds the backbone (float, int8-e2e after
+calibration, or per-layer int8), the crop path, the shared-stem choice and
+the host decode pool. Two crop paths, as in the JAX package: 10 device
+crops (the default: the host ships one scale-size frame a tick and the
+oversample is cut on the device), or host crops (``test_crops`` 1, or 10
+with ``device_crops=False``: the host cuts them through
+``make_test_transform``). :class:`~.scorer.ProposalScorer` (SSN proposal
+scoring) means the features over the crops before its fused FC;
+:class:`~.actionness.ActionnessScorer` (dense actionness for TAG) keeps
+every crop's score. Constructing either turns TF32 off for cuDNN and
+matmuls, for parity with the JAX package's float32 convs and
+``Precision.HIGHEST`` heads.
 """
 
 from __future__ import annotations
@@ -17,11 +22,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.pipeline import make_decode_pool
+from ..data.pipeline import (iter_scaled_frame_chunks,
+                             iter_test_frame_batches, make_decode_pool,
+                             make_test_transform)
 from ..data.transforms import (device_normed_pair, device_oversample_normed,
                                preprocess_frames)
 from ..models.backbones import InputSpec
-from ..models.backbones.bn_inception_int8 import tree_to
+from ..models.backbones.bn_inception_int8 import (bninception_int8_features,
+                                                  calibrate_activation_scales,
+                                                  quantize_backbone, tree_to)
 from ..models.backbones.quantize import (calibrate_e2e_backbone,
                                          int8_e2e_features,
                                          int8_e2e_features_sharedstem,
@@ -41,14 +50,16 @@ def resolve_device(device) -> torch.device:
 
 
 class CropFeatureScorer:
-    """Backbone features of 10 device crops per frame, float or int8-e2e.
+    """Backbone features of each crop of each frame, float or int8.
 
     ``model`` is an ``SSN`` or a ``BinaryClassifier`` (``arch``,
-    ``base_model``, ``features``, ``resolved_new_length``). With
-    ``quantize="e2e"`` the backbone calibrates on ``calibration_frames``
-    (crop-shaped or scale-size uint8 frames), on a sibling scorer's
-    ``export_quantized()`` (``prequantized``), or else on the first scored
-    chunk.
+    ``base_model``, ``features``, ``resolved_new_length``). ``quantize``:
+    False (float), ``"e2e"`` (or True) or ``"perlayer"``. The e2e backbone
+    calibrates on ``calibration_frames`` (crop-shaped or scale-size uint8
+    frames), on a sibling scorer's ``export_quantized()``
+    (``prequantized``), or else on the first scored chunk; the per-layer
+    one takes static scales from ``calibration_frames``, or dynamic scales
+    without them.
     """
 
     def __init__(self, model, input_spec: InputSpec, test_crops: int = 10,
@@ -72,23 +83,25 @@ class CropFeatureScorer:
         if device_crops is None:
             device_crops = test_crops == 10
         self.device_crops = device_crops and test_crops == 10
-        if not self.device_crops:
-            raise ValueError("the port scores with 10 device crops only; the "
-                             "host-crop path (test_crops != 10) comes in a "
-                             "later slice")
-        self._decode_pool = make_decode_pool(decode_threads)
+        # the host-crop path's transform; an unsupported crop count raises
+        self._transform = (None if self.device_crops else
+                           make_test_transform(input_spec.input_size,
+                                               input_spec.scale_size,
+                                               test_crops))
+        self._decode_pool = (make_decode_pool(decode_threads)
+                             if self.device_crops else None)
 
-        can_share = supports_shared_stem(self.arch)
+        can_share = self.device_crops and supports_shared_stem(self.arch)
         self.shared_stem = bool(shared_stem) and can_share
         if shared_stem and not can_share:
             raise ValueError(
                 "shared_stem requires device 10-crop oversampling and a "
-                f"supported backbone (got {self.arch!r})")
+                f"supported backbone (got {self.arch!r}, "
+                f"device_crops={self.device_crops})")
         self._quantize_mode = ({False: None, None: None, True: "e2e"}
                                .get(quantize, quantize))
-        if self._quantize_mode not in (None, "e2e"):
-            raise ValueError(f"quantize mode {quantize!r} is not in the port "
-                             "yet (only 'e2e')")
+        if self._quantize_mode not in (None, "e2e", "perlayer"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         if self.shared_stem and self._quantize_mode != "e2e":
             raise ValueError("shared_stem is only wired for the int8-e2e "
                              f"backbone (quantize={quantize!r})")
@@ -96,30 +109,46 @@ class CropFeatureScorer:
             raise ValueError("prequantized requires quantize to be set")
 
         self._quantized = None
+        self._act_scales = None
         self._qp = None
         if self._quantize_mode:
             if not supports_int8(self.arch, self._quantize_mode):
                 raise ValueError(int8_support_error(self.arch,
                                                     self._quantize_mode))
+            calib = (None if calibration_frames is None else
+                     torch.as_tensor(np.asarray(calibration_frames),
+                                     device=self.device))
             if prequantized is not None:
                 # a sibling scorer's export_quantized(): calibration ran once
-                self._quantized = tree_to(prequantized, self.device)
+                q, scales = prequantized
+                self._quantized = tree_to(q, self.device)
+                if scales is not None:
+                    self._act_scales = tree_to(scales, self.device)
+            elif self._quantize_mode == "perlayer":
+                self._quantized = tree_to(quantize_backbone(
+                    model.base_model.state_dict()), self.device)
+                if calib is not None:
+                    with torch.no_grad():
+                        sample = self._prep_calibration(calib)
+                    self._act_scales = calibrate_activation_scales(
+                        self._quantized, sample)
             else:
                 # the float backbone only feeds calibration (host copy)
                 self._qp = {k: v.detach().cpu() for k, v in
                             model.base_model.state_dict().items()}
-                if calibration_frames is not None:
-                    self._calibrate(torch.as_tensor(
-                        np.asarray(calibration_frames), device=self.device))
+                if calib is not None:
+                    self._calibrate(calib)
         else:
             self.model.to(self.device)
 
     def export_quantized(self):
-        """The quantized tree (CPU tensors) for a sibling scorer's
-        ``prequantized=``, or None before calibration has run."""
+        """``(quantized tree, act_scales or None)`` on the CPU for a sibling
+        scorer's ``prequantized=``, or None before calibration has run."""
         if self._quantized is None:
             return None
-        return tree_to(self._quantized, "cpu")
+        scales = (None if self._act_scales is None
+                  else tree_to(self._act_scales, "cpu"))
+        return tree_to(self._quantized, "cpu"), scales
 
     @property
     def needs_lazy_calibration(self) -> bool:
@@ -149,8 +178,9 @@ class CropFeatureScorer:
         """Normalized CROP-shaped frames for quantization calibration.
 
         Scale-size inputs give the first crop offset's normal+flip groups;
-        crop-shaped inputs pass through; an oversized dim of a smaller frame
-        is center-cropped (see the JAX package's ``_prep_calibration``).
+        crop-shaped inputs (the host-crop path's) pass through; an oversized
+        dim of a smaller frame is center-cropped (see the JAX package's
+        ``_prep_calibration``).
         """
         cs = self.input_spec.input_size
         H, W = frames.shape[1], frames.shape[2]
@@ -167,10 +197,28 @@ class CropFeatureScorer:
         return preprocess_frames(frames, self.input_spec, self.modality,
                                  self.new_length)
 
+    def _frame_chunks(self, sample, provider):
+        """One video's uint8 chunks and the crops each tick brings:
+        ``(n_ticks, H_scale, W_scale, C)`` scale-size frames and 1 on the
+        device-crop path, crop-major ``(test_crops * n_ticks, crop, crop,
+        C)`` host crops and ``test_crops`` on the host-crop path."""
+        if self.device_crops:
+            return iter_scaled_frame_chunks(
+                provider, sample.video_id, sample.frame_ticks,
+                sample.num_frames, self.input_spec.scale_size,
+                new_length=self.new_length, batch_ticks=self.chunk_frames,
+                executor=self._decode_pool), 1
+        return iter_test_frame_batches(
+            provider, sample.video_id, sample.frame_ticks, sample.num_frames,
+            self._transform, new_length=self.new_length,
+            batch_ticks=self.chunk_frames), self.test_crops
+
     def _crop_features(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """``(N, H_scale, W_scale, C)`` uint8 frames on the device ->
-        ``(10 * N, D)`` features, crop-major ([o0, o0-flip, o1, ...] blocks
-        of N), calibrating first where the int8 backbone still needs it."""
+        """uint8 frames on the device -> ``(test_crops * N, D)`` features,
+        crop-major ([o0, o0-flip, o1, ...] blocks of N ticks), calibrating
+        first where the int8-e2e backbone still needs it. ``frames_u8`` is
+        ``(N, H_scale, W_scale, C)`` with device crops, else the host crops
+        ``(test_crops * N, crop, crop, C)``."""
         if self.needs_lazy_calibration:
             self._calibrate(frames_u8)
         qe = self._quantized
@@ -181,8 +229,14 @@ class CropFeatureScorer:
                     self.new_length)
                 return int8_e2e_features_sharedstem(
                     self.arch, qe, xn, flip_src, self.input_spec.input_size)
-            x = device_oversample_normed(frames_u8, self.input_spec,
-                                         self.modality, self.new_length)
+            if self.device_crops:
+                x = device_oversample_normed(frames_u8, self.input_spec,
+                                             self.modality, self.new_length)
+            else:
+                x = preprocess_frames(frames_u8, self.input_spec,
+                                      self.modality, self.new_length)
+            if self._quantize_mode == "perlayer":
+                return bninception_int8_features(qe, x, self._act_scales)
             if qe is not None:
                 return int8_e2e_features(self.arch, qe, x)
             return self.model.features(x)

@@ -3,17 +3,18 @@
 
 * The CNN runs once per sampled frame; every proposal is scored by pooling
   the shared per-frame score matrix (linear-head commutation).
-* The host only decodes and rescales frames (in parallel); normalization,
-  the 10-crop oversample and the crop mean run on the device. With the
-  shared stem (the int8-e2e default) the stem runs once per frame and its
-  flip, and the 10 crop windows are cut from its output.
+* With 10 device crops (the default) the host only decodes and rescales
+  frames (in parallel); normalization, the oversample and the crop mean
+  run on the device. With the shared stem (the int8-e2e default) the stem
+  runs once per frame and its flip, and the 10 crop windows are cut from
+  its output. ``test_crops=1`` (or ``device_crops=False``) cuts the crops
+  on the host (``infer/features.py``).
 * Frame chunks are padded to a fixed tick count, as in the JAX package.
 * Proposal pooling is the cumsum-gather STPP on the device
   (``ops/stpp.py``), with part bounds from the host.
 
-This slice scores on one device, with 10 device crops. Cross-video packing
-(``--pack``), the host-crop path (``test_crops=1``) and the multi-device
-fan-out come in later slices.
+This port scores on one device. Cross-video packing (``--pack``) and the
+multi-device fan-out come in later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from ..data.pipeline import iter_scaled_frame_chunks, pad_chunk_ticks
+from ..data.pipeline import pad_chunk_ticks
 from ..data.ssn_dataset import SSNDataset, TestSample
 from ..models.backbones import InputSpec
 from ..models.ssn import SSN, fuse_test_heads
@@ -102,8 +103,9 @@ class ProposalScorer(CropFeatureScorer):
 
     def _score_chunk(self, frames_u8: torch.Tensor,
                      n_stacks: int) -> torch.Tensor:
-        """``(n_stacks, H_scale, W_scale, C)`` uint8 frames on the device ->
-        ``(n_stacks, D)`` crop-mean fused scores.
+        """uint8 frames on the device (``(n_stacks, H_scale, W_scale, C)``,
+        or ``test_crops * n_stacks`` host crops) -> ``(n_stacks, D)``
+        crop-mean fused scores.
 
         Crops are mean-reduced on *features* before the fused FC — identical
         by linearity.
@@ -135,16 +137,13 @@ class ProposalScorer(CropFeatureScorer):
         regression."""
         if len(sample.frame_ticks) == 0:
             return self._empty_scored(sample, keep_raw=keep_raw)
-        chunks = iter_scaled_frame_chunks(
-            provider, sample.video_id, sample.frame_ticks, sample.num_frames,
-            self.input_spec.scale_size, new_length=self.new_length,
-            batch_ticks=self.chunk_frames, executor=self._decode_pool)
+        chunks, host_crops = self._frame_chunks(sample, provider)
         T = len(sample.frame_ticks)
         out_chunks = []
         filled = 0
         for chunk in chunks:
-            n_real = chunk.shape[0]
-            chunk = pad_chunk_ticks(chunk, 1, self.chunk_frames)
+            n_real = chunk.shape[0] // host_crops
+            chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
             frames = torch.from_numpy(chunk).to(self.device)
             out_chunks.append(self._score_chunk(frames, self.chunk_frames))
             filled += n_real

@@ -1,7 +1,7 @@
-"""Int8 end-to-end BNInception for scoring (torch port).
+"""Int8 BNInception for scoring (torch port).
 
-Port of ``action_detection_tpu/models/backbones/bn_inception_int8.py``, the
-scoring path's deployed default:
+Port of ``action_detection_tpu/models/backbones/bn_inception_int8.py``, its
+two int8 modes:
 
 * **Host scale algebra** (numpy, copied): :func:`fold_bn`,
   :func:`quantize_backbone`, :func:`quantize_backbone_e2e`, ``_ScaleOps``
@@ -12,20 +12,25 @@ scoring path's deployed default:
 * **One topology walk** (:func:`_walk_stem`, :func:`_walk_trunk`, copied)
   interpreted by several ops faces, so branch order and pool choices are
   written once.
-* **Runtime faces on torch tensors**: ``_StemBf16Ops`` (the hybrid stem in
-  bf16 on cuDNN, quantized once at its output) and ``_E2EOps`` (int8
-  activations end to end through the hand-written kernels K1-K3 of
-  ``kernels/int8.py``, with the fused branch-entry conv).
-* **Calibration faces**: ``_PerLayerOps`` (dynamic per-tensor scales, bf16
-  activations, int8 convs through K1's bf16 epilogue) and
-  :func:`calibrate_e2e`.
-
-The port keeps only the hybrid stem (bf16 stem, one quantization at its
-output), which is the only stem the JAX package's defaults reach.
+* **e2e, the scoring default**: ``_StemBf16Ops`` (the hybrid stem in bf16
+  on cuDNN, quantized once at its output) and ``_E2EOps`` (int8 activations
+  end to end through the hand-written kernels K1-K3 of ``kernels/int8.py``,
+  with the fused branch-entry conv); calibrated by :func:`calibrate_e2e`.
+  The port keeps only this hybrid stem, the only e2e stem the JAX
+  package's defaults reach.
+* **perlayer** (``--int8_mode perlayer``): ``_PerLayerOps``, bf16
+  activations and every conv, the stem's included, in int8 through K1's
+  bf16 dequantizing epilogue after a per-tensor activation quantize
+  (dynamic ``max|x|/127``, or static scales from
+  :func:`calibrate_activation_scales`); bf16 Caffe-ceil max pools and
+  include-pad avg pools as torch ops (:func:`bninception_int8_features`).
+  The same face, with dynamic scales and output maxes recorded, is the
+  e2e calibration pass.
 
 Runtime trees hold torch tensors: conv weights ``wq`` repacked to
-``(O, KH, KW, C)`` int8 for K1, ``m``/``bq`` float32, the stem's folded
-kernels bf16 OIHW (see :func:`tensor_tree`).
+``(O, KH, KW, C)`` int8 for K1 (the per-layer tree's stem conv padded with
+zero channels to a multiple of 16, K1's 16-byte rule), ``m``/``bq``
+float32, the stem's folded kernels bf16 OIHW (see :func:`tensor_tree`).
 """
 
 from __future__ import annotations
@@ -84,7 +89,10 @@ def fold_bn(state_dict: Mapping[str, Any], eps: float = 1e-5) -> dict:
 def quantize_backbone(state_dict: Mapping[str, Any],
                       folded: dict = None) -> QuantizedParams:
     """BN-fold then per-output-channel int8-quantize every conv (the
-    calibration pass's per-layer tree)."""
+    per-layer tree). A conv whose input channels are not a multiple of 16
+    (the stem conv: 3, 10 or 15) gets zero weight channels up to the next
+    one; its input is quantized into as many channels, the extra ones
+    zero, so the s32 sums are the unpadded conv's."""
     folded = folded if folded is not None else fold_bn(state_dict)
     q: QuantizedParams = {}
     for name, leaf in folded.items():
@@ -92,6 +100,7 @@ def quantize_backbone(state_dict: Mapping[str, Any],
         sw = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0        # (O,)
         sw = np.where(sw == 0, 1.0, sw)
         wq = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
+        wq = np.pad(wq, ((0, 0), (0, 0), (0, -wq.shape[2] % 16), (0, 0)))
         q[name] = {"wq": _pack_wq(wq),
                    "sw": torch.from_numpy(np.asarray(sw, np.float32)),
                    "bias": torch.from_numpy(np.asarray(leaf["bias"],
@@ -403,29 +412,57 @@ def bninception_int8_e2e_features_sharedstem(
 
 
 # ---------------------------------------------------------------------------
-# Calibration
+# perlayer: bf16 activations, int8 convs (runtime and calibration)
 # ---------------------------------------------------------------------------
 
 
-class _PerLayerOps(_EntryDefault):
-    """bf16 NHWC activations, per-layer int8 convs with dynamic scales.
+def _quantize_input(x: torch.Tensor, sx: torch.Tensor,
+                    channels: int) -> torch.Tensor:
+    """``clip(round(x / sx), -127, 127)`` as int8, in ``channels >=
+    x.shape[-1]`` channels whose extra ones are zero (the padded stem
+    conv's input)."""
+    xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    if channels == x.shape[-1]:
+        return xq
+    out = torch.zeros(x.shape[:-1] + (channels,), dtype=torch.int8,
+                      device=x.device)
+    out[..., :x.shape[-1]] = xq
+    return out
 
-    The calibration face: each conv quantizes its input with a per-tensor
-    scale ``max|x|/127`` and runs K1 with the bf16 epilogue
-    ``bf16(max(y*(sx*sw) + b, 0))``; ``output_maxes`` records each conv's
-    post-ReLU max.
+
+class _PerLayerOps(_EntryDefault):
+    """bf16 NHWC activations, per-layer int8 convs.
+
+    Each conv quantizes its input with a per-tensor scale, static
+    (``act_scales[name]``) or dynamic (``max|x|/127``), and runs K1 with the
+    bf16 epilogue ``bf16(max(y*(sx*sw) + b, 0))``. ``input_maxes`` /
+    ``output_maxes``, when given, record each conv's input |max| (the
+    per-layer static-scale calibration) / post-ReLU output max (the e2e
+    calibration).
     """
 
-    def __init__(self, q: QuantizedParams,
+    def __init__(self, q: QuantizedParams, act_scales: Dict[str, Any] = None,
+                 input_maxes: Dict[str, Any] = None,
                  output_maxes: Dict[str, Any] = None):
         self.q = q
+        self.s = act_scales or {}
+        self.input_maxes = input_maxes
         self.output_maxes = output_maxes
+
+    def quantize(self, x, name):
+        """Conv ``name``'s int8 input and its scale ``sx``."""
+        sx = self.s.get(name)
+        if sx is None or self.input_maxes is not None:
+            m = x.abs().amax().float()
+            if self.input_maxes is not None:
+                self.input_maxes[name] = m
+            if sx is None:
+                sx = torch.clamp_min(m / 127.0, 1e-8)
+        return _quantize_input(x, sx, self.q[name]["wq"].shape[-1]), sx
 
     def conv(self, x, name, stride=1, pad=0):
         layer = self.q[name]
-        sx = torch.clamp_min(x.abs().amax().float() / 127.0, 1e-8)
-        xq = torch.clamp(torch.round(x.float() / sx), -127, 127) \
-            .to(torch.int8)
+        xq, sx = self.quantize(x, name)
         out = int8_conv(xq, layer["wq"], sx * layer["sw"], layer["bias"],
                         stride=stride, pad=pad, out_dtype=torch.bfloat16)
         if self.output_maxes is not None:
@@ -444,6 +481,46 @@ class _PerLayerOps(_EntryDefault):
         return torch.cat(parts, dim=-1)
 
 
+def bninception_int8_features(q: QuantizedParams, x: torch.Tensor,
+                              act_scales: Dict[str, Any] = None
+                              ) -> torch.Tensor:
+    """(N, H, W, C) normalized frames -> (N, 1024) features, every conv in
+    int8 (``--int8_mode perlayer``). ``act_scales``: optional static
+    per-layer scales from :func:`calibrate_activation_scales`; without,
+    each conv takes its input's dynamic scale. The global mean is taken in
+    float32 and rounded to bf16, as ``jnp.mean`` of a bf16 tensor is."""
+    ops = _PerLayerOps(q, act_scales=act_scales)
+    h = _walk_trunk(ops, _walk_stem(ops, x.to(torch.bfloat16)))
+    return h.float().mean(dim=(1, 2)).to(torch.bfloat16).float()
+
+
+def _calibration_maxes(q: QuantizedParams,
+                       sample_frames: torch.Tensor) -> Dict[str, Any]:
+    """The dynamic-scale per-layer forward, recording each conv input's
+    |max| (device scalars)."""
+    maxes: Dict[str, Any] = {}
+    ops = _PerLayerOps(q, input_maxes=maxes)
+    _walk_trunk(ops, _walk_stem(ops, sample_frames.to(torch.bfloat16)))
+    return maxes
+
+
+def calibrate_activation_scales(q: QuantizedParams,
+                                sample_frames: torch.Tensor
+                                ) -> Dict[str, torch.Tensor]:
+    """One calibration pass over representative NORMALIZED frames ->
+    ``{conv: float32 scale}`` to pass as ``act_scales``: ``max(m, 1e-8) /
+    127`` of each conv input's max ``m``, in float64 then rounded to
+    float32, as the JAX package computes it. One host transfer; the scales
+    come back on the frames' device."""
+    with torch.no_grad():
+        maxes = _calibration_maxes(q, sample_frames)
+    names = list(maxes)
+    values = torch.stack([maxes[n] for n in names]).cpu().tolist()
+    return {n: torch.tensor(max(m, 1e-8) / 127.0, dtype=torch.float32,
+                            device=sample_frames.device)
+            for n, m in zip(names, values)}
+
+
 def _avg_pool_bf16(x: torch.Tensor, kernel: int, stride: int,
                    pad: int) -> torch.Tensor:
     """Count-include-pad average pool of a bf16 NHWC tensor with the JAX
@@ -460,6 +537,11 @@ def _avg_pool_bf16(x: torch.Tensor, kernel: int, stride: int,
             acc = acc + xp[:, ky:ky + stride * (Ho - 1) + 1:stride,
                            kx:kx + stride * (Wo - 1) + 1:stride, :]
     return acc / float(kernel * kernel)
+
+
+# ---------------------------------------------------------------------------
+# e2e calibration
+# ---------------------------------------------------------------------------
 
 
 def _e2e_output_maxes(q: QuantizedParams, x: torch.Tensor,

@@ -1,9 +1,12 @@
 """Backbone-agnostic entry points for int8 quantized scoring (torch port of
 ``action_detection_tpu/models/backbones/quantize.py``).
 
-Mode ``e2e`` — int8 activations end to end — is the only int8 mode of the
-port, for BNInception and InceptionV3. The JAX package's ``perlayer`` mode
-(BNInception only) comes in a later slice.
+Modes, as in the JAX package:
+
+* ``e2e``      — int8 activations end to end (the default), BNInception and
+                 InceptionV3;
+* ``perlayer`` — bf16 activations quantized per tensor at each conv
+                 (BNInception only; kept for comparison).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Any, Dict
 import torch
 
 _INT8_MODES = {
-    "BNInception": ("e2e",),
+    "BNInception": ("e2e", "perlayer"),
     "InceptionV3": ("e2e",),
 }
 
@@ -24,8 +27,7 @@ def supports_int8(arch: str, mode: str = "e2e") -> bool:
 
 def int8_support_error(arch: str, mode: str = "e2e") -> str:
     return (f"int8 mode {mode!r} is not available for backbone {arch!r} "
-            f"in the port yet (supported: "
-            f"{ {a: list(m) for a, m in _INT8_MODES.items()} })")
+            f"(supported: { {a: list(m) for a, m in _INT8_MODES.items()} })")
 
 
 def calibrate_e2e_backbone(arch: str, state_dict, sample_frames: torch.Tensor

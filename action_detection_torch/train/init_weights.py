@@ -14,8 +14,9 @@ backbone does not have, such as an ImageNet dump's ``fc.*`` or VGG's
 ``classifier.6.*``, are left out) or a JAX ``checkpoint.msgpack`` (its
 ``backbone`` trees, ``models/convert.py:state_dict_from_jax``); the format
 is read from the file's first bytes. A first conv whose input channels
-differ (an RGB backbone into a Flow model) is converted by
-``cross_modality_init``. Every backbone weight must be in the file.
+differ (an RGB backbone into a Flow or an RGBDiff model: 10 or 15
+channels) is converted by ``cross_modality_init``. Every backbone weight
+must be in the file.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ before the final line):
               shapes (640 crops; K2 at 3c, 4e and 5b); K1 with per-axis
               pads (5x5, 1x7, 7x1, 1x3, VALID 3x3 s2, a fused entry conv
               and a conv on its channel slice), K2 without padding and K3's
-              exclude-pad mode at InceptionV3's 640-crop shapes; K1 at tile
+              exclude-pad mode at InceptionV3's 640-crop shapes; K1's bf16
+              epilogue at the per-layer (``--int8_mode perlayer``) shapes:
+              the 7x7 s2 stem conv on 16 channels of which 3 carry pixels,
+              conv2_3x3 and two unfused 1x1s; K1 at tile
               tails (rows, columns and depth not multiples of the tile) and
               K2 at grids no tile divides, with signed inputs (K2's with
               -128 and all-negative windows at the padded edges); and A1
@@ -47,7 +50,15 @@ before the final line):
               (THUMOS14, 224^2), InceptionV3 RGB (ActivityNet v1.2, K=100,
               340x256 frames resized to 452x341 on the host, 299^2 crops;
               K3 in its exclude-pad mode) and BNInception Flow (THUMOS14,
-              new_length 5: 10-channel stacks); and SSN training steps at
+              new_length 5: 10-channel stacks); then the rest of the
+              scoring CLI surface (``run_scoring_surface``): ``ssn_test
+              --int8_mode perlayer`` (K1 alone: its pools are bf16 torch
+              ops, so K2 and K3 must not launch), ``ssn_test`` RGBDiff (the
+              shared-stem default on 15-channel differences of 6 frames),
+              ``ssn_test --test_crops 1`` (host center crops, int8-e2e per
+              crop) and ``binary_test --host_crops`` (10 host crops), each
+              a path of its own that must launch K1-K3 (perlayer: K1); and
+              SSN training steps at
               full width (BNInception 224^2, 16 videos x 8 proposals x 9
               segments = 1,152 images per step, frozen BN, dropout 0.8)
               through ``make_train_step``. Each score pickle is checked for
@@ -83,7 +94,9 @@ before the final line):
               epoch under the profiler (LR decayed at epoch 1); the port's
               ``ssn_test`` on the trained checkpoint; ``--iter_size 2``;
               ``--bf16`` (every A1 launch in bf16); Flow from the RGB
-              checkpoint (``--init_weights``); the largest InceptionV3 -b
+              checkpoint (``--init_weights``); RGBDiff from it (-b 4, 2
+              steps) with ``ssn_test`` RGBDiff on its checkpoint (1 video);
+              the largest InceptionV3 -b
               with and without ``--remat`` (``train_memory``), then
               ``ssn_train activitynet1.2 RGB --arch InceptionV3``;
               ``binary_train`` (-b 4, 240 images) with ``binary_test`` on
@@ -93,15 +106,20 @@ before the final line):
               float32 and ``--bf16``. Each run prints its CLI wall time, median
               step time (CUDA events, steps 2 on), images/s, host
               batch-assembly seconds a step, peak memory and A1 launches.
-5. checks   — for BNInception and InceptionV3: the int8 trunk held
-              bit-exact against the plain kernels on the CPU, the int8
-              features against the float backbone (cos > 0.99, rel <
-              0.12); a small train step on the card against the same step
-              on the CPU; the host's decode + resize time of a 64-tick
-              InceptionV3 chunk; and the steady-state times of one 640-crop
-              scoring step (BNInception int8 and float, InceptionV3 int8 and
-              float, BNInception and InceptionV3 Flow) and of one training
-              step.
+5. checks   — for BNInception (RGB and RGBDiff) and InceptionV3: the
+              int8-e2e trunk held bit-exact against the plain kernels on
+              the CPU, the int8 features against the float backbone (cos >
+              0.99, rel < 0.12); for ``--int8_mode perlayer`` (BNInception
+              RGB, static scales): its activations on the card bit-exact
+              against the plain kernels on the CPU at 4 crops, its features
+              within one bf16 ulp there and against the float backbone at
+              20 crops (cos > 0.99, rel < 0.12); a small train step on the
+              card against the same step on the CPU; the host's decode +
+              resize time of a 64-tick InceptionV3 chunk; and the
+              steady-state times of one 640-crop scoring step (BNInception
+              int8-e2e, perlayer and float, InceptionV3 int8 and float,
+              BNInception RGBDiff, BNInception and InceptionV3 Flow) and
+              of one training step.
 
 ``python3 chip_smoke.py --kernels-of CHECKOUT`` runs phase 3 alone on the
 kernels of another checkout (e.g. a ``git archive`` of an earlier commit),
@@ -109,9 +127,11 @@ so two versions' kernels are timed by the same method on one card.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler phase: the
 per-kernel device time and the device busy share of the scoring steps
-(BNInception, InceptionV3, Flow), a training step and the whole ``ssn_test``
-runs of BNInception and InceptionV3, with the full tables written to
-``DIR/profile_*.txt``.
+(BNInception, InceptionV3, Flow, RGBDiff, perlayer), a training step and
+the whole ``ssn_test`` runs of BNInception and InceptionV3, with the full
+tables written to ``DIR/profile_*.txt``, and the per-layer forward's
+device time by part (quantize passes, K1, bf16 max and avg pools, concats;
+``perlayer_breakdown``).
 
 The second-to-last lines are a JSON summary of the kernels and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -139,6 +159,7 @@ IV3_TRAIN_VIDEOS = 8   # -b of the InceptionV3 ssn_train run (train_memory)
 # below the largest that fits without --remat (train_memory)
 RECIPE_BATCHES = (4, 8, 16)
 FLOW_TRAIN_VIDEOS = 4  # -b of the Flow ssn_train run
+RGBDIFF_TRAIN_VIDEOS = 4  # -b of the RGBDiff ssn_train run
 HBM_GBS = 3350.0    # the H100 SXM's HBM3 bandwidth, GB/s (NVIDIA data sheet)
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, ops/s (NVIDIA data sheet)
 CORE_OPS = 67e12    # float32 peak outside the tensor cores, ops/s (the same)
@@ -323,6 +344,7 @@ def check_kernels(card: str) -> list:
                              device=dev, dtype=torch.int8)
 
     rows = {"int8_conv": [], "int8_conv/per_axis_pad": [],
+            "int8_conv/perlayer": [],
             "int8_max_pool": [], "int8_max_pool/valid": [],
             "int8_avg_pool": [], "int8_avg_pool/exclude_pad": [],
             "max_pool_bwd": []}
@@ -376,7 +398,8 @@ def check_kernels(card: str) -> list:
                lambda: k.int8_max_pool_plain(x, *a), pool_work(x, got, 3),
                max_pool_library(x, stride, pads, ref))
 
-    def check_convs(name, cases):
+    def check_convs(name, cases, epilogues=((torch.int8, "i8"),
+                                            (torch.bfloat16, "bf16"))):
         for label, x, w, stride, pad in cases:
             O, kh, kw, C = w.shape
             library = None
@@ -392,8 +415,7 @@ def check_kernels(card: str) -> list:
             m = (torch.rand(O, generator=g, device=dev) + 0.5) * (64.0
                                                                    / spread)
             bq = torch.randn(O, generator=g, device=dev) * 8.0
-            for out_dtype, tag in ((torch.int8, "i8"),
-                                   (torch.bfloat16, "bf16")):
+            for out_dtype, tag in epilogues:
                 def fn(x=x, w=w, m=m, bq=bq, s=stride, p=pad, o=out_dtype):
                     return k.int8_conv(x, w, m, bq, s, p, o)
 
@@ -429,6 +451,29 @@ def check_kernels(card: str) -> list:
          weights(736, 1, 1, 1040), 1, 0),
     ])
     del entry3a
+
+    # K1's bf16 epilogue at the per-layer int8 BNInception's geometries
+    # (--int8_mode perlayer): the stem conv, whose RGB input is quantized
+    # into 16 channels of which 13 are zero, as are the weights' (signed:
+    # normalized pixels), conv2_3x3, an unfused entry 1x1 and the 5b 1x1
+    stem_x = act(SLICE_N, 224, 224, 16, lo=-127)
+    stem_x[..., 3:] = 0
+    stem_w = weights(64, 7, 7, 16)
+    stem_w[..., 3:] = 0
+    check_convs("int8_conv/perlayer", [
+        ("stem_7x7_s2_p3_C3_in_16", stem_x, stem_w, 2, 3),
+        ("conv2_3x3", act(SLICE_N, 56, 56, 64), weights(192, 3, 3, 64), 1, 1),
+        ("3a_1x1", act(SLICE_N, 28, 28, 192), weights(64, 1, 1, 192), 1, 0),
+        ("5b_1x1", act(SLICE_N, 7, 7, 1024), weights(352, 1, 1, 1024), 1, 0),
+    ], epilogues=((torch.bfloat16, "bf16"),))
+    useful, _ = work(SLICE_N * 224 * 224 * 3 + 64 * 49 * 3 + 8 * 64
+                     + SLICE_N * 112 * 112 * 64 * 2,
+                     2 * SLICE_N * 112 * 112 * 64 * 49 * 3, INT8_OPS)
+    print(f"kernel int8_conv/perlayer[stem_7x7_s2_p3_C3_in_16]: the useful "
+          f"work (C = 3) is bound at {useful:.3f} ms; the row's bound counts "
+          "the 16 channels the kernel reads", flush=True)
+    del stem_x, stem_w
+    torch.cuda.empty_cache()
 
     # K2: the 3c and 4e passthrough ceil pools (s2) and the 5b pool branch
     # (s1 p1) on signed values, so -128 padding must never win; then grids
@@ -752,6 +797,8 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
                  100, 3),
                 ("bninception_flow", "thumos14", "BNInception", "Flow", 20,
                  4),
+                ("bninception_rgbdiff", "thumos14", "BNInception", "RGBDiff",
+                 20, 7),
                 ("resnet101_rgb", "thumos14", "resnet101", "RGB", 20, 5),
                 ("vgg16_rgb", "thumos14", "vgg16", "RGB", 20, 6)):
             models[key], ckpt = _seeded_checkpoint(d, key, K, arch,
@@ -783,6 +830,7 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
             "ssn_test thumos14 Flow (BNInception)", lambda: ssn_test(clif),
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
+        paths.update(run_scoring_surface(d, clis))
         for key, arch in (("resnet101_rgb", "resnet101"),
                           ("vgg16_rgb", "vgg16")):
             # float32 backbones: no int8 path, so no kernel to launch
@@ -803,7 +851,9 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
 
     scorers = [check_bninception(models["bninception_rgb"], smi),
                check_inceptionv3(models["inceptionv3_rgb"], smi),
-               time_flow(models["bninception_flow"], smi)]
+               time_flow(models["bninception_flow"], smi),
+               check_rgbdiff(models["bninception_rgbdiff"], smi),
+               check_perlayer(models["bninception_rgb"], smi, profile)]
     iv3_flow = seeded_init(SSN(num_class=100, base_model="InceptionV3",
                                modality="Flow", dropout=0.0), seed=5)
     scorer, _ = time_flow(iv3_flow, smi, hw=(341, 452))
@@ -816,11 +866,74 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
     if profile:
         train_step = lambda: train["step"](train["batch"])    # noqa: E731
         for name, (_, step) in zip(("score_step", "score_step_iv3",
-                                    "score_step_flow"), scorers):
+                                    "score_step_flow", "score_step_rgbdiff",
+                                    "score_step_perlayer"), scorers):
             profile_calls(profile, name, step, reps=3)
         profile_calls(profile, "train_step", train_step, reps=2)
     for scorer, _ in scorers:
         scorer.close()
+    return paths
+
+
+def run_scoring_surface(d: str, clis: dict) -> dict:
+    """Main path, part 4: the rest of the scoring CLI surface, each a path
+    of its own on the 2 scoring videos: ``ssn_test thumos14 RGB --int8_mode
+    perlayer`` (BNInception's RGB checkpoint; every conv on K1's bf16
+    epilogue, its pools bf16 torch ops, so K2 and K3 must not launch),
+    ``ssn_test thumos14 RGBDiff`` (the int8-e2e shared-stem default on
+    15-channel differences; K1-K3), ``ssn_test thumos14 RGB --test_crops
+    1`` (host center crops, int8-e2e per crop; K1-K3) and ``binary_test
+    thumos14 RGB --host_crops`` (a seeded actionness BNInception, 10 host
+    crops a tick, int8-e2e per crop; K1-K3). Each checks its pickle;
+    returns each path's launches."""
+    import numpy as np
+
+    from action_detection_torch.cli.binary_test import main as binary_test
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.models import BinaryClassifier, seeded_init
+    from action_detection_torch.train import save_checkpoint
+
+    k1_3 = ("int8_conv", "int8_max_pool", "int8_avg_pool")
+    paths = {}
+    cli, _, K = clis["bninception_rgb"]
+    for key, name, argv, expect in (
+            ("bninception_perlayer", "ssn_test thumos14 RGB --int8_mode "
+             "perlayer (BNInception)", cli + ["--int8_mode", "perlayer"],
+             ("int8_conv",)),
+            ("bninception_rgbdiff", "ssn_test thumos14 RGBDiff "
+             "(BNInception)", clis["bninception_rgbdiff"][0], k1_3),
+            ("bninception_crops1", "ssn_test thumos14 RGB --test_crops 1 "
+             "(BNInception)", cli + ["--test_crops", "1"], k1_3)):
+        out = os.path.join(d, f"{key}.pkl")
+        argv = list(argv)
+        argv[3] = out
+        paths[key] = drive(name, lambda argv=argv: ssn_test(argv), expect)
+        print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
+    pl = paths["bninception_perlayer"]
+    if pl["int8_max_pool"] or pl["int8_avg_pool"]:
+        raise AssertionError("--int8_mode perlayer launched int8 pools: "
+                             f"{pl}")
+
+    write_fixture(d, split="thumos14_sw_test")
+    model = seeded_init(BinaryClassifier(dropout=0.0), seed=8)
+    ckpt = os.path.join(d, "binary_host_crops.pt")
+    save_checkpoint(ckpt, model.state_dict(), None, arch="BNInception")
+    act = os.path.join(d, "binary_host_crops.pkl")
+    paths["binary_host_crops"] = drive(
+        "binary_test thumos14 RGB --host_crops (BNInception)",
+        lambda: binary_test(["thumos14", "RGB", "testing", ckpt, act,
+                             "--synthetic_data", "--prop_file_dir", d,
+                             "--host_crops"]), k1_3)
+    with open(act, "rb") as f:
+        scores = pickle.load(f)
+    T = len(range(0, 1560 - 1, 5))
+    if len(scores) != 2 or not all(a.shape == (T, 10, 2)
+                                   and np.isfinite(a).all()
+                                   for a in scores.values()):
+        raise AssertionError("--host_crops pickle: " + str(
+            {k: a.shape for k, a in scores.items()}))
+    print(f"main path: --host_crops pickle ok ({T}, 10, 2) per video",
+          flush=True)
     return paths
 
 
@@ -1078,7 +1191,9 @@ def run_training_clis(d: str, smi: str, rows: dict) -> dict:
     the port's ``ssn_test`` scoring the trained checkpoint; ``--iter_size
     2`` (2 mini-steps, 1 update); ``--bf16`` (A1 in bf16); Flow from the
     RGB checkpoint
-    (``--init_weights``, the 10-channel cross-modality conv1); InceptionV3
+    (``--init_weights``, the 10-channel cross-modality conv1); RGBDiff from
+    it (-b 4, the 15-channel conv1; 2 steps) with ``ssn_test`` on its
+    checkpoint; InceptionV3
     on ActivityNet v1.2 at ``IV3_TRAIN_VIDEOS`` (after ``train_memory``);
     ``binary_train`` (-b 4: 240 images) with ``binary_test`` on its
     checkpoint; and ResNet-101 and VGG-16: ``train_memory``, A1 at their
@@ -1189,6 +1304,27 @@ def run_training_clis(d: str, smi: str, rows: dict) -> dict:
         expect(len(st.step_ms) == 2 and flow["state_dict"][
             "base_model.conv1_7x7_s2.weight"].shape[1] == 10,
             f"Flow: {len(st.step_ms)} steps")
+        st = run("train_cli_rgbdiff", "ssn_train thumos14 RGBDiff "
+                 "--init_weights <RGB checkpoint>", ssn_train,
+                 ["thumos14", "RGBDiff", *common, "-b",
+                  str(RGBDIFF_TRAIN_VIDEOS), *tem(2, RGBDIFF_TRAIN_VIDEOS),
+                  "--epochs", "1", "--init_weights", ckpt])
+        diff_ckpt = os.path.join(
+            t, "ssn_thumos14_BNInception_rgbdiff_checkpoint.pt")
+        expect(len(st.step_ms) == 2
+               and st.images == RGBDIFF_TRAIN_VIDEOS * 72
+               and load_checkpoint(diff_ckpt)["state_dict"][
+                   "base_model.conv1_7x7_s2.weight"].shape[1] == 15,
+               f"RGBDiff: {len(st.step_ms)} steps of {st.images}")
+        scores = os.path.join(t, "trained_rgbdiff.pkl")
+        paths["ssn_test_trained_rgbdiff"] = drive(
+            "ssn_test thumos14 RGBDiff on the trained checkpoint (1 video)",
+            lambda: ssn_test(["thumos14", "RGBDiff", diff_ckpt, scores,
+                              "--synthetic_data", "--prop_file_dir", t,
+                              "--max_num", "1"]),
+            ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+        print(f"train: trained RGBDiff checkpoint scored, pickle ok "
+              f"(P={check_pickle(scores, 20, n_videos=1)})", flush=True)
         mem = train_memory("InceptionV3", "activitynet1.2", 299, smi)
         expect(IV3_TRAIN_VIDEOS < mem[False][0],
                f"-b {IV3_TRAIN_VIDEOS} leaves no headroom under "
@@ -1584,6 +1720,183 @@ def check_inceptionv3(model, smi):
     return scorer, step
 
 
+def check_rgbdiff(model, smi):
+    """BNInception RGBDiff at 224^2: 64 ticks of 18-channel (6 RGB frames)
+    scale-size stacks; the int8-e2e shared-stem step, its trunk on the card
+    against the plain kernels, its features against the float backbone."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+
+    rng = np.random.RandomState(3)
+    frames = rng.randint(0, 256, size=(64, 256, 340, 18), dtype=np.uint8)
+    calib = np.concatenate([frames[:2, 16:240, 58:282]] * 5)
+    scorer, step = _time_steps("BNInception RGBDiff", model, frames, calib,
+                               smi, modality="RGBDiff")
+    x = device_oversample_normed(torch.as_tensor(frames[:2]).cuda(),
+                                 model.input_spec, "RGBDiff", 5)
+    _int8_checks("BNInception RGBDiff", model, scorer._quantized, x,
+                 bq._e2e_stem_quantized,
+                 lambda qe, h: bq._walk_trunk(bq._E2EOps(qe), h),
+                 bq._e2e_trunk, bq.bninception_int8_e2e_features)
+    return scorer, step
+
+
+def check_perlayer(model, smi, profile=None):
+    """``--int8_mode perlayer`` (BNInception RGB at 224^2, static scales
+    from 10 calibration crops): the steady-state 640-crop step; the
+    per-layer activations on the card (K1's bf16 epilogue, torch's bf16
+    pools) bit-exact against the plain kernels on the CPU at 4 crops, the
+    features within one bf16 ulp (the float32 global mean may round
+    differently across devices); the features of 20 crops against the float
+    backbone (min cos > 0.99, rel RMS < 0.12). With ``profile``, the
+    step's device time by part (``perlayer_breakdown``)."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.infer.scorer import ProposalScorer
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, size=(64, 256, 340, 3), dtype=np.uint8)
+    calib = np.concatenate([frames[:2, 16:240, 58:282]] * 5)
+    spec = model.input_spec
+    scorer = ProposalScorer(model, spec,
+                            reg_stats=np.asarray(REG_STATS, np.float32),
+                            num_class=model.num_class, chunk_frames=64,
+                            device="cuda", quantize="perlayer",
+                            calibration_frames=calib)
+    chunk = torch.as_tensor(frames).cuda()
+    step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
+    step_ms = _time_ms(step, reps=10, warmup=2)
+    reset_launch_counts()
+    step()
+    per_step = {k: n for k, n in launch_counts().items() if n}
+    print(f"step: BNInception int8 perlayer (static scales) {step_ms:.2f} ms "
+          f"per {SLICE_N}-crop step = {SLICE_N / step_ms * 1e3:.0f} crops/s, "
+          f"launches per step {per_step} ({smi})", flush=True)
+
+    q, scales = scorer._quantized, scorer._act_scales
+
+    def acts(q, scales, x):        # the last concat, before the mean
+        ops = bq._PerLayerOps(q, act_scales=scales)
+        return bq._walk_trunk(ops, bq._walk_stem(ops, x.to(torch.bfloat16)))
+
+    x = device_oversample_normed(torch.as_tensor(frames[:1]).cuda(),
+                                 spec)[:4]
+    q_cpu, s_cpu = bq.tree_to(q, "cpu"), bq.tree_to(scales, "cpu")
+    with torch.no_grad():
+        got, ref = acts(q, scales, x).cpu(), acts(q_cpu, s_cpu, x.cpu())
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError("perlayer activations on the card differ "
+                                 "from the plain kernels on the CPU in "
+                                 f"{(got != ref).sum().item()} values")
+        fgot = bq.bninception_int8_features(q, x, scales).cpu()
+        fref = bq.bninception_int8_features(q_cpu, x.cpu(), s_cpu)
+        ulp = torch.exp2(torch.floor(torch.log2(
+            fref.abs().clamp_min(1e-30))) - 7)
+        d = (fgot - fref).abs()
+        if not (d <= ulp).all():
+            raise AssertionError("perlayer features on the card vs the CPU: "
+                                 f"{(d / ulp).max().item()} bf16 ulp")
+        print(f"check: BNInception perlayer activations (K1 bf16 epilogue "
+              f"on the card) == plain versions on the CPU, bit-exact, "
+              f"{tuple(got.shape)}; features {(d == 0).float().mean():.4f} "
+              f"equal, max {(d / ulp).max().item():.1f} bf16 ulp",
+              flush=True)
+        x20 = device_oversample_normed(torch.as_tensor(frames[:2]).cuda(),
+                                       spec)
+        f32 = model.to("cuda").eval().base_model(x20).double().cpu()
+        q8 = bq.bninception_int8_features(q, x20, scales).double().cpu()
+        model.to("cpu")
+    cos = torch.nn.functional.cosine_similarity(f32, q8, dim=1).min()
+    rel = ((q8 - f32).norm() / f32.norm()).item()
+    if not (cos > 0.99 and rel < 0.12):
+        raise AssertionError(f"perlayer features vs float: cos {cos} rel "
+                             f"{rel}")
+    print(f"check: BNInception int8 perlayer vs float features: min cos "
+          f"{cos.item():.6f}, rel rms {rel:.5f}", flush=True)
+    if profile:
+        perlayer_breakdown(q, scales, device_oversample_normed(
+            chunk, spec), smi)
+    return scorer, step
+
+
+def perlayer_breakdown(q, scales, x, smi) -> None:
+    """Device ms of one 640-crop per-layer forward by part: CUDA events
+    around each op on the one stream (the host runs ahead of these
+    kernels, so a pair brackets its op's kernels): the quantize passes
+    (max, divide, round, clamp, int8), K1 (a conv's time less its
+    quantize), the bf16 max pools, the bf16 avg pools, the concats, and
+    the rest (the bf16 cast, the mean)."""
+    import torch
+
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+
+    marks = []
+
+    def timed(part, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        marks.append((part, a, b))
+        return out
+
+    base = bq._PerLayerOps
+
+    class Timed(base):
+        def quantize(self, *a):
+            return timed("quantize", lambda: base.quantize(self, *a))
+
+        def conv(self, *a, **kw):
+            return timed("conv", lambda: base.conv(self, *a, **kw))
+
+        def max_pool(self, *a, **kw):
+            return timed("bf16 max pool",
+                         lambda: base.max_pool(self, *a, **kw))
+
+        def avg_pool(self, *a):
+            return timed("bf16 avg pool", lambda: base.avg_pool(self, *a))
+
+        def concat(self, parts):
+            return timed("concat", lambda: base.concat(self, parts))
+
+    def forward():
+        ops = Timed(q, act_scales=scales)
+        h = bq._walk_trunk(ops, bq._walk_stem(ops, x.to(torch.bfloat16)))
+        return h.float().mean(dim=(1, 2)).to(torch.bfloat16)
+
+    with torch.no_grad():
+        forward()
+        marks.clear()
+        torch.cuda.synchronize()
+        timed("total", forward)
+        torch.cuda.synchronize()
+    parts = {}
+    for p, a, b in marks:
+        parts[p] = parts.get(p, 0.0) + a.elapsed_time(b)
+    whole = parts.pop("total")
+    parts["K1"] = parts.pop("conv") - parts["quantize"]
+    parts["rest"] = whole - sum(parts.values())
+    print(f"profile perlayer: {whole:.2f} ms per {x.shape[0]}-crop forward "
+          "(CUDA events): " + ", ".join(
+              f"{p} {ms:.2f} ms ({ms / whole:.1%})"
+              for p, ms in sorted(parts.items(), key=lambda kv: -kv[1]))
+          + f" ({smi})", flush=True)
+
+
 def time_flow(model, smi, hw=(256, 340)):
     """Flow: 64 ticks of 10-channel stacks at scale size ``hw``."""
     import numpy as np
@@ -1754,6 +2067,8 @@ def main() -> int:
                       "int8_conv"),
         "int8_conv/per_axis_pad": (conv, f"{IV3_SRC}:288", "inceptionv3_rgb",
                                    "int8_conv"),
+        "int8_conv/perlayer": (conv, f"{TPU_SRC}:79", "bninception_perlayer",
+                               "int8_conv"),
         "int8_max_pool": (pool, f"{TPU_SRC}:230", "bninception_rgb",
                           "int8_max_pool"),
         "int8_max_pool/valid": (pool, f"{IV3_SRC}:300", "inceptionv3_rgb",

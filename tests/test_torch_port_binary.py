@@ -271,16 +271,29 @@ def test_binary_test_cli_int8_sharedstem_matches_jax_cli(tmp_path,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["RGBDiff"], "modality RGBDiff"),
-    (["RGB", "--int8_mode", "perlayer"], "--int8_mode perlayer"),
-    (["RGB", "--host_crops"], "--host_crops"),
-    (["RGB", "--test_crops", "1"], "--test_crops 1"),
     (["Flow", "--devices", "0", "1"], "scoring on several devices"),
 ])
 def test_binary_test_refuses_unported_by_name(flags, named):
     with pytest.raises(SystemExit, match=named):
         port_main(["thumos14", flags[0], "testing", "w.pt", "s.pkl"]
                   + flags[1:])
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--test_crops", "5"], ValueError, "unsupported number of crops 5"),
+    (["--shared_stem", "--host_crops"], SystemExit, "--shared_stem requires"),
+    (["--shared_stem", "--test_crops", "1"], SystemExit,
+     "--shared_stem requires"),
+    (["--shared_stem", "--int8_mode", "perlayer"], SystemExit,
+     "--shared_stem requires"),
+])
+def test_binary_test_refuses_what_the_jax_cli_refuses(flags, error, match):
+    """A crop count other than 1 or 10 (the JAX CLI's ValueError) and an
+    explicit ``--shared_stem`` off its path (int8-e2e, 10 device crops)
+    refuse before any weights are read."""
+    with pytest.raises(error, match=match):
+        port_main(["thumos14", "RGB", "testing", "w.pt", "s.pkl",
+                   "--device", "cpu"] + flags)
 
 
 @pytest.mark.parametrize("arch", ["resnet18", "vgg11"])

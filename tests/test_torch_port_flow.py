@@ -106,11 +106,27 @@ def test_ssn_test_scores_resnet_and_vgg_as_the_jax_cli(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["RGBDiff"], "modality RGBDiff"),
-    (["RGB", "--int8_mode", "perlayer"], "--int8_mode perlayer"),
     (["Flow", "--pack"], "--pack"),
     (["RGB", "--devices", "0", "1"], "scoring on several devices"),
 ])
 def test_ssn_test_refuses_unported_by_name(flags, named):
     with pytest.raises(SystemExit, match=named):
         port_main(["thumos14", flags[0], "w.pt", "s.pkl"] + flags[1:])
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--test_crops", "5"], ValueError, "unsupported number of crops 5"),
+    (["--no_int8", "--test_crops", "3"], ValueError,
+     "unsupported number of crops 3"),
+    (["--shared_stem", "--test_crops", "1"], SystemExit,
+     "--shared_stem requires"),
+    (["--shared_stem", "--int8_mode", "perlayer"], SystemExit,
+     "--shared_stem requires"),
+])
+def test_ssn_test_refuses_what_the_jax_cli_refuses(flags, error, match):
+    """A crop count other than 1 or 10 (the JAX CLI's ValueError, int8 or
+    not) and an explicit ``--shared_stem`` off its path refuse before any
+    weights are read."""
+    with pytest.raises(error, match=match):
+        port_main(["thumos14", "RGB", "w.pt", "s.pkl", "--device", "cpu"]
+                  + flags)

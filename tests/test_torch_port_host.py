@@ -163,7 +163,7 @@ def test_calibration_frames_byte_equal(tmp_path, arch, size):
     got = pipe.collect_calibration_frames(
         SSNDataset(pf, test_interval=40),
         pipe.SyntheticFrameProvider(width=w, height=h),
-        spec.input_size, spec.scale_size)
+        pipe.make_test_transform(spec.input_size, spec.scale_size, 10))
     ref = jpipe.collect_calibration_frames(
         JSSNDataset(pf, JSamplingConfig(), test_interval=40),
         jpipe.SyntheticFrameProvider(width=w, height=h),

@@ -17,7 +17,12 @@ one TinyConv SSN from a JAX checkpoint.msgpack and from a reference-style
 .pth.tar (written by the test process, which has flax) to the pickle of its
 .pt. A third trains on the
 CPU through the training CLIs: ssn_train (one TinyConv step, validation, a
-checkpoint), ssn_train --evaluate on it, and binary_train (one step)."""
+checkpoint), ssn_train --evaluate on it, and binary_train (one step). Three
+more, one a path of the scoring CLI surface: the per-layer int8
+BNInception scorer (static and dynamic scales; ``ssn_test --int8_mode
+perlayer``), RGBDiff (the int8-e2e shared-stem scorer, ``ssn_train`` and
+``binary_train``), and host crops (``ssn_test --test_crops 1``,
+``binary_test --host_crops`` and ``--test_crops 1``)."""
 
 import os
 import subprocess
@@ -48,7 +53,8 @@ SCRIPT = BLOCK + textwrap.dedent("""
 
     from action_detection_torch.config import get_configs
     from action_detection_torch.data.pipeline import (
-        SyntheticFrameProvider, collect_calibration_frames)
+        SyntheticFrameProvider, collect_calibration_frames,
+        make_test_transform)
     from action_detection_torch.data.ssn_dataset import SSNDataset
     from action_detection_torch.infer.scorer import (
         ProposalScorer, dump_scores_pickle, score_videos)
@@ -70,9 +76,10 @@ SCRIPT = BLOCK + textwrap.dedent("""
         provider = SyntheticFrameProvider(width=frame_wh[0],
                                           height=frame_wh[1],
                                           modality=modality)
-        calib = collect_calibration_frames(ds, provider, spec.input_size,
-                                           spec.scale_size,
-                                           new_length=new_length)
+        calib = collect_calibration_frames(
+            ds, provider, make_test_transform(spec.input_size,
+                                              spec.scale_size, 10),
+            new_length=new_length)
         factory = lambda dev: ProposalScorer(
             model, spec, reg_stats=np.array([[0.0, 0.0], [1.0, 1.0]]),
             num_class=20, chunk_frames=4, modality=modality, device=dev,
@@ -273,6 +280,150 @@ TRAINING = BLOCK + textwrap.dedent("""
     print("TRAINING-OK")
 """)
 
+PROPS = textwrap.dedent("""
+    def write_list(path, n_videos):
+        # fg, incomplete and background proposals around two GT instances
+        lines = []
+        for v in range(n_videos):
+            gt = [(1 + v % 3, 100, 300), (1 + (v + 1) % 3, 400, 520)]
+            props = [(g[0], 0.85, 0.9, g[1] - 20, g[2] + 5) for g in gt]
+            props += [(g[0], 0.2, 0.9, g[1] + 30, g[1] + 110) for g in gt]
+            props += [(g[0], 0.15, 0.85, g[1] + 50, g[1] + 130) for g in gt]
+            props += [(0, 0.0, 0.0, 530, 595), (0, 0.005, 0.0, 10, 90)]
+            lines.append(f"# {v}\\nvideo_{v}\\n600\\n1\\n{len(gt)}\\n")
+            lines += [f"{g[0]} {g[1]} {g[2]}\\n" for g in gt]
+            lines.append(f"{len(props)}\\n")
+            lines += [f"{p[0]} {p[1]:.4f} {p[2]:.4f} {p[3]} {p[4]}\\n"
+                      for p in props]
+        with open(path, "w") as f:
+            f.writelines(lines)
+""")
+
+PERLAYER = BLOCK + PROPS + textwrap.dedent("""
+    import os, tempfile
+    import numpy as np
+
+    from action_detection_torch.cli import ssn_test
+    from action_detection_torch.data.pipeline import (
+        SyntheticFrameProvider, collect_calibration_frames,
+        make_test_transform)
+    from action_detection_torch.data.ssn_dataset import SSNDataset
+    from action_detection_torch.infer.scorer import ProposalScorer
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.models.backbones import InputSpec
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        write_list("p.txt", 1)
+        ds = SSNDataset("p.txt", test_interval=150)
+        provider = SyntheticFrameProvider(width=97, height=73)
+        model = seeded_init(SSN(num_class=20, dropout=0.0), seed=0)
+        base = model.input_spec
+        spec = InputSpec(64, base.mean, base.std, base.bgr, base.div255)
+        calib = collect_calibration_frames(
+            ds, provider, make_test_transform(64, spec.scale_size, 10))
+        for frames in (calib, None):
+            with ProposalScorer(model, spec, reg_stats=np.ones((2, 2)),
+                                num_class=20, chunk_frames=4, device="cpu",
+                                quantize="perlayer",
+                                calibration_frames=frames) as scorer:
+                assert (scorer._act_scales is None) == (frames is None)
+                out = scorer.score_video(ds.get_test_sample(0), provider)
+            assert out.act_scores.shape == (8, 21)
+            assert np.isfinite(out.act_scores).all()
+        try:
+            ssn_test.main(["thumos14", "RGB", "w.pt", "s.pkl", "--arch",
+                           "InceptionV3", "--int8_mode", "perlayer",
+                           "--device", "cpu"])
+        except SystemExit as e:
+            assert "'perlayer' is not available" in str(e), e
+        else:
+            raise AssertionError("InceptionV3 perlayer was not refused")
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("PERLAYER-OK")
+""")
+
+RGBDIFF = BLOCK + PROPS + textwrap.dedent("""
+    import os, tempfile
+    import numpy as np
+
+    from action_detection_torch.cli import binary_train, ssn_train
+    from action_detection_torch.data.pipeline import SyntheticFrameProvider
+    from action_detection_torch.data.ssn_dataset import SSNDataset
+    from action_detection_torch.infer.scorer import ProposalScorer
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.models.backbones import InputSpec
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        for task in ("tag", "sw"):
+            write_list(f"thumos14_{task}_val_proposal_list.txt", 3)
+            write_list(f"thumos14_{task}_test_proposal_list.txt", 2)
+        ds = SSNDataset("thumos14_tag_test_proposal_list.txt",
+                        new_length=5, test_interval=150)
+        model = seeded_init(SSN(num_class=20, modality="RGBDiff",
+                                dropout=0.0), seed=0)
+        base = model.input_spec
+        spec = InputSpec(64, base.mean, base.std, base.bgr, base.div255)
+        provider = SyntheticFrameProvider(97, 73, modality="RGBDiff")
+        with ProposalScorer(model, spec, reg_stats=np.ones((2, 2)),
+                            num_class=20, chunk_frames=4, modality="RGBDiff",
+                            device="cpu", quantize="e2e",
+                            shared_stem=True) as scorer:
+            out = scorer.score_video(ds.get_test_sample(0), provider)
+        assert out.act_scores.shape == (8, 21)
+        assert np.isfinite(out.act_scores).all()
+        common = ["thumos14", "RGBDiff", "--arch", "TinyConv",
+                  "--synthetic_data", "--device", "cpu", "-j", "1",
+                  "--epochs", "1", "-b", "2", "--prop_file_dir", d]
+        stats = ssn_train.main(common + ["--tem", "1"])
+        assert len(stats.step_ms) == 1 and np.isfinite(stats.best_loss)
+        assert os.path.exists("ssn_thumos14_TinyConv_rgbdiff_checkpoint.pt")
+        b = binary_train.main(common)
+        assert len(b.step_ms) == 1 and np.isfinite(b.best_loss)
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("RGBDIFF-OK")
+""")
+
+HOST_CROPS = BLOCK + PROPS + textwrap.dedent("""
+    import os, pickle, tempfile
+    import numpy as np
+
+    from action_detection_torch.cli import binary_test, ssn_test
+    from action_detection_torch.models import (SSN, BinaryClassifier,
+                                               seeded_init)
+    from action_detection_torch.train import save_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        write_list("thumos14_tag_test_proposal_list.txt", 2)
+        write_list("thumos14_sw_test_proposal_list.txt", 2)
+        save_checkpoint("s.pt", seeded_init(SSN(
+            num_class=20, base_model="TinyConv"), seed=1).state_dict(),
+            np.array([[0.0, 0.0], [0.1, 0.1]]), arch="TinyConv")
+        save_checkpoint("b.pt", seeded_init(BinaryClassifier(
+            base_model="TinyConv"), seed=0).state_dict(), None,
+            arch="TinyConv")
+        common = ["--arch", "TinyConv", "--synthetic_data",
+                  "--prop_file_dir", d, "--device", "cpu",
+                  "--test_batchsize", "8", "--frame_interval", "60"]
+        res = ssn_test.main(["thumos14", "RGB", "s.pt", "s.pkl",
+                             "--test_crops", "1"] + common)
+        assert len(res) == 2
+        for flags, crops in ((["--host_crops"], 10),
+                             (["--test_crops", "1"], 1)):
+            act = binary_test.main(["thumos14", "RGB", "testing", "b.pt",
+                                    "a.pkl"] + common + flags)
+            assert all(a.shape == (10, crops, 2) and np.isfinite(a).all()
+                       for a in act.values()), flags
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("HOST-CROPS-OK")
+""")
+
+
 def _run(script: str, **env_extra) -> str:
     env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -328,3 +479,23 @@ def test_training_clis_without_jax_flax_optax_yaml_pil():
     out = _run(TRAINING)
     assert out.strip().splitlines()[-1] == "TRAINING-OK", out
     assert "Testing Results: Loss" in out and "checkpoint saved" in out
+
+
+# one torch thread in these subprocesses: the suite runs on several
+# workers at once (see test_torch_port_perlayer.py:one_torch_thread)
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+def test_perlayer_scoring_without_jax_flax_yaml_pil():
+    out = _run(PERLAYER, **ONE_THREAD)
+    assert out.strip().splitlines()[-1] == "PERLAYER-OK", out
+
+
+def test_rgbdiff_scoring_and_training_without_jax_flax_optax_yaml_pil():
+    out = _run(RGBDIFF, **ONE_THREAD)
+    assert out.strip().splitlines()[-1] == "RGBDIFF-OK", out
+
+
+def test_host_crop_scoring_without_jax_flax_yaml_pil():
+    out = _run(HOST_CROPS, **ONE_THREAD)
+    assert out.strip().splitlines()[-1] == "HOST-CROPS-OK", out

@@ -195,7 +195,6 @@ def test_training_clis_train_resnet_and_vgg(tmp_path, monkeypatch, cli, arch,
 
 @pytest.mark.parametrize("cli", [ssn_train, binary_train])
 @pytest.mark.parametrize("extra,item", [
-    (["RGBDiff"], "The rest of the CLI surface"),
     (["RGB", "--gpus", "0", "1"], "Data parallel"),
     (["RGB", "--coordinator_address", "localhost:1234"], "Data parallel"),
     (["RGB", "--num_processes", "2", "--process_id", "0"], "Data parallel"),
