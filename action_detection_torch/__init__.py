@@ -12,7 +12,7 @@ The port covers the inference pipeline: sliding windows
 on BNInception and InceptionV3 (TinyConv for tests) with the int8
 end-to-end, shared-stem default; and training (``cli/ssn_train.py``,
 ``cli/binary_train.py`` -> ``train/``), float32 or bf16 on the hand-written
-max-pool backward.
+max-pool backward, on one GPU or data parallel across GPUs and hosts.
 
 Package layout (each module mirrors one module of action_detection_tpu):
   models/      torch model definitions, int8 runtime, weight bridge
@@ -26,7 +26,10 @@ Package layout (each module mirrors one module of action_detection_tpu):
   evaluation/  detections, NMS, regression, AP table (host)
   train/       checkpoints (.pt) carrying reg_stats, optimizer, train and
                eval steps, init weights
-  infer/       the shared feature step, the proposal and actionness scorers
+  infer/       the shared feature step, the proposal and actionness scorers,
+               the fan-out over devices and cross-video packing
+  parallel/    device selection, the process group, DDP wrapping, batch
+               slices and metric means (data-parallel training)
   utils/       meters and the device trace, the build paths, the native
                host library
   cli/         ssn_train, binary_train, ssn_test, binary_test,

@@ -18,9 +18,12 @@ defaults as the JAX CLI: int8 end to end with the shared stem for
 BNInception and InceptionV3, 10 device crops; ``--int8_mode perlayer``
 (BNInception), RGB, Flow and RGBDiff, and host crops (``--host_crops``, or
 ``--test_crops 1``). The device is explicit
-(``--device``, default ``cuda``; with no card a CUDA run raises). What the
-port does not cover yet raises a ``SystemExit`` naming the ROADMAP.md item
-it comes with (``cli/unported.py``).
+(``--device``, default ``cuda``; with no card a CUDA run raises).
+``--gpus``/``--devices`` score over several GPUs (default: every local GPU
+under ``--device cuda``): one thread and one scorer per device pulling
+videos from one queue (``infer/actionness.py:score_actionness``), the
+calibrated int8 tree computed once and placed on each device, one decode
+pool (``-j``) for all.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
-import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="force per-crop stem computation")
     parser.add_argument("--gpus", "--devices", dest="devices", nargs="+",
                         type=int, default=None,
-                        help="one local device index (multi-device fan-out "
-                             "is not in the port yet)")
+                        help="local GPU indices to score the videos on "
+                             "(default: every local GPU under --device "
+                             "cuda)")
     parser.add_argument("--host_crops", action="store_true",
                         help="cut the 10-crop oversample on the host instead "
                              "of on the device (debugging, parity checks)")
@@ -101,16 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_slice(args) -> None:
-    """Refuse, by name, what the port does not cover yet."""
-    from .unported import refuse_unported_scoring
-
-    refuse_unported_scoring(args, "binary_test")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_slice(args)
 
     from ..models.backbones.quantize import supports_shared_stem
     from .opts import scoring_int8, scoring_weights
@@ -133,15 +128,14 @@ def main(argv=None):
     from ..data.pipeline import (DirectoryFrameProvider,
                                  SyntheticFrameProvider,
                                  collect_calibration_frames, frame_template,
-                                 make_test_transform)
-    from ..infer.actionness import ActionnessScorer
-    from ..infer.features import resolve_device
+                                 make_decode_pool, make_test_transform)
+    from ..infer.actionness import ActionnessScorer, score_actionness
+    from ..infer.features import shared_prequantized
     from ..models import BinaryClassifier
+    from ..parallel import cli_devices
     from ..train import load_checkpoint
 
-    device = resolve_device(args.device)
-    if args.devices and device.type == "cuda":
-        device = resolve_device(f"cuda:{args.devices[0]}")
+    devices = cli_devices(args.device, args.devices)
     cfg = get_actionness_configs(args.dataset)
 
     model = BinaryClassifier(num_class=cfg.num_class, modality=args.modality,
@@ -191,26 +185,24 @@ def main(argv=None):
     n = len(dataset.video_list)
     if args.max_num > 0:
         n = min(n, args.max_num)
-    results = {}
-    t0 = time.time()
-    with ActionnessScorer(model, spec, test_crops=args.test_crops,
-                          chunk_frames=args.test_batchsize,
-                          modality=args.modality, device=device,
-                          quantize=args.int8_mode if use_int8 else False,
-                          calibration_frames=calibration_frames,
-                          device_crops=use_device_crops,
-                          decode_threads=args.workers,
-                          shared_stem=use_shared) as scorer:
-        for idx in range(n):
-            sample = dataset.get_test_sample(idx)
-            # keyed by the video-id BASENAME (reference binary_test.py:94):
-            # proposal lists carry frame-folder paths, TAG grouping matches
-            # scores against dataset-DB ids
-            results[sample.video_id.split("/")[-1]] = scorer.score_video(
-                sample, provider)
-            print(f"video {idx} {sample.video_id} done "
-                  f"({(time.time() - t0) / (idx + 1):.3f} sec/video)",
-                  flush=True)
+    decode_pool = make_decode_pool(args.workers) if use_device_crops else None
+
+    def make_scorer(dev, prequantized):
+        return ActionnessScorer(
+            model, spec, test_crops=args.test_crops,
+            chunk_frames=args.test_batchsize, modality=args.modality,
+            device=dev, quantize=args.int8_mode if use_int8 else False,
+            calibration_frames=calibration_frames,
+            device_crops=use_device_crops, shared_stem=use_shared,
+            prequantized=prequantized, decode_pool=decode_pool)
+
+    try:
+        results = score_actionness(shared_prequantized(make_scorer, use_int8),
+                                   dataset, provider, indices=range(n),
+                                   devices=devices, progress=True)
+    finally:
+        if decode_pool is not None:
+            decode_pool.shutdown(wait=False)
     with open(args.save_scores, "wb") as f:
         pickle.dump(results, f, pickle.HIGHEST_PROTOCOL)
     print(f"scores saved to {args.save_scores}")

@@ -13,7 +13,9 @@ list exists, and ``ssn_<dataset>_<arch>_<modality>_binary_checkpoint.pt``
 (``reg_stats`` of zeros) every epoch, which the port's ``binary_test``
 reads. Same flags as ``ssn_train`` (``--tem`` is accepted and unused, as in
 the JAX CLI). ``main`` returns the run's
-:class:`~.train_common.RunStats`.
+:class:`~.train_common.RunStats` (rank 0's). Several ``--gpus`` and the
+multi-host flags train data parallel, as ``ssn_train`` does: each rank
+assembles its slice of each batch, rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -25,14 +27,17 @@ import numpy as np
 
 def main(argv=None):
     from .opts import build_train_parser
-    from .train_common import setup
+    from .train_common import launch
 
     parser = build_train_parser("Train binary actionness classifier "
                                 "(PyTorch)")
     parser.set_defaults(batch_size=4)
     args = parser.parse_args(argv)
-    device = setup(args, "binary_train")
+    return launch(args, train, "binary_train")
 
+
+def train(args, device, rank: int, world: int):
+    """The training run of one rank of ``world`` on ``device``."""
     import torch
 
     from ..config import get_actionness_configs
@@ -44,8 +49,10 @@ def main(argv=None):
     from ..train import (batch_to_device, checkpoint_name, load_checkpoint,
                          make_binary_loss_fn, make_eval_step, make_optimizer,
                          make_train_step, save_checkpoint)
+    from ..parallel import wrap_ddp
     from ..train.init_weights import apply_init_weights
-    from .train_common import RunStats, frame_provider, run_epoch
+    from .train_common import (RunStats, finish, frame_provider, local_batch,
+                               run_epoch)
 
     cfg = get_actionness_configs(args.dataset)
     # the head is as wide as the actionness config says (2 for thumos14, 100
@@ -62,7 +69,8 @@ def main(argv=None):
 
     train_ds = BinaryDataset(
         os.path.join(args.prop_file_dir, f"{cfg.train_list}_proposal_list.txt"),
-        body_seg=args.num_body_segments, new_length=new_length, verbose=True)
+        body_seg=args.num_body_segments, new_length=new_length,
+        verbose=rank == 0)
     val_file = os.path.join(args.prop_file_dir,
                             f"{cfg.test_list}_proposal_list.txt")
     # validation samples a balanced 6:6 fg/bg split
@@ -84,8 +92,10 @@ def main(argv=None):
     if resume_ck is not None:
         model.load_state_dict(resume_ck["state_dict"])
         stats.best_loss = resume_ck["best_loss"]
-        print(f"=> resumed from '{args.resume}' (epoch {start_epoch})")
+        if rank == 0:
+            print(f"=> resumed from '{args.resume}' (epoch {start_epoch})")
     model.to(device)
+    ddp = wrap_ddp(model, device)
 
     steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
     optimizer = make_optimizer(
@@ -93,11 +103,13 @@ def main(argv=None):
         steps_per_epoch=steps_per_epoch, momentum=args.momentum,
         weight_decay=args.weight_decay, clip_gradient=args.clip_gradient,
         iter_size=args.iter_size, start_epoch=start_epoch)
-    loss_fn = make_binary_loss_fn(model)
-    train_step = make_train_step(model, optimizer, seed=args.seed,
-                                 loss_fn=loss_fn)
-    eval_step = make_eval_step(model, loss_fn=loss_fn)
+    train_step = make_train_step(ddp, optimizer, seed=args.seed,
+                                 loss_fn=make_binary_loss_fn(ddp))
+    eval_step = make_eval_step(model, loss_fn=make_binary_loss_fn(model))
     stats.lr_factor, count0 = optimizer.lr_factor(), optimizer.count
+    # each rank assembles its slice of every global batch
+    local_bs = local_batch(args, world)
+    mine = slice(rank * local_bs, (rank + 1) * local_bs)
 
     def validate():
         v_rng = np.random.RandomState(999)
@@ -105,7 +117,7 @@ def main(argv=None):
         losses, accs = [], []
         for i in range(n_val):
             idxs = [(i * args.batch_size + j) % len(val_ds.video_list)
-                    for j in range(args.batch_size)]
+                    for j in range(args.batch_size)][mine]
             vb = assemble_binary_batch(val_ds, idxs, provider, eval_transform,
                                        v_rng, random_shift=False)
             m = eval_step(batch_to_device(vb, device))
@@ -132,28 +144,32 @@ def main(argv=None):
                 idxs = np.concatenate([idxs,
                                        order[:args.batch_size - len(idxs)]])
             return assemble_binary_batch(
-                train_ds, idxs, provider, augmentation,
+                train_ds, idxs[mine], provider, augmentation,
                 np.random.RandomState(step_seeds[i]))
 
         loader = PrefetchLoader(make_batch, steps_per_epoch,
                                 num_threads=args.workers)
         run_epoch(epoch, loader, steps_per_epoch, train_step, device, args,
-                  stats, line,
-                  trace=bool(args.trace_dir) and epoch == start_epoch)
+                  stats, line, trace=(bool(args.trace_dir) and rank == 0
+                                      and epoch == start_epoch),
+                  verbose=rank == 0)
 
         is_best = False
         if val_ds is not None and (epoch + 1) % max(args.eval_freq, 1) == 0:
             val_loss, val_acc = validate()
             is_best = val_loss < stats.best_loss
             stats.best_loss = min(stats.best_loss, val_loss)
-            print(f"Validation: Loss {val_loss:.4f} Acc {val_acc:.2f} "
-                  f"(best {stats.best_loss:.4f})", flush=True)
-        save_checkpoint(ckpt_file, model.state_dict(), np.zeros((2, 2)),
-                        arch=args.arch, epoch=epoch + 1,
-                        best_loss=stats.best_loss, is_best=is_best)
-        print(f"checkpoint saved to {ckpt_file} (best={is_best})", flush=True)
+            if rank == 0:
+                print(f"Validation: Loss {val_loss:.4f} Acc {val_acc:.2f} "
+                      f"(best {stats.best_loss:.4f})", flush=True)
+        if rank == 0:
+            save_checkpoint(ckpt_file, model.state_dict(), np.zeros((2, 2)),
+                            arch=args.arch, epoch=epoch + 1,
+                            best_loss=stats.best_loss, is_best=is_best)
+            print(f"checkpoint saved to {ckpt_file} (best={is_best})",
+                  flush=True)
     stats.updates = optimizer.count - count0
-    print(f"train: {stats.summary()} on {device}", flush=True)
+    finish(stats, device, rank, world)
     return stats
 
 

@@ -1,8 +1,7 @@
 """The training CLIs' flags (port of ``action_detection_tpu/cli/opts.py``),
 and the scoring CLIs' weights file and int8 choice.
 
-The JAX CLIs' flags and defaults, plus ``--device``. Flags the port does not
-cover yet are accepted here and refused by name in ``cli/unported.py``.
+The JAX CLIs' flags and defaults, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -90,8 +89,9 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
                         help="host threads assembling batches")
     parser.add_argument("--gpus", "--devices", dest="devices", nargs="+",
                         type=int, default=None,
-                        help="one local device index (several devices are "
-                             "not in the port yet)")
+                        help="local GPU indices, one training rank each "
+                             "(default: every local GPU under --device "
+                             "cuda)")
     parser.add_argument("--resume", default="", type=str)
     parser.add_argument("--kinetics_pretrain", "--kin", default=False,
                         action="store_true")
@@ -118,8 +118,12 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
                         help="recompute backbone activations in the "
                              "backward pass, stage by stage (larger batches "
                              "per card)")
-    # multi-host data-parallel training (refused: not in the port yet)
-    parser.add_argument("--coordinator_address", default=None, type=str)
-    parser.add_argument("--num_processes", default=None, type=int)
-    parser.add_argument("--process_id", default=None, type=int)
+    # multi-host data-parallel training: every process of the job passes
+    # all three (rank 0 of process 0 listens at the coordinator)
+    parser.add_argument("--coordinator_address", default=None, type=str,
+                        help="host:port of the job's process group")
+    parser.add_argument("--num_processes", default=None, type=int,
+                        help="processes in the job (one per host)")
+    parser.add_argument("--process_id", default=None, type=int,
+                        help="this process's index in the job")
     return parser

@@ -18,9 +18,13 @@ differences of 6 RGB frames, ``img_NNNNN.jpg``); ``--int8_mode perlayer``
 (BNInception) quantizes each conv's bf16 input instead; ``--test_crops 1``
 scores one center crop cut on the host. The device is explicit
 (``--device``, default ``cuda``); with no card, a CUDA run raises instead of
-continuing on the CPU. What the port does not cover yet raises a
-``SystemExit`` naming the ROADMAP.md item it comes with
-(``cli/unported.py``).
+continuing on the CPU. ``--gpus``/``--devices`` fan the videos out over
+several GPUs (default: every local GPU under ``--device cuda``), one thread
+and one scorer each (``infer/scorer.py:score_videos``); the int8 tree is
+calibrated once and shared, and the decode pool (``-j``) is one for all.
+``--pack`` (default on a host of 4 or more cores, as in the JAX CLI;
+``--no_pack`` turns it off) packs ticks of several videos into each chunk
+(``ProposalScorer.score_video_pack``): the same scores, less padding.
 """
 
 from __future__ import annotations
@@ -71,12 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="force per-crop stem computation")
     parser.add_argument("--gpus", "--devices", dest="devices", nargs="+",
                         type=int, default=None,
-                        help="one local device index (multi-device fan-out "
-                             "is not in the port yet)")
+                        help="local GPU indices to fan the videos out over "
+                             "(default: every local GPU under --device "
+                             "cuda)")
     parser.add_argument("--pack", action="store_true", default=None,
-                        help="cross-video tick packing (not in the port yet)")
+                        help="cross-video tick packing: the same scores "
+                             "with less chunk padding. Default: on when "
+                             "the host has 4 or more cores")
     parser.add_argument("--no_pack", dest="pack", action="store_false",
-                        help="per-video scoring (the port's only mode)")
+                        help="score each video in chunks of its own")
     parser.add_argument("--use_reference", action="store_true", default=False,
                         help="score the published ImageNet-init reference "
                              "checkpoint, found in the local model cache "
@@ -96,18 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_slice(args) -> None:
-    """Refuse, by name, what the port does not cover yet."""
-    from .unported import HOST_THROUGHPUT, not_yet, refuse_unported_scoring
-
-    if args.pack:
-        raise not_yet("--pack", HOST_THROUGHPUT, "ssn_test")
-    refuse_unported_scoring(args, "ssn_test")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_slice(args)
 
     from ..models.backbones.quantize import supports_shared_stem
     from .opts import scoring_int8, scoring_weights
@@ -131,16 +128,16 @@ def main(argv=None):
                                  SyntheticFrameProvider,
                                  collect_calibration_frames, frame_template,
                                  make_test_transform)
+    from ..data.pipeline import make_decode_pool
     from ..data.ssn_dataset import SSNDataset
-    from ..infer.features import resolve_device
+    from ..infer.features import shared_prequantized
     from ..infer.scorer import (ProposalScorer, dump_scores_pickle,
                                 score_videos)
     from ..models import SSN
+    from ..parallel import cli_devices
     from ..train import load_checkpoint
 
-    device = resolve_device(args.device)
-    if args.devices and device.type == "cuda":
-        device = resolve_device(f"cuda:{args.devices[0]}")
+    devices = cli_devices(args.device, args.devices)
     cfg = get_configs(args.dataset)
 
     model = SSN(num_class=cfg.num_class, modality=args.modality,
@@ -175,29 +172,46 @@ def main(argv=None):
             dataset, provider, transform,
             new_length=model.resolved_new_length)
 
-    def scorer_factory(dev):
-        return ProposalScorer(model, spec, reg_stats=reg_stats,
-                              num_class=cfg.num_class, stpp_cfg=cfg.stpp,
-                              test_crops=args.test_crops,
-                              chunk_frames=args.test_batchsize,
-                              modality=args.modality, device=dev,
-                              with_regression=not args.no_regression,
-                              quantize=args.int8_mode if use_int8 else False,
-                              calibration_frames=calibration_frames,
-                              decode_threads=args.workers,
-                              shared_stem=use_shared)
+    # one decode pool for every device's scorer: -j threads in all
+    decode_pool = make_decode_pool(args.workers)
+    scorers = []
 
+    def make_scorer(dev, prequantized):
+        scorer = ProposalScorer(
+            model, spec, reg_stats=reg_stats, num_class=cfg.num_class,
+            stpp_cfg=cfg.stpp, test_crops=args.test_crops,
+            chunk_frames=args.test_batchsize, modality=args.modality,
+            device=dev, with_regression=not args.no_regression,
+            quantize=args.int8_mode if use_int8 else False,
+            calibration_frames=calibration_frames, shared_stem=use_shared,
+            prequantized=prequantized, decode_pool=decode_pool)
+        scorers.append(scorer)
+        return scorer
+
+    # the pack default adapts to the host, as the JAX CLI's: its
+    # continuous decode-ahead starves the consumer of a host of few cores
+    use_pack = (args.pack if args.pack is not None
+                else (os.cpu_count() or 1) >= 4)
     n = len(dataset.video_list)
     if args.max_num > 0:
         n = min(n, args.max_num)
     t0 = time.time()
-    results = score_videos(scorer_factory, dataset, provider,
-                           indices=range(n), device=device,
-                           keep_raw=args.save_raw_scores is not None,
-                           progress=True)
+    try:
+        results = score_videos(shared_prequantized(make_scorer, use_int8),
+                               dataset, provider, indices=range(n),
+                               devices=devices,
+                               keep_raw=args.save_raw_scores is not None,
+                               progress=True, pack=use_pack)
+    finally:
+        if decode_pool is not None:
+            decode_pool.shutdown(wait=False)
     dt = time.time() - t0
+    where = ", ".join(str(d) for d in devices)
     print(f"scored {len(results)} videos in {dt:.1f}s "
-          f"({dt / max(len(results), 1):.3f} sec/video) on {device}")
+          f"({dt / max(len(results), 1):.3f} sec/video) on {where}"
+          f"{' (packed)' if use_pack else ''}; "
+          f"{sum(s.device_ticks for s in scorers)} ticks scored on the "
+          f"device for {sum(s.real_ticks for s in scorers)} frame ticks")
     dump_scores_pickle(results, args.save_scores,
                        raw_path=args.save_raw_scores)
     print(f"scores saved to {args.save_scores}")

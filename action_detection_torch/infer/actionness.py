@@ -7,12 +7,16 @@ cut on the host (``--host_crops``, ``--test_crops 1``). Unlike the SSN
 scorer it keeps the score of every crop: features come crop-major as
 ``(crops * ticks, D)``, go through ``classifier_fc``, and are reshaped to
 ``(ticks, crops, K)``, the reference's per-crop pickle layout
-(``binary_test.py:84-94``) that TAG grouping reads.
+(``binary_test.py:84-94``) that TAG grouping reads. :func:`score_actionness`
+scores a list of videos over several devices: one thread and one scorer
+per device pulling videos from one queue (the JAX CLI's ``:300-400``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+import time
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +25,7 @@ from ..data.binary_dataset import BinaryTestSample
 from ..data.pipeline import pad_chunk_ticks
 from ..models.backbones import InputSpec
 from ..models.binary import BinaryClassifier
-from .features import CropFeatureScorer
+from .features import CropFeatureScorer, fan_out
 
 
 class ActionnessScorer(CropFeatureScorer):
@@ -34,14 +38,16 @@ class ActionnessScorer(CropFeatureScorer):
                  calibration_frames: Optional[np.ndarray] = None,
                  device_crops: Optional[bool] = None,
                  decode_threads: Optional[int] = None,
-                 shared_stem: Optional[bool] = None):
+                 shared_stem: Optional[bool] = None, prequantized=None,
+                 decode_pool=None):
         super().__init__(model, input_spec, test_crops=test_crops,
                          chunk_frames=chunk_frames, modality=modality,
                          device=device, quantize=quantize,
                          calibration_frames=calibration_frames,
                          device_crops=device_crops,
                          decode_threads=decode_threads,
-                         shared_stem=shared_stem)
+                         shared_stem=shared_stem, prequantized=prequantized,
+                         decode_pool=decode_pool)
         self.num_class = model.num_class
         with torch.no_grad():
             fc = model.classifier_fc
@@ -71,8 +77,42 @@ class ActionnessScorer(CropFeatureScorer):
             chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
             frames = torch.from_numpy(chunk).to(self.device)
             out.append(self._score_chunk(frames)[:n_real])
+            self.device_ticks += self.chunk_frames
+            self.real_ticks += n_real
         scores = torch.cat(out, dim=0).cpu().numpy()
         if scores.shape[0] != T:
             raise RuntimeError(f"scored {scores.shape[0]} of {T} ticks of "
                                f"{sample.video_id}")
         return scores
+
+
+def score_actionness(scorer_factory, dataset, provider,
+                     indices: Optional[Iterable[int]] = None,
+                     devices: Optional[Sequence] = None,
+                     progress: bool = False) -> Dict[str, np.ndarray]:
+    """``{video basename: (T, crops, K) logits}`` of ``dataset``'s videos
+    over ``devices`` (default: every local GPU): one scorer and one thread
+    a device pulling video indices from one queue (``features.py:
+    fan_out``). Keys are the video ids' basenames: proposal lists carry
+    frame-folder paths, TAG grouping matches dataset-DB ids."""
+    from ..parallel.mesh import select_devices
+
+    results: Dict[str, np.ndarray] = {}
+    lock = threading.Lock()
+    t0 = time.time()
+
+    def score_item(scorer, idx) -> None:
+        sample = dataset.get_test_sample(idx)
+        scores = scorer.score_video(sample, provider)
+        with lock:
+            results[sample.video_id.split("/")[-1]] = scores
+            done = len(results)
+        if progress:
+            print(f"video {idx} {sample.video_id} done "
+                  f"({(time.time() - t0) / done:.3f} sec/video)", flush=True)
+
+    fan_out(scorer_factory,
+            list(devices) if devices is not None else select_devices(),
+            indices if indices is not None
+            else range(len(dataset.video_list)), score_item)
+    return results

@@ -13,11 +13,22 @@ scoring) means the features over the crops before its fused FC;
 every crop's score. Constructing either turns TF32 off for cuDNN and
 matmuls, for parity with the JAX package's float32 convs and
 ``Precision.HIGHEST`` heads.
+
+Several scorers may score at once, one per device and thread (the
+fan-out of ``infer/scorer.py:score_videos`` and ``binary_test``): each
+holds its own copy of the weights on its device, the int8 tree comes from
+one calibration (``prequantized=``, :meth:`install_prequantized`), and a
+decode pool may be shared (``decode_pool=``) so the decode threads stay
+``-j`` in all.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import copy
+import queue
+import threading
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,7 +70,11 @@ class CropFeatureScorer:
     frames), on a sibling scorer's ``export_quantized()``
     (``prequantized``), or else on the first scored chunk; the per-layer
     one takes static scales from ``calibration_frames``, or dynamic scales
-    without them.
+    without them. A float model is copied to the device (the caller's
+    stays where it is, so scorers on several devices can share it).
+    ``decode_pool``: a decode executor shared with other scorers, which
+    :meth:`close` leaves running (default: a pool of its own of
+    ``decode_threads``).
     """
 
     def __init__(self, model, input_spec: InputSpec, test_crops: int = 10,
@@ -69,7 +84,7 @@ class CropFeatureScorer:
                  device_crops: Optional[bool] = None,
                  decode_threads: Optional[int] = None,
                  shared_stem: Optional[bool] = None,
-                 prequantized=None):
+                 prequantized=None, decode_pool=None):
         self.device = resolve_device(device)
         float32_convs_and_matmuls()
 
@@ -88,8 +103,14 @@ class CropFeatureScorer:
                            make_test_transform(input_spec.input_size,
                                                input_spec.scale_size,
                                                test_crops))
-        self._decode_pool = (make_decode_pool(decode_threads)
-                             if self.device_crops else None)
+        self._owns_pool = decode_pool is None
+        self._decode_pool = (None if not self.device_crops
+                             else make_decode_pool(decode_threads)
+                             if decode_pool is None else decode_pool)
+        #: frame ticks scored on the device, padding included, and the
+        #: real ones among them
+        self.device_ticks = 0
+        self.real_ticks = 0
 
         can_share = self.device_crops and supports_shared_stem(self.arch)
         self.shared_stem = bool(shared_stem) and can_share
@@ -139,7 +160,7 @@ class CropFeatureScorer:
                 if calib is not None:
                     self._calibrate(calib)
         else:
-            self.model.to(self.device)
+            self.model = copy.deepcopy(model).to(self.device)
 
     def export_quantized(self):
         """``(quantized tree, act_scales or None)`` on the CPU for a sibling
@@ -155,11 +176,23 @@ class CropFeatureScorer:
         """True while this scorer would calibrate on its next scored chunk."""
         return self._quantize_mode == "e2e" and self._quantized is None
 
+    def install_prequantized(self, export) -> None:
+        """Adopt a sibling scorer's :meth:`export_quantized` tree (the
+        fan-out shares one lazy calibration: per-device calibration would
+        give each device its own scales and device-dependent scores)."""
+        if not self._quantize_mode:
+            raise ValueError("install_prequantized requires quantize mode")
+        q, scales = export
+        self._quantized = tree_to(q, self.device)
+        if scales is not None:
+            self._act_scales = tree_to(scales, self.device)
+        self._qp = None
+
     def close(self) -> None:
-        """Shut down the decode thread pool (idempotent)."""
-        if self._decode_pool is not None:
+        """Shut down the decode thread pool it owns (idempotent)."""
+        if self._decode_pool is not None and self._owns_pool:
             self._decode_pool.shutdown(wait=False)
-            self._decode_pool = None
+        self._decode_pool = None
 
     def __enter__(self):
         return self
@@ -240,3 +273,121 @@ class CropFeatureScorer:
             if qe is not None:
                 return int8_e2e_features(self.arch, qe, x)
             return self.model.features(x)
+
+
+def shared_prequantized(make_scorer, use_int8: bool):
+    """A scorer factory that builds the first scorer itself (it calibrates,
+    or quantizes) and gives every later one its ``export_quantized()``
+    tree, under a lock (factories run on the fan-out's threads):
+    ``make_scorer(device, prequantized)``."""
+    shared = {}
+    lock = threading.Lock()
+
+    def factory(device):
+        if not use_int8:
+            return make_scorer(device, None)
+        with lock:
+            if "tree" not in shared:
+                scorer = make_scorer(device, None)
+                # None only when there were no calibration frames (every
+                # video empty): nothing calibrates lazily then either
+                shared["tree"] = scorer.export_quantized()
+                return scorer
+            tree = shared["tree"]
+        return make_scorer(device, tree)
+
+    return factory
+
+
+def on_device(device):
+    """The context that makes ``device`` this thread's current CUDA device
+    (the raw kernel launches go to the current device); nothing for the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def fan_out(scorer_factory, devices: Sequence, items: Iterable,
+            score_item: Callable) -> None:
+    """Score ``items`` over ``devices``, the scoring CLIs' fan-out: one
+    scorer a device (``scorer_factory(device)``, the first one built here)
+    and one thread a device, that device current, taking items from one
+    queue and calling ``score_item(scorer, item)``; the scorers are closed
+    at the end. Threads on one device share its default stream.
+
+    Lazy calibration election: when the first device's scorer would
+    calibrate int8 on its first chunk and there are several devices, this
+    thread scores items with it until an export exists (the first item
+    with ticks), and every other scorer installs that export before it
+    scores; so the scores do not depend on the device count. A factory's
+    or a worker's error is raised here."""
+    devices = list(devices)
+    if not devices:
+        raise RuntimeError("no device to score on")
+    work: "queue.Queue" = queue.Queue()
+    for item in items:
+        work.put(item)
+    errors: list = []
+    lock = threading.Lock()
+    shared = {"export": None}
+
+    def next_item():
+        try:
+            return True, work.get_nowait()
+        except queue.Empty:
+            return False, None
+
+    def drain(scorer) -> None:
+        while not errors:
+            more, item = next_item()
+            if not more:
+                return
+            if scorer.needs_lazy_calibration:
+                with lock:
+                    if shared["export"] is None:
+                        # until an export exists, a concurrent score would
+                        # calibrate scales of its own
+                        score_item(scorer, item)
+                        shared["export"] = scorer.export_quantized()
+                        continue
+                    scorer.install_prequantized(shared["export"])
+            score_item(scorer, item)
+
+    def worker(device, scorer=None) -> None:
+        try:
+            with on_device(device):
+                if scorer is None:
+                    scorer = scorer_factory(device)
+                try:
+                    drain(scorer)
+                finally:
+                    scorer.close()
+        except BaseException as e:      # raised on the caller's thread
+            with lock:
+                errors.append(e)
+
+    with on_device(devices[0]):
+        first = scorer_factory(devices[0])
+        try:
+            while (len(devices) > 1 and first.needs_lazy_calibration
+                   and shared["export"] is None):
+                more, item = next_item()
+                if not more:
+                    break
+                score_item(first, item)
+                # a zero-tick video scores no chunk: go on
+                shared["export"] = first.export_quantized()
+        except BaseException:
+            first.close()
+            raise
+    threads = [threading.Thread(target=worker,
+                                args=(d, first if i == 0 else None))
+               for i, d in enumerate(devices)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

@@ -12,26 +12,40 @@
 * Frame chunks are padded to a fixed tick count, as in the JAX package.
 * Proposal pooling is the cumsum-gather STPP on the device
   (``ops/stpp.py``), with part bounds from the host.
-
-This port scores on one device. Cross-video packing (``--pack``) and the
-multi-device fan-out come in later slices.
+* ``score_video_pack`` (``--pack``) packs ticks of several videos into the
+  same chunks: the padding is paid once per pack, not once per video, and
+  the scores are equal to per-video scoring (every row of a chunk is
+  scored on its own).
+* ``score_videos`` fans videos out over devices: one thread and one scorer
+  per device pulling from one queue, no collectives (the reference's
+  process per GPU, without processes). The int8-e2e calibration of the
+  first chunk is elected once and shared, so the scores do not depend on
+  the device count. ``make_sharded_frame_scorer`` splits one video's frames
+  over the devices instead.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Iterable, Optional
+import threading
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..data.pipeline import pad_chunk_ticks
+from ..data.pipeline import (iter_windowed_decode, load_scaled_stack,
+                             pad_chunk_ticks)
 from ..data.ssn_dataset import SSNDataset, TestSample
+from ..data.transforms import preprocess_frames
 from ..models.backbones import InputSpec
 from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
                         reorganized_stpp_pool)
-from .features import CropFeatureScorer
+from .features import CropFeatureScorer, fan_out, on_device
+
+#: videos a ``--pack`` work item holds (bounds the host memory of a pack)
+PACK_GROUP = 16
 
 
 @dataclasses.dataclass
@@ -66,7 +80,7 @@ class ProposalScorer(CropFeatureScorer):
                  device_crops: Optional[bool] = None,
                  decode_threads: Optional[int] = None,
                  shared_stem: Optional[bool] = None,
-                 prequantized=None):
+                 prequantized=None, decode_pool=None):
         self.reg_stats = (np.asarray(reg_stats) if reg_stats is not None
                           else None)
         if with_regression and self.reg_stats is None:
@@ -82,7 +96,8 @@ class ProposalScorer(CropFeatureScorer):
                          calibration_frames=calibration_frames,
                          device_crops=device_crops,
                          decode_threads=decode_threads,
-                         shared_stem=shared_stem, prequantized=prequantized)
+                         shared_stem=shared_stem, prequantized=prequantized,
+                         decode_pool=decode_pool)
         self.num_class = num_class or model.num_class
         self.with_regression = with_regression
 
@@ -147,6 +162,8 @@ class ProposalScorer(CropFeatureScorer):
             frames = torch.from_numpy(chunk).to(self.device)
             out_chunks.append(self._score_chunk(frames, self.chunk_frames))
             filled += n_real
+            self.device_ticks += self.chunk_frames
+            self.real_ticks += n_real
         if filled != T:
             raise RuntimeError(f"scored {filled} of {T} ticks of "
                                f"{sample.video_id}")
@@ -171,26 +188,177 @@ class ProposalScorer(CropFeatureScorer):
             raw_scores=(frame_scores[:T].cpu().numpy() if keep_raw
                         else None))
 
+    def score_video_pack(self, samples, provider,
+                         keep_raw: bool = False) -> List[ScoredVideo]:
+        """Score several videos with their ticks packed across videos.
+
+        ``score_video`` pads each video's ticks to a multiple of
+        ``chunk_frames``; here ticks of consecutive videos share chunks, so
+        a pack pays that padding once (per scale shape: videos whose
+        scaled frames differ in shape pack in separate buffers, and each
+        buffer's partial last chunk is padded). Every row of a chunk is
+        scored on its own, so the scores equal per-video scoring. The rows
+        come back to per-video matrices on the device: one
+        ``index_select`` over the chunks' scores and an appended zero row,
+        with indices computed on the host; each matrix has the row count
+        ``score_video`` gives the pool. The host-crop path scores per
+        video (its chunks are crop-major per video).
+        """
+        if not self.device_crops:
+            return [self.score_video(s, provider, keep_raw=keep_raw)
+                    for s in samples]
+        scale = self.input_spec.scale_size
+
+        def load_one(job) -> np.ndarray:
+            s = samples[job[0]]
+            return load_scaled_stack(provider, s.video_id, job[2],
+                                     s.num_frames, scale, self.new_length)
+
+        jobs = [(si, row, tick) for si, s in enumerate(samples)
+                for row, tick in enumerate(s.frame_ticks)]
+        decoded = iter_windowed_decode(jobs, load_one, self._decode_pool,
+                                       window=4 * self.chunk_frames)
+        pending = []        # (chunk scores on the device, [(video, row)])
+
+        def flush(buf) -> None:
+            chunk = pad_chunk_ticks(np.stack([a for _, _, a in buf]), 1,
+                                    self.chunk_frames)
+            scores = self._score_chunk(torch.from_numpy(chunk).to(
+                self.device), self.chunk_frames)
+            self.device_ticks += self.chunk_frames
+            self.real_ticks += len(buf)
+            pending.append((scores, [(si, row) for si, row, _ in buf]))
+
+        buffers: Dict[tuple, list] = {}        # per scale shape
+        for (si, row, _), arr in zip(jobs, decoded):
+            buf = buffers.setdefault(arr.shape, [])
+            buf.append((si, row, arr))
+            if len(buf) == self.chunk_frames:
+                flush(buf)
+                buffers[arr.shape] = []
+        for buf in buffers.values():            # partial chunks, padded
+            if buf:
+                flush(buf)
+        if not pending:
+            return [self._empty_scored(s, keep_raw=keep_raw)
+                    for s in samples]
+
+        row_of = {key: ci * self.chunk_frames + r
+                  for ci, (_, keys) in enumerate(pending)
+                  for r, key in enumerate(keys)}
+        with torch.no_grad():
+            first = pending[0][0]
+            all_scores = torch.cat([sc for sc, _ in pending]
+                                   + [first.new_zeros(1, first.shape[1])])
+        zero_row = all_scores.shape[0] - 1
+        outs = []
+        for si, s in enumerate(samples):
+            T = len(s.frame_ticks)
+            if T == 0:
+                outs.append(self._empty_scored(s, keep_raw=keep_raw))
+                continue
+            idx = np.full(-(-T // self.chunk_frames) * self.chunk_frames,
+                          zero_row, np.int64)
+            idx[:T] = [row_of[si, row] for row in range(T)]
+            with torch.no_grad():
+                mat = all_scores.index_select(
+                    0, torch.from_numpy(idx).to(self.device))
+            outs.append(self._pool_video(s, mat, T, keep_raw=keep_raw))
+        return outs
+
+
+def make_sharded_frame_scorer(model: SSN, kernel: torch.Tensor,
+                              bias: torch.Tensor, input_spec: InputSpec,
+                              devices: Sequence, modality: str = "RGB"):
+    """One long video's frames split over ``devices``: each device scores
+    its contiguous slice of the frames (one thread each, a copy of the
+    float model and the fused test FC on each), and the score matrix is
+    gathered on the first device. Returns ``frames_u8 (N, H, W, C) ->
+    scores (N, D)`` (crop-shaped uint8 frames, numpy or a tensor)."""
+    devices = [torch.device(d) for d in devices]
+    replicas = [(copy.deepcopy(model).eval().to(d), kernel.to(d),
+                 bias.to(d)) for d in devices]
+    new_length = model.resolved_new_length
+
+    def part(i: int, frames: torch.Tensor) -> torch.Tensor:
+        net, k, b = replicas[i]
+        with on_device(devices[i]), torch.no_grad():
+            x = preprocess_frames(frames.to(devices[i]), input_spec,
+                                  modality, new_length)
+            return torch.matmul(net.features(x), k) + b
+
+    def score(frames_u8) -> torch.Tensor:
+        parts = torch.tensor_split(torch.as_tensor(frames_u8), len(devices))
+        outs = _run_threads([lambda i=i, f=f: part(i, f)
+                             for i, f in enumerate(parts)])
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return score
+
+
+def _run_threads(fns: Sequence[Callable]) -> list:
+    """``fn()`` of each on a thread of its own; the results in order, or
+    the first error raised."""
+    results: list = [None] * len(fns)
+    errors: list = []
+
+    def run(i: int) -> None:
+        try:
+            results[i] = fns[i]()
+        except BaseException as e:      # re-raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
 
 def score_videos(scorer_factory, dataset: SSNDataset, provider,
-                 indices: Optional[Iterable[int]] = None, device="cuda",
-                 keep_raw: bool = False,
-                 progress: bool = False) -> Dict[str, ScoredVideo]:
-    """Score videos on one device with ``scorer_factory(device)``."""
+                 indices: Optional[Iterable[int]] = None,
+                 devices: Optional[Sequence] = None, keep_raw: bool = False,
+                 progress: bool = False,
+                 pack: bool = False) -> Dict[str, ScoredVideo]:
+    """Fan videos out over ``devices`` (default: every local GPU,
+    ``parallel/mesh.py:select_devices``): independent work, no collectives
+    (``features.py:fan_out``: one scorer and one thread a device, the
+    lazy-calibration election). The work items are videos, or groups of
+    ``PACK_GROUP`` with ``pack`` (``score_video_pack``; the group bounds
+    the host memory of a pack). A device may appear twice: two scorers
+    share it."""
+    from ..parallel.mesh import select_devices
+
     indices = list(indices if indices is not None
                    else range(len(dataset.video_list)))
+    items = ([indices[lo:lo + PACK_GROUP]
+              for lo in range(0, len(indices), PACK_GROUP)] if pack
+             else indices)
     results: Dict[str, ScoredVideo] = {}
-    scorer = scorer_factory(device)
-    try:
-        for i in indices:
-            out = scorer.score_video(dataset.get_test_sample(i), provider,
-                                     keep_raw=keep_raw)
-            results[out.video_id] = out
-            if progress:
-                print(f"scored {out.video_id} "
-                      f"({len(results)}/{len(indices)})", flush=True)
-    finally:
-        scorer.close()
+    lock = threading.Lock()
+
+    def score_item(scorer, item) -> None:
+        if pack:
+            outs = scorer.score_video_pack(
+                [dataset.get_test_sample(i) for i in item], provider,
+                keep_raw=keep_raw)
+        else:
+            outs = [scorer.score_video(dataset.get_test_sample(item),
+                                       provider, keep_raw=keep_raw)]
+        with lock:
+            for out in outs:
+                results[out.video_id] = out
+                if progress:
+                    print(f"scored {out.video_id} "
+                          f"({len(results)}/{len(indices)})", flush=True)
+
+    fan_out(scorer_factory,
+            list(devices) if devices is not None else select_devices(),
+            items, score_item)
     return results
 
 

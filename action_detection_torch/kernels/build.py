@@ -4,7 +4,8 @@ The sources in ``action_detection_torch/csrc/*.cu`` compile with nvcc into
 one shared library with a plain C interface, bound with ctypes. The build
 runs at first use into ``action_detection_torch/_build/`` (listed in
 .gitignore), named by a hash of the sources and flags so an edited source
-rebuilds: one nvcc per source, all started together, then one link. The
+rebuilds: one nvcc per source, all started together, then one link, under
+a file lock (processes that start together build once). The
 assembler's report of each kernel's registers, shared memory and spills
 (``-Xptxas -v``) is kept beside the library as ``<library>.log``. A missing
 nvcc or a failed build raises: there is no fallback.
@@ -20,7 +21,7 @@ import subprocess
 import tempfile
 import time
 
-from ..utils.build import BUILD_DIR, CSRC, hashed_library_path
+from ..utils.build import BUILD_DIR, CSRC, build_lock, hashed_library_path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -66,7 +67,15 @@ def build_library() -> tuple:
     path = hashed_library_path("libadt_kernels", NVCC_FLAGS, srcs)
     if os.path.isfile(path):
         return path, 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(path):
+        if os.path.isfile(path):        # another process built it meanwhile
+            return path, 0.0
+        return path, _compile(srcs, path)
+
+
+def _compile(srcs, path: str) -> float:
+    """nvcc: one process per source, then one link into ``path``; returns
+    the seconds it took."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -93,7 +102,7 @@ def build_library() -> tuple:
             f.writelines(f"== {os.path.basename(src)}\n{out}"
                          for src, out, _ in logs)
         os.replace(lib, path)
-    return path, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

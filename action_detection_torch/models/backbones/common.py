@@ -7,6 +7,12 @@ BN normalizes with its running statistics, the default), ``partial`` (only
 the first BN of the backbone uses batch statistics) and ``full`` (every BN
 does). Its affine parameters are never trained in any mode: the optimizer
 leaves them out (``train/optim.py``).
+
+Inside a process group of several ranks (data-parallel training,
+``parallel/mesh.py``) both stay the global batch's, as in the JAX
+package's jitted step over a sharded batch: batch statistics are
+all-reduced across the ranks, and dropout masks are cut from one mask over
+the global batch.
 """
 
 from __future__ import annotations
@@ -18,7 +24,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...parallel.mesh import distributed
+
 BN_MODES = ("frozen", "partial", "full")
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is in float64 (the parity tests' dtype)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -31,7 +44,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     gradients through both; and it keeps them in ``pending`` until
     :func:`commit_batch_stats` folds them into the running statistics.
     (``nn.BatchNorm2d`` in train mode would update ``running_var`` with the
-    unbiased variance.) The output has the input's dtype.
+    unbiased variance.) The output has the input's dtype; a float64 input
+    is normalized in float64.
+
+    Under a process group of several ranks the statistics are the global
+    batch's: the sums of x and x^2 and the count are all-reduced with a
+    differentiable all-reduce (its backward sums the ranks' gradients), so
+    every rank normalizes alike and gradients flow through the global mean
+    (``SyncBatchNorm`` would take the unbiased variance into the running
+    statistics too).
     """
 
     use_batch_stats = False
@@ -44,9 +65,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not (self.training and self.use_batch_stats):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        xf = at_least_f32(x)
+        if distributed():
+            from torch.distributed.nn.functional import all_reduce
+
+            count = torch.full_like(xf[0, :, 0, 0], xf.numel() / xf.shape[1])
+            sums = all_reduce(torch.stack([xf.sum((0, 2, 3)),
+                                           (xf * xf).sum((0, 2, 3)), count]))
+            mean, ex2 = sums[0] / sums[2], sums[1] / sums[2]
+        else:
+            mean, ex2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         self.pending = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
@@ -85,11 +114,21 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout with its keep mask drawn from ``generator`` (the
     train step's explicit generator, on ``x``'s device); the caller applies
-    it in train mode only."""
+    it in train mode only. Under a process group of several ranks, whose
+    generators share one seed, the mask is drawn over the global batch
+    (``world`` times ``x``'s rows) and this rank keeps its rows, so a step
+    of several ranks draws what one rank would on the whole batch."""
     if rate <= 0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) >= rate
+    shape, rows = tuple(x.shape), slice(None)
+    if distributed():
+        import torch.distributed as dist
+
+        n = shape[0]
+        shape = (n * dist.get_world_size(),) + shape[1:]
+        rows = slice(dist.get_rank() * n, (dist.get_rank() + 1) * n)
+    keep = torch.rand(shape, generator=generator,
+                      device=x.device)[rows] >= rate
     return x * keep / (1.0 - rate)
 
 

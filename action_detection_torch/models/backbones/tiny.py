@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm2d, run_stage, set_bn_mode
+from .common import BatchNorm2d, at_least_f32, run_stage, set_bn_mode
 
 FEATURE_DIM = 32
 
@@ -43,7 +43,7 @@ class TinyConv(nn.Module):
         pw = _same_pad(x.shape[3], 3, 2)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         with torch.autocast(x.device.type, enabled=False):
-            y = getattr(self, name)(x.float())
+            y = getattr(self, name)(at_least_f32(x))
         return F.relu(getattr(self, name + "_bn")(y).to(x.dtype))
 
     def _net(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,5 +51,7 @@ class TinyConv(nn.Module):
         return self._conv_bn("conv2_3x3", x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) normalized frames -> (N, 32) f32 features."""
-        return run_stage(self._net, x, self.remat).mean(dim=(2, 3)).float()
+        """(N, H, W, C) normalized frames -> (N, 32) f32 features (f64 for
+        f64 input)."""
+        return at_least_f32(run_stage(self._net, x, self.remat)
+                            .mean(dim=(2, 3)))

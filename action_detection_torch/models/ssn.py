@@ -25,7 +25,7 @@ from torch import nn
 
 from ..ops.stpp import StppConfig, stpp_train_pool
 from .backbones import get_backbone
-from .backbones.common import BatchNorm2d, dropout
+from .backbones.common import BatchNorm2d, at_least_f32, dropout
 from .backbones.vgg import VGG
 
 
@@ -40,8 +40,9 @@ class FrozenBNClassifier(nn.Module):
                  bn_mode: str = "frozen", dtype: torch.dtype = torch.float32,
                  remat: bool = False):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype {dtype}: float32 or bfloat16")
+        if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+            # float64 holds parity tests to rounding (TinyConv, no max pool)
+            raise ValueError(f"dtype {dtype}: float32, bfloat16 or float64")
         self.arch = base_model
         self.modality = modality
         self.new_length = new_length
@@ -66,7 +67,8 @@ class FrozenBNClassifier(nn.Module):
 
     def features(self, frames: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(N, H, W, C) normalized frames -> (N, D) float32 features, with
+        """(N, H, W, C) normalized frames -> (N, D) float32 (float64 in a
+        float64 model) features, with
         the head dropout in train mode (mask drawn from ``generator``, as
         VGG's classifier dropouts are).
         In bf16 the frames are rounded to bf16 first and the backbone runs
@@ -77,7 +79,8 @@ class FrozenBNClassifier(nn.Module):
               else {})
         with torch.autocast(frames.device.type, dtype=torch.bfloat16,
                             enabled=bf16):
-            feats = self.base_model(frames.to(self.dtype), **kw).float()
+            feats = at_least_f32(self.base_model(frames.to(self.dtype),
+                                                 **kw))
         if self.training:
             feats = dropout(feats, self.dropout, generator)
         return feats

@@ -55,7 +55,15 @@ def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
                     best_loss: float = float("inf"),
                     is_best: bool = False) -> None:
     """Write a checkpoint atomically (temp file + rename); with ``is_best``
-    also its ``model_best`` copy (:func:`best_name`)."""
+    also its ``model_best`` copy (:func:`best_name`). ``state_dict`` is the
+    bare model's: a ``DistributedDataParallel`` wrapper's ``module.`` keys
+    raise (the JAX package's ``convert_torch_ssn_checkpoint`` reads this
+    format). In a data-parallel run only rank 0 calls this."""
+    wrapped = [k for k in state_dict if k.startswith("module.")]
+    if wrapped:
+        raise ValueError(f"state_dict keys {wrapped[:3]} carry a "
+                         "DistributedDataParallel 'module.' prefix: save the "
+                         "unwrapped model's state_dict")
     state = {"state_dict": {k: v.detach().cpu() for k, v in
                             state_dict.items()},
              "reg_stats": (torch.as_tensor(np.asarray(reg_stats))

@@ -20,7 +20,10 @@ gradient) is the same update as the JAX package's optax chain:
 ``iter_size`` k is ``optax.MultiSteps``: the gradients of k mini-steps are
 averaged (its running mean ``acc += (g - acc) / (i + 1)``), and the k-th
 call clips, decays and applies that average; parameters and momentum do
-not move in between. The schedule counts applied updates, so an epoch is
+not move in between. Under ``DistributedDataParallel`` every mini-step's
+backward all-reduces (no ``no_sync``), so the accumulator averages global
+gradients and the update equals one rank's on the whole batch. The
+schedule counts applied updates, so an epoch is
 ``steps_per_epoch // iter_size`` of them, and ``start_epoch`` starts it at
 that epoch's count (a resumed run starts decayed). A resume restarts the
 momentum at zero: the checkpoints hold no optimizer state, as in the JAX

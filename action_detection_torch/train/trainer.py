@@ -14,6 +14,15 @@ A step takes a uint8 batch from :func:`~..data.pipeline.assemble_train_batch`
 (moved to the device with :func:`batch_to_device`); preprocessing runs on
 the device. Its backward runs every max pool of the float backbone through
 the hand-written kernel A1 (``ops/pooling.py``).
+
+Data parallel: pass the model under ``DistributedDataParallel``
+(``parallel/mesh.py:wrap_ddp``) and each rank runs these steps on its
+slice of the global batch. The forward goes through the wrapper, so the
+gradients are the global batch's mean when ``backward`` returns (and so is
+``grad_norm``); BatchNorm statistics and dropout masks are the global
+batch's (``models/backbones/common.py``), and the metrics the steps return
+are means over the ranks (``parallel/mesh.py:all_reduce_mean``), as the
+JAX package's step over a sharded batch computes them.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..data.transforms import preprocess_frames
 from ..models.backbones.common import commit_batch_stats
 from ..ops.losses import (accuracy, activity_cross_entropy,
                           classwise_regression_loss, completeness_loss)
+from ..parallel.mesh import all_reduce_mean, unwrap
 from .optim import SSNOptimizer
 
 
@@ -90,16 +100,18 @@ def make_loss_fn(model: nn.Module, sampling: SamplingConfig,
     with the model's input spec and modality).
 
     ``loss_fn(batch, train, generator)`` returns ``(total, metrics)``; it
-    sets the model's mode (``train`` enables the head dropout).
+    sets the model's mode (``train`` enables the head dropout). ``model``
+    may be under ``DistributedDataParallel``: the forward runs through it.
     """
     P = sampling.prop_per_video
-    new_length = model.resolved_new_length
+    module = unwrap(model)
+    new_length = module.resolved_new_length
 
     def loss_fn(batch: Dict[str, torch.Tensor], train: bool = True,
                 generator: Optional[torch.Generator] = None):
         model.train(train)
-        frames = preprocess_frames(batch["frames"], model.input_spec,
-                                   model.modality, new_length)
+        frames = preprocess_frames(batch["frames"], module.input_spec,
+                                   module.modality, new_length)
         act, comp, reg = model(frames, batch["scaling"], generator)
 
         B = act.shape[0] // P
@@ -148,14 +160,16 @@ def make_loss_fn(model: nn.Module, sampling: SamplingConfig,
 def make_binary_loss_fn(model: nn.Module):
     """The binary actionness loss: softmax cross entropy of the
     course-segment-mean logits against the fg/bg labels, and the accuracy
-    (``loss_fn(batch, train, generator) -> (loss, metrics)``)."""
-    new_length = model.resolved_new_length
+    (``loss_fn(batch, train, generator) -> (loss, metrics)``); ``model``
+    may be under ``DistributedDataParallel``."""
+    module = unwrap(model)
+    new_length = module.resolved_new_length
 
     def loss_fn(batch: Dict[str, torch.Tensor], train: bool = True,
                 generator: Optional[torch.Generator] = None):
         model.train(train)
-        frames = preprocess_frames(batch["frames"], model.input_spec,
-                                   model.modality, new_length)
+        frames = preprocess_frames(batch["frames"], module.input_spec,
+                                   module.modality, new_length)
         logits = model(frames, generator)
         loss = F.cross_entropy(logits, batch["labels"])
         return loss, {"loss": loss, "acc": accuracy(logits, batch["labels"])}
@@ -173,24 +187,32 @@ def make_train_step(model: nn.Module, optimizer: SSNOptimizer,
     (``make_binary_loss_fn``). The optimizer applies an update on every
     ``iter_size``-th call. The head dropout draws from a
     ``torch.Generator`` seeded with ``seed`` on the model's device,
-    advanced by every step.
+    advanced by every step. Under ``DistributedDataParallel`` every rank
+    takes the same ``seed``; the metrics are means over the ranks and
+    ``grad_norm`` is the norm of the all-reduced gradient.
     """
     loss_fn = loss_fn or make_loss_fn(model, sampling, weights)
-    device = next(model.parameters()).device
+    module = unwrap(model)
+    device = next(module.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
+        # every parameter's, the frozen BN's too: the optimizer leaves those
+        # out, and their gradients would pile up into grad_norm
+        module.zero_grad(set_to_none=True)
         total, metrics = loss_fn(batch, True, generator)
         total.backward()
-        commit_batch_stats(model)
+        commit_batch_stats(module)
         # gradient norm over every parameter, frozen BN included (the JAX
         # package's optax.global_norm of the whole gradient tree)
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        grads = [p.grad for p in module.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        grad_norm = metrics.pop("grad_norm").detach()
+        metrics = all_reduce_mean({k: v.detach() for k, v in
+                                   metrics.items()})
+        return dict(metrics, grad_norm=grad_norm)
 
     return train_step
 
@@ -199,12 +221,14 @@ def make_eval_step(model: nn.Module,
                    sampling: Optional[SamplingConfig] = None,
                    weights: LossWeights = LossWeights(), loss_fn=None):
     """The loss and metrics of one batch under ``no_grad``, dropout off and
-    BatchNorm on its running statistics: ``eval_step(batch) -> metrics``."""
-    loss_fn = loss_fn or make_loss_fn(model, sampling, weights)
+    BatchNorm on its running statistics: ``eval_step(batch) -> metrics``,
+    means over the ranks in a process group (each rank passes its slice of
+    the global batch)."""
+    loss_fn = loss_fn or make_loss_fn(unwrap(model), sampling, weights)
 
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             _, metrics = loss_fn(batch, False)
-        return metrics
+        return all_reduce_mean(metrics)
 
     return eval_step

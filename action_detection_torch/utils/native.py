@@ -25,7 +25,7 @@ import tempfile
 
 import numpy as np
 
-from .build import BUILD_DIR, CSRC, hashed_library_path
+from .build import BUILD_DIR, CSRC, build_lock, hashed_library_path
 
 SOURCE = os.path.join(CSRC, "adt_native.cpp")
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
@@ -50,7 +50,13 @@ def build_native(build_dir: str = BUILD_DIR) -> str:
                                build_dir)
     if os.path.isfile(path):
         return path
-    os.makedirs(build_dir, exist_ok=True)
+    with build_lock(path):
+        if not os.path.isfile(path):    # nobody built it meanwhile
+            _compile(cxx, path, build_dir)
+    return path
+
+
+def _compile(cxx: str, path: str, build_dir: str) -> None:
     log = path + ".log"
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         lib = os.path.join(tmp, "lib.so")
@@ -68,7 +74,6 @@ def build_native(build_dir: str = BUILD_DIR) -> str:
             raise ImportError(f"the C++ host kernels did not build (log "
                               f"{log}):\n{out}")
         os.replace(lib, path)
-    return path
 
 
 @functools.lru_cache(maxsize=None)

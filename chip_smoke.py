@@ -42,7 +42,7 @@ before the final line):
               ``F.max_pool2d`` on the channels-last view for K2, where
               torch's CUDA max pool takes int8). A1 also launches twice on
               the same inputs (equal bits).
-4. main     — five paths, each with the launch counts set to 0 just before
+4. main     — the main paths, each with the launch counts set to 0 just before
               it and read just after, each required to launch its kernels:
               the port's ``ssn_test`` CLI in-process at full width with the
               int8-e2e shared-stem default and seeded random weights, on 2
@@ -106,6 +106,24 @@ before the final line):
               float32 and ``--bf16``. Each run prints its CLI wall time, median
               step time (CUDA events, steps 2 on), images/s, host
               batch-assembly seconds a step, peak memory and A1 launches.
+              Then the data-parallel paths (``run_data_parallel``), each a
+              path of its own: ``ssn_test --pack`` and ``--no_pack`` in
+              turns on four videos of unequal length (``PACK_FRAMES``),
+              equal pickles and fewer padded ticks (the walls, the ticks
+              the device scored and K1-K3's launches printed);
+              ``score_videos`` over ``[cuda:0, cuda:0]`` (two threads, two
+              scorers, int8-e2e calibrated lazily) and ``binary_test``'s
+              queue likewise, each equal to one device; two DDP ranks
+              spawned on the card (gloo: NCCL refuses two ranks on one
+              GPU) at -b ``DDP_VIDEOS`` against one rank on the same global
+              batches (BNInception, ``bn_mode`` partial, dropout 0.8; loss
+              and grad_norm within 1e-4, every tensor that started nonzero
+              within 1e-4 of its largest value; A1 in every rank); and
+              ``ssn_train -b 8`` without a process group and through the
+              multi-host flags on NCCL (one rank under DDP), its
+              checkpoint scored by ``ssn_test``. The ``kernels`` line
+              gives each kernel's launches on these paths
+              (``parallel_paths``).
 5. checks   — for BNInception (RGB and RGBDiff) and InceptionV3: the
               int8-e2e trunk held bit-exact against the plain kernels on
               the CPU, the int8 features against the float backbone (cos >
@@ -165,6 +183,14 @@ INT8_OPS = 1979e12  # dense int8 tensor-core peak, ops/s (NVIDIA data sheet)
 CORE_OPS = 67e12    # float32 peak outside the tensor cores, ops/s (the same)
 TPU_SRC = "action_detection_tpu/models/backbones/bn_inception_int8.py"
 IV3_SRC = "action_detection_tpu/models/backbones/inception_v3_int8.py"
+PACK_FRAMES = (1560, 1100, 700, 390)   # the pack and fan-out videos' lengths
+#: the paths of ``run_data_parallel``
+PARALLEL_PATHS = ("ssn_test--pack", "ssn_test--no_pack", "score_videos x1",
+                  "score_videos x2", "binary_queue x1", "binary_queue x2",
+                  "ddp_2_ranks", "ssn_train_plain", "ssn_train_nccl",
+                  "ssn_test_nccl")
+DDP_VIDEOS = 4        # -b of each of the two DDP ranks (the reference: 8)
+DDP_STEPS = 2
 REG_STATS = [[0.01, -0.02], [0.1, 0.2]]    # the checkpoints' reg_stats
 PIPELINE_FRAMES = 1560    # frames of each pipeline test video (52 s, 30 fps)
 PIPELINE_INTERVAL = 5     # binary_test's --frame_interval (its default)
@@ -558,24 +584,32 @@ def check_kernels(card: str) -> list:
     return rows
 
 
-def write_fixture(d: str, n_videos: int = 2, frames: int = 1560,
+def write_fixture(d: str, n_videos: int = 2, frames=1560,
                   split: str = "thumos14_tag_test",
                   num_class: int = 20) -> str:
     """A proposal list (the repo's test-fixture format) with fg, incomplete
-    and background proposals per video."""
+    and background proposals per video; ``frames`` is every video's frame
+    count, or a list of them (one video each, the proposals of a
+    1,560-frame video scaled to its length)."""
+    lengths = ([frames] * n_videos if isinstance(frames, int)
+               else list(frames))
     lines = []
-    for v in range(n_videos):
-        gt = [(1 + v % num_class, 260, 780),
-              (1 + (v + 7) % num_class, 1040, 1352)]
+    for v, n in enumerate(lengths):
+        def at(f, n=n):
+            return round(f * n / 1560)
+
+        gt = [(1 + v % num_class, at(260), at(780)),
+              (1 + (v + 7) % num_class, at(1040), at(1352))]
         props = []
         for g in gt:
-            props += [(g[0], 0.85, 0.9, g[1] - 52, g[2] + 13),
-                      (g[0], 0.75, 0.95, g[1] + 13, g[2] - 39),
-                      (g[0], 0.2, 0.9, g[1] + 78, g[1] + 286),
-                      (g[0], 0.15, 0.85, g[1] + 130, g[1] + 338)]
-        props += [(0, 0.0, 0.0, 1378, 1547), (0, 0.005, 0.0, 26, 234)]
+            props += [(g[0], 0.85, 0.9, g[1] - at(52), g[2] + at(13)),
+                      (g[0], 0.75, 0.95, g[1] + at(13), g[2] - at(39)),
+                      (g[0], 0.2, 0.9, g[1] + at(78), g[1] + at(286)),
+                      (g[0], 0.15, 0.85, g[1] + at(130), g[1] + at(338))]
+        props += [(0, 0.0, 0.0, at(1378), at(1547)),
+                  (0, 0.005, 0.0, at(26), at(234))]
         vid = f"video_{split.rsplit('_', 1)[-1]}_{v:07d}"
-        lines.append(f"# {v}\n{vid}\n{frames}\n1\n{len(gt)}\n")
+        lines.append(f"# {v}\n{vid}\n{n}\n1\n{len(gt)}\n")
         lines += [f"{g[0]} {g[1]} {g[2]}\n" for g in gt]
         lines.append(f"{len(props)}\n")
         lines += [f"{p[0]} {p[1]:.4f} {p[2]:.4f} {p[3]} {p[4]}\n"
@@ -843,6 +877,7 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
         paths.update(run_checkpoints(d, smi))
         paths["binary_test"] = run_pipeline(d, smi)
         paths.update(run_training_clis(d, smi, rows))
+        paths.update(run_data_parallel(d, smi))
 
         check_train_step_small(d)
         if profile:
@@ -1399,6 +1434,398 @@ def run_training_clis(d: str, smi: str, rows: dict) -> dict:
                        == a1["max_pool_bwd"], f"{arch} --bf16: A1 launches "
                        f"{a1['max_pool_bwd']}, of them bf16 "
                        f"{a1['max_pool_bwd/bf16']}")
+    return paths
+
+
+class _Tee:
+    """A stdout that also keeps what was written (``tee_stdout``)."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def tee_stdout(fn) -> str:
+    """``fn()`` with its output printed as usual; returns the output."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        fn()
+    return tee.buf.getvalue()
+
+
+def _max_abs_delta(a: dict, b: dict) -> float:
+    """The largest |a - b| over two score pickles (``{video: array}`` or
+    ``{video: tuple of arrays}``); inf where videos or shapes differ."""
+    import numpy as np
+
+    if set(a) != set(b):
+        return float("inf")
+    worst = 0.0
+    for vid in a:
+        xs, ys = a[vid], b[vid]
+        if isinstance(xs, np.ndarray):
+            xs, ys = [xs], [ys]
+        for x, y in zip(xs, ys):
+            if x is None or y is None:
+                if x is not y:
+                    return float("inf")
+                continue
+            if x.shape != y.shape:
+                return float("inf")
+            if x.size:
+                worst = max(worst, float(np.abs(x.astype(np.float64)
+                                                - y).max()))
+    return worst
+
+
+def run_data_parallel(d: str, smi: str) -> dict:
+    """Main path, part 7: the data-parallel paths, each its own path
+    (launch counts set to 0 before, K1-K3 or A1 required after), in
+    ``d/parallel``: ``ssn_test --pack`` against ``--no_pack`` on four
+    videos of unequal length (``PACK_FRAMES``; equal pickles, fewer padded
+    ticks); ``score_videos`` over ``[cuda:0, cuda:0]`` (two threads, two
+    scorers, one card, int8-e2e calibrated lazily on the first chunk)
+    against one device; ``binary_test``'s queue (``score_actionness``)
+    likewise; two DDP ranks on the card on gloo at -b ``DDP_VIDEOS`` each
+    against one rank at twice that on the same global batches
+    (``ddp_two_ranks``); and ``ssn_train`` through the multi-host flags on
+    NCCL against the CLI without a process group, its checkpoint scored by
+    ``ssn_test``. Returns each path's launches."""
+    import contextlib
+    import re
+
+    import numpy as np
+
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.config import get_configs
+    from action_detection_torch.data.binary_dataset import BinaryDataset
+    from action_detection_torch.data.pipeline import (
+        SyntheticFrameProvider, collect_calibration_frames,
+        make_test_transform)
+    from action_detection_torch.data.ssn_dataset import SSNDataset
+    from action_detection_torch.infer.actionness import (ActionnessScorer,
+                                                         score_actionness)
+    from action_detection_torch.infer.features import shared_prequantized
+    from action_detection_torch.infer.scorer import (ProposalScorer,
+                                                     score_videos)
+    from action_detection_torch.models import BinaryClassifier, seeded_init
+
+    t_start = time.perf_counter()
+    k1_3 = ("int8_conv", "int8_max_pool", "int8_avg_pool")
+    p = os.path.join(d, "parallel")
+    os.makedirs(p)
+    write_fixture(p, frames=PACK_FRAMES)
+    write_fixture(p, frames=PACK_FRAMES, split="thumos14_sw_test")
+    n_videos = len(PACK_FRAMES)
+    ckpt = os.path.join(d, "bninception_rgb.pt")
+    paths, pickles, ticks, walls = {}, {}, {}, {}
+    # in turns, so neither mode alone pays a first run's warm-up
+    for mode in ("--pack", "--no_pack", "--no_pack", "--pack"):
+        out = os.path.join(p, f"{mode[2:]}.pkl")
+        text = {}
+        argv = ["thumos14", "RGB", ckpt, out, "--synthetic_data",
+                "--prop_file_dir", p, mode]
+        paths[f"ssn_test{mode}"] = drive(
+            f"ssn_test thumos14 RGB {mode} ({n_videos} videos of "
+            f"{'/'.join(map(str, PACK_FRAMES))} frames)",
+            lambda argv=argv: text.update(out=tee_stdout(
+                lambda: ssn_test(argv))), k1_3)
+        m = re.search(r"(\d+) ticks scored on the device for (\d+) frame "
+                      r"ticks", text["out"])
+        ticks[mode] = (int(m.group(1)), int(m.group(2)))
+        walls.setdefault(mode, []).append(
+            paths[f"ssn_test{mode}"]["wall_s"])
+        check_pickle(out, 20, n_videos)
+        with open(out, "rb") as f:
+            pickles[mode] = pickle.load(f)
+    delta = _max_abs_delta(pickles["--pack"], pickles["--no_pack"])
+    (pk, real), (nk, _) = ticks["--pack"], ticks["--no_pack"]
+    pw, nw = (", ".join(f"{w:.2f}" for w in walls[m])
+              for m in ("--pack", "--no_pack"))
+    print(f"pack: --pack walls {pw} s, {pk} ticks on the device "
+          f"({pk - real} padding); --no_pack walls {nw} s, {nk} ticks "
+          f"({nk - real} padding), for {real} frame ticks; pickles max "
+          f"|d| {delta}; K1/K2/K3 launches --pack "
+          + "/".join(str(paths["ssn_test--pack"][k]) for k in k1_3)
+          + " --no_pack "
+          + "/".join(str(paths["ssn_test--no_pack"][k]) for k in k1_3)
+          + f" ({smi})", flush=True)
+    if delta != 0.0 or not pk < nk:
+        raise AssertionError(f"--pack: max |d| {delta} against --no_pack, "
+                             f"{pk} vs {nk} device ticks")
+
+    # the fan-out: two scorers, two threads, one card
+    cfg = get_configs("thumos14")
+    model, _ = _seeded_checkpoint(p, "fanout", 20, "BNInception", "RGB",
+                                  seed=0)
+    ds = SSNDataset(os.path.join(p, "thumos14_tag_test_proposal_list.txt"),
+                    cfg.sampling, test_interval=6)
+    provider = SyntheticFrameProvider()
+
+    def proposal_scorer(device):
+        return ProposalScorer(model, model.input_spec, reg_stats=REG_STATS,
+                              num_class=20, stpp_cfg=cfg.stpp,
+                              chunk_frames=64, device=device,
+                              quantize="e2e", shared_stem=True)
+
+    runs = {}
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        key = f"score_videos x{len(devices)}"
+        paths[key] = drive(
+            f"score_videos over {devices} (lazy int8 calibration)",
+            lambda devices=devices, key=key: runs.update({key: {
+                v: r.as_tuple() for v, r in score_videos(
+                    proposal_scorer, ds, provider,
+                    devices=devices).items()}}), k1_3)
+    delta = _max_abs_delta(runs["score_videos x1"], runs["score_videos x2"])
+    print(f"fan-out: score_videos wall one device "
+          f"{paths['score_videos x1']['wall_s']:.2f} s, two scorers on "
+          f"[cuda:0, cuda:0] {paths['score_videos x2']['wall_s']:.2f} s; "
+          f"pickles max |d| {delta} ({smi})", flush=True)
+    if delta != 0.0:
+        raise AssertionError(f"fan-out: max |d| {delta} against one device")
+
+    binary = seeded_init(BinaryClassifier(dropout=0.0), seed=8)
+    bds = BinaryDataset(os.path.join(p, "thumos14_sw_test_proposal_list.txt"),
+                        new_length=1, test_interval=5)
+    spec = binary.input_spec
+    calib = collect_calibration_frames(
+        bds, provider, make_test_transform(spec.input_size, spec.scale_size,
+                                           10), new_length=1)
+
+    def make_actionness(device, prequantized):
+        return ActionnessScorer(binary, spec, device=device, quantize="e2e",
+                                calibration_frames=calib, shared_stem=True,
+                                prequantized=prequantized)
+
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        key = f"binary_queue x{len(devices)}"
+        paths[key] = drive(
+            f"binary_test queue over {devices}",
+            lambda devices=devices, key=key: runs.update({key: (
+                score_actionness(shared_prequantized(make_actionness, True),
+                                 bds, provider, devices=devices))}), k1_3)
+    delta = _max_abs_delta(runs["binary_queue x1"], runs["binary_queue x2"])
+    print(f"fan-out: binary_test queue wall one device "
+          f"{paths['binary_queue x1']['wall_s']:.2f} s, [cuda:0, cuda:0] "
+          f"{paths['binary_queue x2']['wall_s']:.2f} s; pickles max |d| "
+          f"{delta} ({smi})", flush=True)
+    if delta != 0.0 or len(runs["binary_queue x2"]) != n_videos:
+        raise AssertionError(f"binary queue: max |d| {delta}")
+
+    paths.update(ddp_two_ranks(d, p, smi))
+    with contextlib.chdir(os.path.join(d, "train")):
+        paths.update(ddp_cli(d, smi))
+    print(f"timing: the data-parallel phases {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
+    return paths
+
+
+def _ddp_setup(d: str, device: str):
+    """The model, optimizer and train step of the DDP comparison: a seeded
+    BNInception SSN (dropout 0.8, the first BN on batch statistics:
+    ``bn_mode`` partial, whose statistics are all-reduced), under DDP
+    inside a process group."""
+    from action_detection_torch.config import get_configs
+    from action_detection_torch.models import SSN, seeded_init
+    from action_detection_torch.parallel import wrap_ddp
+    from action_detection_torch.train import make_optimizer, make_train_step
+
+    cfg = get_configs("thumos14")
+    model = seeded_init(SSN(num_class=cfg.num_class, stpp_cfg=cfg.stpp,
+                            bn_mode="partial"), seed=1).to(device)
+    opt = make_optimizer(model, base_lr=0.001, lr_steps=[3, 6],
+                         steps_per_epoch=DDP_STEPS, clip_gradient=20.0)
+    step = make_train_step(wrap_ddp(model, device), opt, cfg.sampling,
+                           seed=1)
+    return model, step
+
+
+def _ddp_steps(d: str, rank: int, world: int) -> dict:
+    """``DDP_STEPS`` train steps on this rank's slice of the saved global
+    batches: metrics, step ms (CUDA events), the final state_dict and this
+    rank's launch counts."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+    from action_detection_torch.parallel import shard_batch
+    from action_detection_torch.train import batch_to_device
+
+    model, step = _ddp_setup(d, "cuda")
+    reset_launch_counts()
+    metrics, ms = [], []
+    for i in range(DDP_STEPS):
+        with np.load(os.path.join(d, f"ddp_batch{i}.npz")) as z:
+            batch = shard_batch({k: z[k] for k in z.files}, rank, world)
+        db = batch_to_device(batch, "cuda")
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        met = step(db)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(e))
+        metrics.append({k: v.item() for k, v in met.items()})
+    return {"metrics": metrics, "ms": ms, "launches": launch_counts(),
+            "state": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}}
+
+
+def _ddp_rank(rank: int, world: int, port: int, d: str) -> None:
+    """One spawned DDP rank on ``cuda:0`` (gloo: NCCL refuses two ranks on
+    one card); its result goes to ``d/ddp_rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from action_detection_torch.parallel import initialize_multihost
+    from action_detection_torch.train import float32_convs_and_matmuls
+
+    torch.cuda.set_device(0)
+    float32_convs_and_matmuls()
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, "gloo")
+    try:
+        out = _ddp_steps(d, rank, world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(d, f"ddp_rank{rank}.pt"))
+
+
+def ddp_two_ranks(d: str, p: str, smi: str) -> dict:
+    """Two DDP ranks on the card (spawned, gloo) at -b ``DDP_VIDEOS`` each
+    against one rank (this process, no process group) at -b
+    ``2 * DDP_VIDEOS`` on the same global batches, ``DDP_STEPS`` steps:
+    loss and grad_norm within 1e-4 relative, and every parameter's worst
+    difference relative to its largest value (limit 1e-4; near-tied max
+    pool windows may route differently where cuDNN picks another
+    algorithm at the other batch size: the tensors that move are named).
+    A1 runs at the BNInception pools in every rank. Returns the path's
+    launches (the ranks' summed)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from action_detection_torch.parallel import free_port
+
+    _, make_batch, _ = _train_setup(d, "cpu", seed=11)
+    for i in range(DDP_STEPS):
+        b = make_batch(range(2 * DDP_VIDEOS * i, 2 * DDP_VIDEOS * (i + 1)))
+        np.savez(os.path.join(p, f"ddp_batch{i}.npz"), **b)
+    ref = _ddp_steps(p, 0, 1)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_ddp_rank, args=(2, free_port(), p), nprocs=2,
+                             join=False, start_method="spawn")
+    # join returns False while a rank runs on; it raises if one failed
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > 600:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError("DDP ranks did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(p, f"ddp_rank{r}.pt")) for r in (0, 1)]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    print(f"main path ddp 2 ranks (gloo, one card): wall {wall:.2f} s with "
+          f"the ranks' start, launches {launches}", flush=True)
+    if launches["max_pool_bwd"] <= 0:
+        raise AssertionError("A1 never launched in the DDP ranks")
+    for k in ("loss", "grad_norm"):
+        for r in ranks:
+            got = [m[k] for m in r["metrics"]]
+            want = [m[k] for m in ref["metrics"]]
+            if not np.allclose(got, want, rtol=1e-4, atol=0):
+                raise AssertionError(f"DDP {k}: 2 ranks {got}, 1 rank {want}")
+    # a tensor that started at zero (seeded_init's conv biases) is nothing
+    # but its two updates: its difference relative to its largest value is
+    # the relative difference of its gradient, a float32 sum over every
+    # pixel of the batch, reduced in another order at another batch size
+    # (and conv1's bias, under the batch-statistics BN, has a gradient of
+    # rounding noise alone). Those are reported; every other tensor is held
+    # to 1e-4 of its largest value.
+    start = _ddp_setup(p, "cpu")[0].state_dict()
+    worst, moved, from_zero = 0.0, [], []
+    for name, w in ref["state"].items():
+        if not w.is_floating_point():
+            continue
+        scale = w.abs().max().item()
+        rel = max((r["state"][name] - w).abs().max().item()
+                  for r in ranks) / (scale or 1.0)
+        if not start[name].any():
+            from_zero.append((name, rel))
+            continue
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            moved.append((name, rel))
+    zero_worst = max(from_zero, key=lambda t: t[1])
+    zero_over = sorted(n for n, r in from_zero if r > 1e-4)
+    print(f"ddp: 2 ranks x -b {DDP_VIDEOS} vs 1 rank x -b {2 * DDP_VIDEOS}, "
+          f"{DDP_STEPS} steps: loss {[m['loss'] for m in ranks[0]['metrics']]}"
+          f" vs {[m['loss'] for m in ref['metrics']]}, grad_norm "
+          f"{[m['grad_norm'] for m in ranks[0]['metrics']]} vs "
+          f"{[m['grad_norm'] for m in ref['metrics']]}; worst parameter "
+          f"{worst:.2e} of its largest value (limit 1e-4) over the "
+          f"{len(ref['state']) - len(from_zero)} tensors that started "
+          f"nonzero; the {len(from_zero)} that started at zero (their own "
+          f"updates): worst {zero_worst[0]} {zero_worst[1]:.2e}, "
+          f"{len(zero_over)} over 1e-4; step ms rank 0 {ranks[0]['ms']}, "
+          f"1 rank {ref['ms']} ({smi})", flush=True)
+    if moved:
+        raise AssertionError(f"DDP parameters over 1e-4: {moved}")
+    return {"ddp_2_ranks": dict(launches, wall_s=wall)}
+
+
+def ddp_cli(d: str, smi: str) -> dict:
+    """``ssn_train thumos14 RGB -b 8`` (3 steps, validation, a checkpoint)
+    without a process group, and with ``--gpus 0 --num_processes 1
+    --process_id 0 --coordinator_address 127.0.0.1:<port>`` (one rank
+    under DDP on NCCL); ``ssn_test`` scores the NCCL run's checkpoint.
+    Prints both runs' median step. Run in ``d/train``."""
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.cli.ssn_train import main as ssn_train
+    from action_detection_torch.parallel import free_port
+
+    t = os.getcwd()
+    base = ["thumos14", "RGB", "--synthetic_data", "--prop_file_dir", t,
+            "--print-freq", "1", "--clip-gradient", "20", "-b", "8",
+            "--tem", str(3 * 8 // TRAIN_LIST_VIDEOS), "--epochs", "1"]
+    stats, paths = {}, {}
+    for key, extra in (
+            ("ssn_train_plain", ["--snapshot_pref", "_plain"]),
+            ("ssn_train_nccl", ["--snapshot_pref", "_nccl", "--gpus", "0",
+                                "--num_processes", "1", "--process_id", "0",
+                                "--coordinator_address",
+                                f"127.0.0.1:{free_port()}"])):
+        paths[key] = drive(f"{key.replace('_', ' ')} (-b 8)",
+                           lambda extra=extra, key=key: stats.update(
+                               {key: ssn_train(base + extra)}),
+                           ("max_pool_bwd",))
+    ckpt = os.path.join(t, "ssn_nccl_thumos14_BNInception_rgb_checkpoint.pt")
+    scores = os.path.join(t, "nccl.pkl")
+    paths["ssn_test_nccl"] = drive(
+        "ssn_test on the NCCL run's checkpoint",
+        lambda: ssn_test(["thumos14", "RGB", ckpt, scores,
+                          "--synthetic_data", "--prop_file_dir", t]),
+        ("int8_conv", "int8_max_pool", "int8_avg_pool"))
+    print(f"ddp: NCCL checkpoint scored, pickle ok "
+          f"(P={check_pickle(scores, 20)})", flush=True)
+    med = {k: statistics.median(s.step_ms[1:]) for k, s in stats.items()}
+    print(f"ddp: ssn_train -b 8 median step (steps 2-3) without a process "
+          f"group {med['ssn_train_plain']:.2f} ms, one NCCL rank under DDP "
+          f"{med['ssn_train_nccl']:.2f} ms ({smi})", flush=True)
     return paths
 
 
@@ -2095,7 +2522,10 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in shapes),
             "bound_ms": sum(r["bound_ms"] for r in shapes),
             "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": sum(lib) if lib else None})
+            "library_ms": sum(lib) if lib else None,
+            # launches of the counter on the data-parallel paths
+            "parallel_paths": {p: paths[p][counter] for p in PARALLEL_PATHS
+                               if paths[p][counter]}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

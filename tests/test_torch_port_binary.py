@@ -28,7 +28,8 @@ from action_detection_torch.ops.tag import (build_box_by_search,
 from action_detection_torch.train import save_checkpoint
 
 from tests.test_datasets import write_proposal_list
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 
 def append_empty_video(path, vid="video_empty"):
@@ -271,12 +272,16 @@ def test_binary_test_cli_int8_sharedstem_matches_jax_cli(tmp_path,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["Flow", "--devices", "0", "1"], "scoring on several devices"),
+    pytest.param(["Flow", "--devices", "0", "1"],
+                 r"device indices \[1\] out of range: 1 local devices",
+                 id="flags0-scoring on several devices"),
 ])
 def test_binary_test_refuses_unported_by_name(flags, named):
-    with pytest.raises(SystemExit, match=named):
-        port_main(["thumos14", flags[0], "testing", "w.pt", "s.pkl"]
-                  + flags[1:])
+    """Several ``--devices`` where the device (the CPU) is one: the JAX
+    package's ``select_devices`` error, before any weights are read."""
+    with pytest.raises(ValueError, match=named):
+        port_main(["thumos14", flags[0], "testing", "w.pt", "s.pkl",
+                   "--device", "cpu"] + flags[1:])
 
 
 @pytest.mark.parametrize("flags,error,match", [

@@ -57,7 +57,8 @@ from action_detection_torch.train.init_weights import apply_init_weights
 
 from tests.test_datasets import write_proposal_list
 from tests.test_torch_port_binary import binary_checkpoints
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 REG_STATS = np.array([[0.01, -0.02], [0.1, 0.2]], np.float32)
 

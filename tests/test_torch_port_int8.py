@@ -25,6 +25,19 @@ from action_detection_torch.models.convert import (quantized_from_jax,
                                                    state_dict_from_jax)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch CPU thread a test. The suite runs on several workers at
+    once, and torch's CPU convolutions slow down many times over when every
+    worker's ops take all the cores (measured: six concurrent copies of a
+    3.4 s test took 252 s each at 8 threads, 5.3 s at 1). The heavy test
+    files import it (an autouse fixture applies where its name is)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jitter(variables, seed=0):
     """Realistic BN statistics and affine parameters (the tests/test_int8.py
     fixture's ranges), so quantization is not trivial."""

@@ -22,7 +22,9 @@ more, one a path of the scoring CLI surface: the per-layer int8
 BNInception scorer (static and dynamic scales; ``ssn_test --int8_mode
 perlayer``), RGBDiff (the int8-e2e shared-stem scorer, ``ssn_train`` and
 ``binary_train``), and host crops (``ssn_test --test_crops 1``,
-``binary_test --host_crops`` and ``--test_crops 1``)."""
+``binary_test --host_crops`` and ``--test_crops 1``). And one trains data
+parallel: ``ssn_train`` as two processes joined on gloo by the multi-host
+flags, each under the blocks."""
 
 import os
 import subprocess
@@ -84,7 +86,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
             model, spec, reg_stats=np.array([[0.0, 0.0], [1.0, 1.0]]),
             num_class=20, chunk_frames=4, modality=modality, device=dev,
             quantize="e2e", calibration_frames=calib, shared_stem=True)
-        res = score_videos(factory, ds, provider, device="cpu")
+        res = score_videos(factory, ds, provider, devices=["cpu"])
         out = os.path.join(d, "scores.pkl")
         dump_scores_pickle(res, out)
         with open(out, "rb") as f:
@@ -432,8 +434,13 @@ def _run(script: str, **env_extra) -> str:
     return proc.stdout
 
 
+# one torch thread in these subprocesses: the suite runs on several
+# workers at once (see test_torch_port_int8.py:one_torch_thread)
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
 def test_port_imports_and_scores_without_jax_flax_yaml_pil():
-    out = _run(SCRIPT)
+    out = _run(SCRIPT, **ONE_THREAD)
     last = out.strip().splitlines()[-1]
     assert last.startswith("ISOLATED-OK"), out
     assert int(last.split()[1]) >= 25      # every module was imported
@@ -468,22 +475,61 @@ def _weights(d: str) -> str:
     return d
 
 
+RANK = BLOCK + textwrap.dedent("""
+    from action_detection_torch.cli import ssn_train
+
+    ssn_train.main(sys.argv[1:])
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+""")
+
+DATA_PARALLEL = BLOCK + PROPS + textwrap.dedent("""
+    import os, re, subprocess, tempfile
+
+    from action_detection_torch.parallel import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        write_list(os.path.join(d, "thumos14_tag_val_proposal_list.txt"), 2)
+        write_list(os.path.join(d, "thumos14_tag_test_proposal_list.txt"), 2)
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_SCRIPT, "thumos14", "RGB", "--arch",
+             "TinyConv", "--synthetic_data", "--device", "cpu", "-j", "1",
+             "--epochs", "1", "-b", "2", "--tem", "2", "--prop_file_dir", d,
+             "--coordinator_address", f"127.0.0.1:{port}",
+             "--num_processes", "2", "--process_id", str(i)], cwd=d,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=120)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out
+        losses = [re.search(r"losses (\\[.*\\])", out).group(1)
+                  for out in outs]
+        assert losses[0] == losses[1], losses
+        assert os.path.exists(os.path.join(
+            d, "ssn_thumos14_TinyConv_rgb_checkpoint.pt"))
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("DATA-PARALLEL-OK")
+""")
+
+
 def test_pipeline_clis_without_jax_flax_yaml_pil_sklearn_pandas(tmp_path):
-    out = _run(PIPELINE, ADT_WEIGHTS_DIR=_weights(str(tmp_path)))
+    out = _run(PIPELINE, ADT_WEIGHTS_DIR=_weights(str(tmp_path)),
+               **ONE_THREAD)
     assert out.strip().splitlines()[-1] == "PIPELINE-OK", out
     assert "gt_dump.pc and pred_dump.pc skipped" in out
     assert "Detection Performance on thumos14" in out
 
 
 def test_training_clis_without_jax_flax_optax_yaml_pil():
-    out = _run(TRAINING)
+    out = _run(TRAINING, **ONE_THREAD)
     assert out.strip().splitlines()[-1] == "TRAINING-OK", out
     assert "Testing Results: Loss" in out and "checkpoint saved" in out
-
-
-# one torch thread in these subprocesses: the suite runs on several
-# workers at once (see test_torch_port_perlayer.py:one_torch_thread)
-ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 
 
 def test_perlayer_scoring_without_jax_flax_yaml_pil():
@@ -499,3 +545,12 @@ def test_rgbdiff_scoring_and_training_without_jax_flax_optax_yaml_pil():
 def test_host_crop_scoring_without_jax_flax_yaml_pil():
     out = _run(HOST_CROPS, **ONE_THREAD)
     assert out.strip().splitlines()[-1] == "HOST-CROPS-OK", out
+
+
+def test_data_parallel_training_without_jax_flax_optax_yaml_pil():
+    """``action_detection_torch.parallel`` and a 2-rank ``ssn_train``
+    (two processes on gloo through the multi-host flags, each under the
+    same blocks) run with jax, flax, optax, yaml and PIL unimportable."""
+    script = DATA_PARALLEL.replace("RANK_SCRIPT", repr(RANK))
+    out = _run(script, **ONE_THREAD)
+    assert out.strip().splitlines()[-1] == "DATA-PARALLEL-OK", out

@@ -30,7 +30,8 @@ from action_detection_torch.models.convert import (quantized_from_jax,
                                                    seeded_init,
                                                    state_dict_from_jax)
 
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 HW = 75
 

@@ -39,20 +39,9 @@ from action_detection_torch.models.backbones import bn_inception_int8 as q
 from tests.test_int8 import (DET_K, ColorCodedProvider,
                              detection_calibration_frames,
                              write_detection_fixture)
-from tests.test_torch_port_int8 import bn_setup  # noqa: F401 (fixture)
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixtures)
+    bn_setup, one_torch_thread)
 from tests.test_torch_port_scorer import ArrayProvider, _color_detector, _map
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch CPU thread a test. The suite runs on several workers at
-    once, and torch's CPU convolutions slow down many times over when every
-    worker's ops take all the cores (measured: six concurrent copies of a
-    3.4 s test took 252 s each at 8 threads, 5.3 s at 1)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stem_conv(c_in: int, seed: int):

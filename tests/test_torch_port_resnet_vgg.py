@@ -49,7 +49,8 @@ from action_detection_torch.train import (LossWeights, batch_to_device,
 from action_detection_torch.train.optim import label_params
 
 from tests.test_datasets import write_proposal_list
-from tests.test_torch_port_train_optim import SEG, _close, _jb
+from tests.test_torch_port_train_optim import (  # noqa: F401 (fixture)
+    SEG, _close, _jb, one_torch_thread)
 
 
 def torchvision_state(arch: str, modality: str = "RGB", seed: int = 0):

@@ -36,7 +36,8 @@ from tests.test_datasets import write_proposal_list
 from tests.test_int8 import (DET_K, DET_PAL, ColorCodedProvider,
                              detection_calibration_frames,
                              write_detection_fixture)
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 
 class ArrayProvider:

@@ -47,7 +47,8 @@ from action_detection_torch.train import (LossWeights, batch_to_device,
 from action_detection_torch.train.optim import label_params
 
 from tests.test_datasets import write_proposal_list
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 POOL_CASES = [  # kernel, stride, padding, H, W
     (3, 2, ((0, 1), (0, 1)), 15, 15),     # BNInception stem pool (ceil)

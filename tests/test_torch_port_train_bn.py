@@ -30,9 +30,10 @@ from action_detection_torch.train import (LossWeights, batch_to_device,
                                           make_train_step)
 
 from tests.test_torch_port_train_optim import (JSPEC, SEG, _close, _jb,
-                                               _jstate, _pair, batches)
+                                               _jstate, _pair, batches,
+                                               one_torch_thread)
 
-__all__ = ["batches"]     # the module-scoped fixture, shared
+__all__ = ["batches", "one_torch_thread"]     # the fixtures, shared
 
 
 @pytest.mark.parametrize("bn_mode", ["full", "partial"])

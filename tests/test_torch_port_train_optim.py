@@ -49,7 +49,8 @@ from action_detection_torch.train import (LossWeights, batch_to_device,
 from action_detection_torch.train.init_weights import apply_init_weights
 
 from tests.test_datasets import write_proposal_list
-from tests.test_torch_port_int8 import _jitter
+from tests.test_torch_port_int8 import (  # noqa: F401 (fixture)
+    _jitter, one_torch_thread)
 
 SEG = dict(starting_segment=1, course_segment=1, ending_segment=1)
 JSPEC = j_get_backbone("TinyConv", "RGB")[2]
