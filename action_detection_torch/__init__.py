@@ -1,8 +1,10 @@
 """action_detection_torch — the PyTorch and CUDA port of action_detection_tpu.
 
 The JAX package beside it is the reference this port is tested against. The
-port imports torch and never jax, flax, yaml or PIL on its main path, so it
-runs on a machine that has only torch, numpy and the CUDA toolkit.
+port imports torch and never jax, flax, yaml or PIL (JPEG frames go through
+its own C++ decoder), so it runs on a machine that has only torch, numpy,
+g++ and the CUDA toolkit; the JAX package's orbax checkpoint directories
+are read through tensorstore where it imports.
 
 The port covers the inference pipeline: sliding windows
 (``cli/gen_sliding_window_proposals.py``), dense actionness
@@ -18,14 +20,16 @@ Package layout (each module mirrors one module of action_detection_tpu):
   models/      torch model definitions, int8 runtime, weight bridge
   kernels/     hand-written CUDA int8 conv/pool and max-pool backward
                kernels, nvcc build, plain versions, launch counters
-  csrc/        the CUDA C++ sources of those kernels, and the C++ host
-               kernels (NMS, TAG box search)
+  csrc/        the CUDA C++ sources of those kernels, the C++ host
+               kernels (NMS, TAG box search) and the JPEG decoder
   ops/         stpp pooling, losses, pooling (torch); iou, nms, tag, mAP,
                metrics, aggregation (host numpy)
-  data/        proposal-list I/O, dataset DBs, datasets, transforms, pipeline
+  data/        proposal-list I/O, dataset DBs, datasets, transforms, pipeline,
+               the JPEG decoder's binding
   evaluation/  detections, NMS, regression, AP table (host)
-  train/       checkpoints (.pt) carrying reg_stats, optimizer, train and
-               eval steps, init weights
+  train/       checkpoints (.pt; JAX msgpack and orbax, reference .pth read)
+               carrying reg_stats, optimizer, train and eval steps, init
+               weights
   infer/       the shared feature step, the proposal and actionness scorers,
                the fan-out over devices and cross-video packing
   parallel/    device selection, the process group, DDP wrapping, batch

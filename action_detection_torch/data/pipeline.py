@@ -7,8 +7,9 @@ makes its pixels with the same ``zlib.crc32`` key and ``RandomState.randint``
 draws as the reference, so at the THUMOS scale size (340x256 frames, scale
 size 256) the pixels are equal to the JAX package's without PIL; other scale
 sizes resize with :func:`~.transforms.scale_frame`, bit-exact with PIL.
-Decoding a JPEG (:class:`DirectoryFrameProvider`) is the one place that
-imports PIL, inside the function that needs it.
+JPEG frames (:class:`DirectoryFrameProvider`) are decoded by the port's own
+C++ decoder (:func:`~.jpeg.decode_jpeg`), bit-exact with PIL's
+``convert("RGB")`` and ``convert("L")``; the port imports PIL nowhere.
 """
 
 from __future__ import annotations
@@ -43,19 +44,15 @@ class DirectoryFrameProvider:
     def load(self, video_id: str, idx: int) -> List[np.ndarray]:
         import os
 
-        from PIL import Image
+        from .jpeg import decode_jpeg
 
         directory = os.path.join(self.root, video_id)
         if self.modality in ("RGB", "RGBDiff"):
-            with Image.open(os.path.join(
-                    directory, self.image_tmpl.format(idx))) as img:
-                return [np.asarray(img.convert("RGB"))]
-        out = []
-        for axis in ("x", "y"):
-            with Image.open(os.path.join(
-                    directory, self.image_tmpl.format(axis, idx))) as img:
-                out.append(np.asarray(img.convert("L")))
-        return out
+            return [decode_jpeg(os.path.join(
+                directory, self.image_tmpl.format(idx)), "RGB")]
+        return [decode_jpeg(os.path.join(
+            directory, self.image_tmpl.format(axis, idx)), "L")
+            for axis in ("x", "y")]
 
 
 def frame_template(modality: str, flow_prefix: str = "") -> str:

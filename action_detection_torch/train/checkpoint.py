@@ -6,12 +6,15 @@ denormalizes the regression outputs with it. Names and the ``model_best``
 copy follow the JAX package's ``train/checkpoint.py`` with ``.pt`` for
 ``.msgpack``.
 
-:func:`load_checkpoint` reads three formats into that dict:
+:func:`load_checkpoint` reads four formats into that dict:
 
 * the port's ``.pt``;
 * the JAX package's ``checkpoint.msgpack`` (flax msgpack, read by
   :mod:`.flax_msgpack`; its flax trees mapped by
   ``models/convert.py:state_dict_from_jax``);
+* the JAX package's orbax checkpoint directories
+  (``save_checkpoint_orbax``), read through ``tensorstore`` where it
+  imports (:func:`read_orbax`), their trees mapped as msgpack trees are;
 * a reference SSN or binary ``.pth``/``.pth.tar`` (``module.``-prefixed,
   ``reg_stats`` possibly a numpy array; ``models/convert.py:
   ssn_state_from_reference``), in torch's zip format or its older one.
@@ -24,6 +27,7 @@ dtypes' classes, :data:`NUMPY_DTYPES`).
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 from typing import Any, Dict, Mapping, Tuple
@@ -104,18 +108,96 @@ def _numpy_safe_globals() -> list:
     return named + sorted(classes, key=lambda c: c.__name__)
 
 
+#: the files that make a directory an orbax checkpoint (its tree's
+#: metadata and the OCDBT manifest of its arrays)
+ORBAX_FILES = ("_METADATA", "manifest.ocdbt")
+
+
+def _orbax_leaf(a: np.ndarray):
+    """A leaf as the port's trees hold it: a bfloat16 array (ml_dtypes)
+    becomes a ``torch.bfloat16`` tensor bit for bit, as the msgpack reader
+    gives it; any other dtype stays numpy."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return a
+
+
+def read_orbax(directory: str) -> Dict[str, Any]:
+    """The contents of a JAX ``save_checkpoint_orbax`` directory as the JAX
+    package's ``load_checkpoint_orbax`` returns them: ``params``,
+    ``batch_stats``, ``reg_stats``, ``epoch`` (int), ``best_loss`` (float),
+    ``arch`` (the ``ARCH`` sidecar, ``""`` without one) and ``extra``
+    (``{}``). Each array is read with ``tensorstore`` (imported here and
+    nowhere else): the ``ocdbt`` kvstore over the directory, the ``zarr``
+    driver (``zarr3`` where ``_METADATA`` says ``use_zarr3``), keyed by its
+    tree path joined with ``.``. Leaves orbax marked ``skip_deserialize``
+    (an empty dict or list, None) come back as that value.
+
+    A directory without :data:`ORBAX_FILES` raises ``ValueError`` naming
+    what is missing; where tensorstore does not import, ``ImportError``
+    naming it."""
+    missing = [f for f in ORBAX_FILES
+               if not os.path.isfile(os.path.join(directory, f))]
+    if missing:
+        raise ValueError(
+            f"{directory} is a directory but not an orbax checkpoint: it "
+            f"has no {' and no '.join(missing)} (pass an orbax checkpoint "
+            "directory, a checkpoint.msgpack, a .pt or a .pth)")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{directory} is an orbax checkpoint directory: reading it needs "
+            f"the tensorstore package, which does not import here ({e}); "
+            "pass the checkpoint as a checkpoint.msgpack, a .pt or a "
+            ".pth") from e
+    with open(os.path.join(directory, "_METADATA")) as f:
+        meta = json.load(f)
+    kvstore = {"driver": "ocdbt",
+               "base": "file://" + os.path.abspath(directory)}
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    skipped = {"Dict": dict, "List": list, "None": lambda: None}
+    tree: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize"):
+            if value["value_type"] not in skipped:
+                raise ValueError(f"{directory}: leaf {'.'.join(keys)} of "
+                                 f"type {value['value_type']} is not read")
+            leaf = skipped[value["value_type"]]()
+        else:
+            leaf = _orbax_leaf(ts.open(
+                {"driver": driver,
+                 "kvstore": dict(kvstore, path=".".join(keys))},
+                open=True).result().read().result())
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    arch_file = os.path.join(directory, "ARCH")
+    arch = ""
+    if os.path.exists(arch_file):
+        with open(arch_file) as f:
+            arch = f.read()
+    return {"epoch": int(tree["epoch"]), "arch": arch,
+            "best_loss": float(tree["best_loss"]),
+            "reg_stats": np.asarray(tree["reg_stats"]),
+            "params": tree["params"], "batch_stats": tree["batch_stats"],
+            "extra": {}}
+
+
 def read_file(path: str) -> Tuple[str, Any]:
-    """``(format, content)`` of a checkpoint file, the format read from its
+    """``(format, content)`` of a checkpoint: ``("orbax", tree)`` for a
+    directory (:func:`read_orbax`); for a file, the format read from its
     first bytes: ``("torch", ...)`` for torch's zip or older pickle format
     (``torch.load`` on the CPU, ``weights_only=True``, the numpy globals of
-    :data:`NUMPY_GLOBALS` allowed) or ``("msgpack", tree)`` for a map, flax's
-    top level (:mod:`.flax_msgpack`). Anything else, an orbax checkpoint
-    directory included, raises ``ValueError`` naming it."""
+    :data:`NUMPY_GLOBALS` allowed) or ``("msgpack", tree)`` for a map,
+    flax's top level (:mod:`.flax_msgpack`). Anything else raises
+    ``ValueError`` naming it."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory: the port does not read the JAX "
-            "package's orbax checkpoint directories (ROADMAP.md queue 1, "
-            "'Data parallel'); pass a checkpoint.msgpack, a .pt or a .pth")
+        return "orbax", read_orbax(path)
     with open(path, "rb") as f:
         head = f.read(2)
     if head[:2] == b"PK" or (len(head) == 2 and head[0] == 0x80
@@ -129,15 +211,16 @@ def read_file(path: str) -> Tuple[str, Any]:
         return "msgpack", read(path)
     raise ValueError(
         f"{path} is not a checkpoint the port reads (a port .pt, a JAX "
-        "checkpoint.msgpack or a reference or torchvision .pth/.pth.tar)")
+        "checkpoint.msgpack or orbax directory, or a reference or "
+        "torchvision .pth/.pth.tar)")
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Load a port ``.pt``, a JAX ``checkpoint.msgpack`` or a reference
-    ``.pth``/``.pth.tar`` (:func:`read_file`): ``{"state_dict"`` (CPU
-    tensors keyed as the port's models), ``"reg_stats"`` (a numpy array, or
-    None), ``"arch"``, ``"epoch"``, ``"best_loss"`` (inf where the file has
-    none)``}``."""
+    """Load a port ``.pt``, a JAX ``checkpoint.msgpack`` or orbax
+    directory, or a reference ``.pth``/``.pth.tar`` (:func:`read_file`):
+    ``{"state_dict"`` (CPU tensors keyed as the port's models),
+    ``"reg_stats"`` (a numpy array, or None), ``"arch"``, ``"epoch"``,
+    ``"best_loss"`` (inf where the file has none)``}``."""
     from ..models.convert import ssn_state_from_reference, state_dict_from_jax
 
     kind, raw = read_file(path)

@@ -20,15 +20,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import subprocess
-import tempfile
 
 import numpy as np
 
-from .build import BUILD_DIR, CSRC, build_lock, hashed_library_path
+from .build import BUILD_DIR, CSRC, build_host_library
 
 SOURCE = os.path.join(CSRC, "adt_native.cpp")
-CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _D = ctypes.POINTER(ctypes.c_double)
 _L = ctypes.POINTER(ctypes.c_int64)
@@ -45,35 +42,8 @@ SIGNATURES = {
 def build_native(build_dir: str = BUILD_DIR) -> str:
     """Compile ``csrc/adt_native.cpp`` unless this source and command have a
     library in ``build_dir`` already; returns its path."""
-    cxx = os.environ.get("CXX", "g++")
-    path = hashed_library_path("libadt_native", (cxx,) + CXX_FLAGS, [SOURCE],
-                               build_dir)
-    if os.path.isfile(path):
-        return path
-    with build_lock(path):
-        if not os.path.isfile(path):    # nobody built it meanwhile
-            _compile(cxx, path, build_dir)
-    return path
-
-
-def _compile(cxx: str, path: str, build_dir: str) -> None:
-    log = path + ".log"
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        lib = os.path.join(tmp, "lib.so")
-        try:
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", lib, SOURCE],
-                                  capture_output=True, text=True,
-                                  timeout=300)
-            out, ok = proc.stdout + proc.stderr, proc.returncode == 0
-            out = f"{cxx} exited with {proc.returncode}\n{out}"
-        except (OSError, subprocess.SubprocessError) as e:
-            out, ok = f"{cxx} did not run: {e!r}\n", False
-        with open(log, "w") as f:
-            f.write(out)
-        if not ok:
-            raise ImportError(f"the C++ host kernels did not build (log "
-                              f"{log}):\n{out}")
-        os.replace(lib, path)
+    return build_host_library("libadt_native", SOURCE,
+                              "the C++ host kernels", build_dir)
 
 
 @functools.lru_cache(maxsize=None)

@@ -123,7 +123,20 @@ before the final line):
               multi-host flags on NCCL (one rank under DDP), its
               checkpoint scored by ``ssn_test``. The ``kernels`` line
               gives each kernel's launches on these paths
-              (``parallel_paths``).
+              (``parallel_paths``). Then the host JPEG decoder
+              (``check_decoder``: g++ builds ``libadt_jpeg``; every
+              committed fixture of ``tests/fixtures/torch_port_jpeg``
+              decoded as RGB and L to PIL's digests; ms a 340x256 RGB
+              frame and a Flow x/y pair on 1 thread and on the CLIs'
+              decode pool) and the CLIs on JPEG frame directories
+              (``run_real_frames``: two THUMOS14 videos of 1,560 frames
+              cycling over the fixtures; ``ssn_test`` BNInception RGB and
+              Flow, ``binary_test`` and ``ssn_train`` -b 16, 2 steps, each
+              a path that must launch its kernels and decode once a frame
+              file read, beside the same run on synthetic frames, walls
+              and busy shares); last the committed orbax directory
+              (``run_orbax``: read to its digests and scored where
+              tensorstore imports, else refused by name).
 5. checks   — for BNInception (RGB and RGBDiff) and InceptionV3: the
               int8-e2e trunk held bit-exact against the plain kernels on
               the CPU, the int8 features against the float backbone (cos >
@@ -194,6 +207,10 @@ DDP_STEPS = 2
 REG_STATS = [[0.01, -0.02], [0.1, 0.2]]    # the checkpoints' reg_stats
 PIPELINE_FRAMES = 1560    # frames of each pipeline test video (52 s, 30 fps)
 PIPELINE_INTERVAL = 5     # binary_test's --frame_interval (its default)
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port_jpeg")
+JPEG_FIXTURE_FRAMES = 8   # img_/x_/y_ 00001..00008: 340x256 frames
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_orbax")
+REAL_TRAIN_STEPS = 2      # ssn_train -b 16 steps on JPEG frames
 
 
 def _smi() -> str:
@@ -878,6 +895,12 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
         paths["binary_test"] = run_pipeline(d, smi)
         paths.update(run_training_clis(d, smi, rows))
         paths.update(run_data_parallel(d, smi))
+        t0 = time.perf_counter()
+        check_decoder(smi)
+        paths.update(run_real_frames(d, smi))
+        run_orbax(d)
+        print(f"timing: the decoder, real-frame and orbax phases "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         check_train_step_small(d)
         if profile:
@@ -1629,6 +1652,295 @@ def run_data_parallel(d: str, smi: str) -> dict:
     print(f"timing: the data-parallel phases {time.perf_counter() - t_start:.1f}"
           " s", flush=True)
     return paths
+
+
+def check_decoder(smi: str) -> None:
+    """The host JPEG decoder (``data/jpeg.py``): every committed fixture
+    (``tests/fixtures/torch_port_jpeg``) decoded as RGB and as L, each
+    array's shape and sha256 equal to PIL's in ``digests.json``; then ms
+    per 340x256 RGB frame and per Flow x/y pair, on one thread and on the
+    scoring CLIs' default decode pool (``make_decode_pool(None)``), beside
+    the synthetic provider's ms per RGB frame."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from action_detection_torch.data.jpeg import build_jpeg, decode_jpeg
+    from action_detection_torch.data.pipeline import (SyntheticFrameProvider,
+                                                      make_decode_pool)
+
+    t0 = time.perf_counter()
+    lib = build_jpeg()
+    print(f"build: {os.path.relpath(lib, ROOT)} (JPEG decoder) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    n = 0
+    for name, modes in sorted(digests.items()):
+        for mode, want in sorted(modes.items()):
+            a = decode_jpeg(os.path.join(JPEG_FIXTURES, name), mode)
+            got = {"shape": list(a.shape),
+                   "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+            if got != want:
+                raise AssertionError(f"decoder: {name} as {mode}: {got}, "
+                                     f"PIL's digest {want}")
+            n += 1
+    print(f"decoder: {n} decodes of the {len(digests)} committed fixtures "
+          "(RGB and L) equal PIL's digests (shape and sha256)", flush=True)
+
+    frames = range(1, JPEG_FIXTURE_FRAMES + 1)
+    rgb = [os.path.join(JPEG_FIXTURES, f"img_{i:05d}.jpg") for i in frames]
+    flow = [tuple(os.path.join(JPEG_FIXTURES, f"{a}_{i:05d}.jpg")
+                  for a in "xy") for i in frames]
+    synthetic = SyntheticFrameProvider()
+    pool = make_decode_pool(None) or ThreadPoolExecutor(1)
+    for name, fn, items in (
+            ("RGB frame 340x256", lambda p: decode_jpeg(p, "RGB"), rgb),
+            ("Flow x/y pair 340x256",
+             lambda xy: [decode_jpeg(p, "L") for p in xy], flow)):
+        jobs = items * 50
+        for j in items:
+            fn(j)
+        t0 = time.perf_counter()
+        for j in jobs:
+            fn(j)
+        one = (time.perf_counter() - t0) / len(jobs) * 1e3
+        t0 = time.perf_counter()
+        list(pool.map(fn, jobs))
+        many = (time.perf_counter() - t0) / len(jobs) * 1e3
+        print(f"decoder: {name} {one:.3f} ms on 1 thread, {many:.3f} ms a "
+              f"frame on {pool._max_workers} threads (the CLIs' default "
+              f"decode pool; {os.cpu_count()} cores) ({smi})", flush=True)
+    pool.shutdown()
+    t0 = time.perf_counter()
+    for i in range(400):
+        synthetic.load("video", i)
+    print(f"decoder: the synthetic provider draws a 340x256 RGB frame in "
+          f"{(time.perf_counter() - t0) / 400 * 1e3:.3f} ms on 1 thread",
+          flush=True)
+
+
+def link_jpeg_frames(root: str, videos, frames: int) -> None:
+    """``root/<video>/img_*``, ``x_*`` and ``y_*`` for frames 1..frames:
+    links cycling over the committed 340x256 fixtures, in one directory
+    that every video's directory links to."""
+    shared = os.path.join(root, ".frames")
+    os.makedirs(shared)
+    for i in range(1, frames + 1):
+        k = (i - 1) % JPEG_FIXTURE_FRAMES + 1
+        for src, dst in ((f"img_{k:05d}.jpg", f"img_{i:05d}.jpg"),
+                         (f"x_{k:05d}.jpg", f"x_{i:05d}.jpg"),
+                         (f"y_{k:05d}.jpg", f"y_{i:05d}.jpg")):
+            os.symlink(os.path.join(JPEG_FIXTURES, src),
+                       os.path.join(shared, dst))
+    for v in videos:
+        os.symlink(shared, os.path.join(root, v))
+
+
+def run_real_frames(d: str, smi: str) -> dict:
+    """Main path, part 8: the CLIs on JPEG frame directories
+    (``--data_root``; THUMOS14 videos of 1,560 frames whose directories
+    cycle over the committed fixtures), each a path of its own that must
+    launch its kernels and the decoder: ``ssn_test`` BNInception RGB and
+    Flow (the int8-e2e shared-stem default, the seeded checkpoints of part
+    1), ``binary_test`` (part 5's checkpoint) and ``ssn_train`` BNInception
+    RGB -b 16 (``REAL_TRAIN_STEPS`` steps and validation). In each run
+    ``host_jpeg_decode`` must equal the frame files its loads read (one an
+    RGB load, two a Flow load). Each is then run on synthetic frames
+    (``--synthetic_data``, the same arguments), and both are run again
+    under the profiler: the walls and device busy shares, side by side.
+    ``ssn_train`` runs twice only, each under the profiler (the JPEG run
+    is the counted one), with the host seconds a batch of each. Returns
+    each path's launches."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+
+    from action_detection_torch.cli.binary_test import main as binary_test
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.cli.ssn_train import main as ssn_train
+    from action_detection_torch.data import pipeline
+    from action_detection_torch.data.proposal_io import load_proposal_file
+
+    real = os.path.join(d, "real")
+    os.makedirs(real)
+    frames = os.path.join(real, "frames")
+    lists = [write_fixture(real), write_fixture(real,
+                                                split="thumos14_sw_test"),
+             write_fixture(real, n_videos=TRAIN_LIST_VIDEOS,
+                           split="thumos14_tag_val")]
+    videos = sorted({g[0] for p in lists for g in load_proposal_file(p)})
+    t0 = time.perf_counter()
+    link_jpeg_frames(frames, videos, PIPELINE_FRAMES)
+    print(f"real frames: {len(videos)} videos of {PIPELINE_FRAMES} frames "
+          f"(RGB, x, y) linked in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    k1_3 = ("int8_conv", "int8_max_pool", "int8_avg_pool")
+    load = pipeline.DirectoryFrameProvider.load
+    files = []
+
+    def counted(self, video_id, idx):
+        out = load(self, video_id, idx)
+        files.append(len(out))
+        return out
+
+    stats = {}
+
+    def cli_call(cli, argv, key):
+        def call():
+            res = cli(argv)
+            if key:
+                stats[key] = res
+        return call
+
+    paths = {}
+    train = ["--print-freq", "1", "--clip-gradient", "20", "--lr_steps", "1",
+             "2", "-b", str(TRAIN_VIDEOS), "--tem",
+             str(REAL_TRAIN_STEPS * TRAIN_VIDEOS // TRAIN_LIST_VIDEOS),
+             "--epochs", "1", "--snapshot_pref", "_real"]
+    act = os.path.join(real, "actionness.pkl")
+    runs = (
+        ("real_ssn_test_rgb", "ssn_test thumos14 RGB (BNInception)",
+         ssn_test, ["thumos14", "RGB", os.path.join(d, "bninception_rgb.pt"),
+                    os.path.join(real, "rgb.pkl")], k1_3),
+        ("real_ssn_test_flow", "ssn_test thumos14 Flow (BNInception)",
+         ssn_test, ["thumos14", "Flow",
+                    os.path.join(d, "bninception_flow.pt"),
+                    os.path.join(real, "flow.pkl")], k1_3),
+        ("real_binary_test", "binary_test thumos14 RGB (BNInception)",
+         binary_test, ["thumos14", "RGB", "testing",
+                       os.path.join(d, "pipeline", "binary.pt"), act], k1_3),
+        ("real_ssn_train", f"ssn_train thumos14 RGB (BNInception, -b "
+         f"{TRAIN_VIDEOS})", ssn_train, ["thumos14", "RGB"] + train,
+         ("max_pool_bwd",)))
+    with contextlib.chdir(real):
+        for key, name, cli, argv, expect in runs:
+            jpeg = argv + ["--data_root", frames, "--prop_file_dir", real]
+            synth = argv + ["--synthetic_data", "--prop_file_dir", real]
+            files.clear()
+            training = key == "real_ssn_train"
+            prof = {}
+            fn = cli_call(cli, jpeg, key)
+            if training:    # the counted run is the profiled one
+                fn = (lambda fn=fn: prof.update(jpeg=profiled_run(fn)))
+            with mock.patch.object(pipeline.DirectoryFrameProvider, "load",
+                                   counted):
+                paths[key] = drive(f"{name} on JPEG frames", fn,
+                                   expect + ("host_jpeg_decode",))
+            decodes = paths[key]["host_jpeg_decode"]
+            if decodes != sum(files):
+                raise AssertionError(
+                    f"{name}: {decodes} JPEG decodes for {len(files)} frame "
+                    f"loads reading {sum(files)} files")
+            if key == "real_binary_test":
+                with open(act, "rb") as f:
+                    a = pickle.load(f)
+                T = len(range(0, PIPELINE_FRAMES - 1, PIPELINE_INTERVAL))
+                if len(a) != 2 or not all(v.shape == (T, 10, 2)
+                                          and np.isfinite(v).all()
+                                          for v in a.values()):
+                    raise AssertionError("real-frame actionness pickle: " +
+                                         str({k: v.shape
+                                              for k, v in a.items()}))
+            elif training:
+                st = stats[key]
+                if len(st.step_ms) != REAL_TRAIN_STEPS or not np.isfinite(
+                        st.best_loss):
+                    raise AssertionError(f"real-frame ssn_train: "
+                                         f"{len(st.step_ms)} steps, best "
+                                         f"loss {st.best_loss}")
+            else:
+                check_pickle(argv[3], 20)
+            if training:
+                _, jw, jb = prof["jpeg"]
+                _, sw, sb = profiled_run(cli_call(cli, synth,
+                                                  key + "/synthetic"))
+                walls = ""
+                batches = (f"; JPEG {stats[key].summary()}; synthetic "
+                           f"{stats[key + '/synthetic'].summary()}")
+            else:
+                t0 = time.perf_counter()
+                cli_call(cli, synth, None)()
+                walls = (f"JPEG wall {paths[key]['wall_s']:.3f} s, "
+                         f"synthetic {time.perf_counter() - t0:.3f} s; ")
+                batches = ""
+                _, jw, jb = profiled_run(cli_call(cli, jpeg, None))
+                _, sw, sb = profiled_run(cli_call(cli, synth, None))
+            print(f"real frames: {name}: {walls}under the profiler JPEG "
+                  f"wall {jw:.3f} s busy {jb / jw:.1%}, synthetic wall "
+                  f"{sw:.3f} s busy {sb / sw:.1%}; {decodes} decodes for "
+                  f"{len(files)} frame loads{batches} ({smi})", flush=True)
+    return paths
+
+
+def _leaf_digest(a) -> dict:
+    """dtype, shape and sha256 of a checkpoint leaf's bytes (a bfloat16
+    tensor's as uint16), as ``tests/test_torch_port_orbax.py`` writes
+    them."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        dtype, a = str(a.dtype).split(".")[-1], a.view(torch.uint16).numpy()
+    else:
+        a = np.asarray(a)
+        dtype = str(a.dtype)
+    return {"dtype": dtype, "shape": list(a.shape), "sha256": hashlib.sha256(
+        np.ascontiguousarray(a).tobytes()).hexdigest()}
+
+
+def run_orbax(d: str) -> None:
+    """The committed orbax directory (``tests/fixtures/torch_port_orbax``,
+    a TinyConv SSN written by the JAX package's ``save_checkpoint_orbax``).
+    Where ``tensorstore`` imports: its tree against the committed digests,
+    then ``ssn_test --arch TinyConv`` scores it. Where it does not: the
+    port refuses the directory with an error naming tensorstore, which is
+    what the port does on such a card."""
+    from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.train import load_checkpoint
+    from action_detection_torch.train.checkpoint import read_orbax
+
+    ck = os.path.join(ORBAX_FIXTURE, "ssn_tinyconv")
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError:
+        try:
+            load_checkpoint(ck)
+        except ImportError as e:
+            if "tensorstore" not in str(e):
+                raise AssertionError(f"orbax refusal without its cause: {e}")
+            print("orbax: this card has no tensorstore, so the port refuses "
+                  f"orbax checkpoint directories: {str(e)[:160]}...",
+                  flush=True)
+            return
+        raise AssertionError("an orbax directory loaded without tensorstore")
+    with open(os.path.join(ORBAX_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    tree = read_orbax(ck)
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = _leaf_digest(v)
+
+    walk({"params": tree["params"], "batch_stats": tree["batch_stats"],
+          "reg_stats": tree["reg_stats"]}, "")
+    flat.update(epoch=tree["epoch"], best_loss=tree["best_loss"],
+                arch=tree["arch"])
+    if flat != want:
+        raise AssertionError("orbax: the tree differs from its digests: " +
+                             str(sorted(k for k in want
+                                        if flat.get(k) != want[k])))
+    out = os.path.join(d, "orbax.pkl")
+    ssn_test(["thumos14", "RGB", ck, out, "--arch", "TinyConv",
+              "--synthetic_data", "--prop_file_dir", d])
+    print(f"orbax: the committed directory read to its {len(want)} digests "
+          f"and scored (P={check_pickle(out, 20)})", flush=True)
 
 
 def _ddp_setup(d: str, device: str):

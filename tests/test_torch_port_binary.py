@@ -223,6 +223,29 @@ def test_binary_test_cli_float_matches_jax_cli(tmp_path, monkeypatch,
                           list)
 
 
+def test_binary_test_cli_float_matches_jax_cli_on_jpeg_frames(tmp_path,
+                                                              monkeypatch):
+    """TinyConv (float) on JPEG frame directories (``--data_root``, links
+    to the committed fixtures): the port's decoder against PIL under the
+    JAX CLI, per-crop logits within 1e-4."""
+    from tests.test_torch_port_jpeg import link_frames
+
+    write_proposal_list(tmp_path / "thumos14_sw_test_proposal_list.txt",
+                        n_videos=2, seed=7)
+    for vid in ("video_0", "video_1"):
+        link_frames(str(tmp_path / "frames"), vid, 600, "RGB")
+    binary_checkpoints(tmp_path)
+    ref, got = _run_both(tmp_path, monkeypatch, [
+        "thumos14", "RGB", "testing", "--arch", "TinyConv", "--data_root",
+        str(tmp_path / "frames"), "--prop_file_dir", str(tmp_path),
+        "--frame_interval", "30", "--test_batchsize", "8"])
+    assert list(got) == ["video_0", "video_1"]
+    for vid in ref:
+        assert got[vid].shape == (20, 10, 2)
+        np.testing.assert_allclose(got[vid], ref[vid], rtol=0, atol=1e-4)
+    assert np.abs(ref["video_0"]).max() > 0.05
+
+
 def test_binary_test_cli_int8_sharedstem_matches_jax_cli(tmp_path,
                                                          monkeypatch):
     """BNInception with the CLI defaults (int8-e2e, shared stem, 10 device

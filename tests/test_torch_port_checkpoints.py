@@ -6,8 +6,9 @@
   checkpoint, bfloat16 leaves, numpy scalars, empty dicts, every msgpack
   length and integer form, and a chunked leaf (``MAX_CHUNK_SIZE`` patched
   down);
-* ``load_checkpoint`` on the port's ``.pt``, a JAX ``checkpoint.msgpack``,
-  a port-written msgpack and reference ``.pth.tar`` files (``module.``
+* ``load_checkpoint`` on the port's ``.pt``, a JAX ``checkpoint.msgpack``
+  and orbax directory, a port-written msgpack and reference ``.pth.tar``
+  files (``module.``
   keys, numpy ``reg_stats``, no ``num_batches_tracked``; torch's zip
   format, and its older format with numpy 1's names): the same weights;
   what it refuses, by name;
@@ -25,6 +26,7 @@ import dataclasses
 import datetime
 import os
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -43,6 +45,8 @@ from action_detection_tpu.models.convert import (
 from action_detection_tpu.train import TrainState
 from action_detection_tpu.train import load_checkpoint as j_load_checkpoint
 from action_detection_tpu.train import save_checkpoint as j_save_checkpoint
+from action_detection_tpu.train.checkpoint import (
+    save_checkpoint_orbax as j_save_orbax)
 from action_detection_tpu.train.init_weights import (
     apply_init_weights as j_apply_init_weights)
 
@@ -186,8 +190,9 @@ def _flax_tree(model):
     return j_convert_ssn({"state_dict": model.state_dict()}, "TinyConv")
 
 
-@pytest.mark.parametrize("fmt", ["pt", "jax_msgpack", "port_msgpack",
-                                 "reference_pth_tar", "reference_legacy"])
+@pytest.mark.parametrize("fmt", ["pt", "jax_msgpack", "jax_orbax",
+                                 "port_msgpack", "reference_pth_tar",
+                                 "reference_legacy"])
 def test_load_checkpoint_reads_every_format(tmp_path, fmt):
     model = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=3)
     path = str(tmp_path / {"pt": "w.pt", "jax_msgpack": "w.msgpack",
@@ -200,6 +205,11 @@ def test_load_checkpoint_reads_every_format(tmp_path, fmt):
         j_save_checkpoint(path, ck["params"], REG_STATS,
                           batch_stats=ck["batch_stats"], epoch=80,
                           arch="TinyConv", best_loss=0.125)
+    elif fmt == "jax_orbax":
+        path = str(tmp_path / "w_orbax")
+        j_save_orbax(path, ck["params"], REG_STATS,
+                     batch_stats=ck["batch_stats"], epoch=80, arch="TinyConv",
+                     best_loss=0.125)
     elif fmt == "port_msgpack":
         with open(path, "wb") as f:
             f.write(flax_msgpack.serialize({
@@ -223,10 +233,15 @@ def test_load_checkpoint_reads_every_format(tmp_path, fmt):
 
 
 def test_load_checkpoint_refuses_by_name(tmp_path):
-    """An orbax directory, a file of no known format and a pickle of
-    anything but tensors, containers, numbers and numpy arrays are refused;
-    nothing of the last is executed."""
-    with pytest.raises(ValueError, match="orbax"):
+    """A directory that is not an orbax checkpoint (named by the files it
+    lacks), a file of no known format and a pickle of anything but
+    tensors, containers, numbers and numpy arrays are refused; nothing of
+    the last is executed."""
+    with pytest.raises(ValueError, match="not an orbax checkpoint: it has no "
+                       "_METADATA and no manifest.ocdbt"):
+        load_checkpoint(str(tmp_path))
+    (tmp_path / "_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="has no manifest.ocdbt"):
         load_checkpoint(str(tmp_path))
     (tmp_path / "notes.txt").write_text("weights")
     with pytest.raises(ValueError, match="not a checkpoint the port reads"):
@@ -235,6 +250,21 @@ def test_load_checkpoint_refuses_by_name(tmp_path):
                str(tmp_path / "odd.pth"))
     with pytest.raises(pickle.UnpicklingError, match="datetime"):
         load_checkpoint(str(tmp_path / "odd.pth"))
+
+
+def test_load_checkpoint_refuses_orbax_without_tensorstore(tmp_path,
+                                                           monkeypatch):
+    """Where tensorstore does not import (the card's machine), an orbax
+    directory raises ImportError naming it; nothing else reads it."""
+    model = seeded_init(SSN(num_class=20, base_model="TinyConv"), seed=3)
+    ck = _flax_tree(model)
+    path = str(tmp_path / "w_orbax")
+    j_save_orbax(path, ck["params"], REG_STATS,
+                 batch_stats=ck["batch_stats"], arch="TinyConv")
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="orbax checkpoint directory: "
+                       "reading it needs the tensorstore package"):
+        load_checkpoint(path)
 
 
 def _load(path):

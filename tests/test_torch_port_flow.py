@@ -27,6 +27,13 @@ def test_ssn_test_flow_cli_matches_jax_cli(tmp_path, monkeypatch):
     check_cli(tmp_path, monkeypatch, "Flow")
 
 
+def test_ssn_test_flow_cli_matches_jax_cli_on_jpeg_frames(tmp_path,
+                                                          monkeypatch):
+    """The same on JPEG x/y frame directories (``--data_root``): the port's
+    decoder against PIL under the JAX CLI, within 1e-4."""
+    check_cli(tmp_path, monkeypatch, "Flow", data_root=True)
+
+
 def test_flow_frames_are_read_with_flow_pref(tmp_path, monkeypatch):
     """Without ``--synthetic_data`` the Flow provider reads
     ``<flow_pref>{x,y}_NNNNN.jpg``, as the JAX CLI does."""

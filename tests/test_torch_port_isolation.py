@@ -1,5 +1,5 @@
-"""The port runs on a machine without jax, flax, optax, yaml, PIL,
-scikit-learn, pandas or msgpack.
+"""The port runs on a machine without jax, flax, optax, orbax, yaml, PIL,
+scikit-learn, pandas, msgpack or tensorstore.
 
 A subprocess blocks those packages (``sys.modules[name] = None`` makes
 any import of them raise), imports every module of action_detection_torch,
@@ -24,7 +24,9 @@ perlayer``), RGBDiff (the int8-e2e shared-stem scorer, ``ssn_train`` and
 ``binary_train``), and host crops (``ssn_test --test_crops 1``,
 ``binary_test --host_crops`` and ``--test_crops 1``). And one trains data
 parallel: ``ssn_train`` as two processes joined on gloo by the multi-host
-flags, each under the blocks."""
+flags, each under the blocks. And one scores JPEG frame directories (links to
+the committed fixtures) through ``ssn_test`` on the port's decoder; its
+pickle equals that of the same run in the test process on PIL's decode."""
 
 import os
 import subprocess
@@ -33,8 +35,8 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "sklearn",
-           "pandas", "msgpack")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL",
+           "sklearn", "pandas", "msgpack", "tensorstore")
 BLOCK = textwrap.dedent(f"""
     import sys
     BLOCKED = {BLOCKED!r}
@@ -554,3 +556,77 @@ def test_data_parallel_training_without_jax_flax_optax_yaml_pil():
     script = DATA_PARALLEL.replace("RANK_SCRIPT", repr(RANK))
     out = _run(script, **ONE_THREAD)
     assert out.strip().splitlines()[-1] == "DATA-PARALLEL-OK", out
+
+
+JPEG_SCORING = BLOCK + textwrap.dedent("""
+    from action_detection_torch.cli import ssn_test
+    from action_detection_torch.kernels import launch_counts
+
+    ssn_test.main(sys.argv[1:])
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("JPEG-OK", launch_counts()["host_jpeg_decode"])
+""")
+
+
+def test_jpeg_scoring_without_pil_equals_pil_frames(tmp_path, monkeypatch):
+    """``ssn_test`` (TinyConv, float path) on JPEG frame directories with
+    PIL and the rest blocked, through the port's decoder: the pickle of
+    the same run in this process with the provider on PIL's decode
+    (tests/test_torch_port_jpeg.py:load_with_pil); one decode per frame
+    load."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from action_detection_torch.cli import ssn_test
+    from action_detection_torch.data.pipeline import DirectoryFrameProvider
+
+    from tests.test_datasets import write_proposal_list
+    from tests.test_torch_port_jpeg import link_frames, load_with_pil
+
+    d = str(tmp_path)
+    write_proposal_list(tmp_path / "thumos14_tag_test_proposal_list.txt",
+                        n_videos=2, frames_per_video=240, seed=7)
+    for vid in ("video_0", "video_1"):
+        link_frames(os.path.join(d, "frames"), vid, 240, "RGB")
+    _weights(d)
+    argv = ["thumos14", "RGB", os.path.join(d, "w.pt"), "PKL", "--arch",
+            "TinyConv", "--data_root", os.path.join(d, "frames"),
+            "--prop_file_dir", d, "--device", "cpu", "--frame_interval",
+            "10", "--test_batchsize", "8"]
+    proc_argv = [a if a != "PKL" else os.path.join(d, "blocked.pkl")
+                 for a in argv]
+    env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD)
+    proc = subprocess.run([sys.executable, "-c", JPEG_SCORING, *proc_argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    last = proc.stdout.strip().splitlines()[-1]
+    assert last.startswith("JPEG-OK"), proc.stdout
+
+    loads = []
+
+    def counted(provider, video_id, idx):
+        loads.append(idx)
+        return load_with_pil(provider, video_id, idx)
+
+    monkeypatch.setattr(DirectoryFrameProvider, "load", counted)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ssn_test.main([a if a != "PKL" else os.path.join(d, "pil.pkl")
+                       for a in argv])
+    finally:
+        torch.set_num_threads(threads)
+    with open(os.path.join(d, "blocked.pkl"), "rb") as f:
+        got = pickle.load(f)
+    with open(os.path.join(d, "pil.pkl"), "rb") as f:
+        want = pickle.load(f)
+    assert set(got) == set(want) and len(got) == 2
+    for vid in want:
+        for g, w in zip(got[vid], want[vid]):
+            np.testing.assert_array_equal(g, w)
+    # one decode per RGB frame load: 24 ticks of 10 frames a video
+    assert int(last.split()[1]) == len(loads) == 48

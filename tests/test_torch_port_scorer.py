@@ -263,9 +263,12 @@ def test_prequantized_and_lazy_calibration(tmp_path):
         ProposalScorer(model, spec, device="cpu")
 
 
-def check_cli(tmp_path, monkeypatch, modality="RGB"):
+def check_cli(tmp_path, monkeypatch, modality="RGB", data_root=False):
     """The port's ssn_test (TinyConv, synthetic frames, float path) writes
-    the JAX CLI's pickle from the same weights, within 1e-4."""
+    the JAX CLI's pickle from the same weights, within 1e-4. With
+    ``data_root`` both read JPEG frame directories (links to the committed
+    fixtures, tests/test_torch_port_jpeg.py:link_frames): the port through
+    its own decoder, the JAX CLI through PIL."""
     from action_detection_tpu.cli.ssn_test import main as jax_main
     from action_detection_tpu.train import save_checkpoint as jax_save
 
@@ -293,7 +296,15 @@ def check_cli(tmp_path, monkeypatch, modality="RGB"):
     save_checkpoint("w.pt", state_dict_from_jax(params, stats), reg_stats,
                     arch="TinyConv")
 
-    common = ["--arch", "TinyConv", "--synthetic_data", "--prop_file_dir",
+    frames = ["--synthetic_data"]
+    if data_root:
+        from tests.test_torch_port_jpeg import link_frames
+
+        root = str(tmp_path / "frames")
+        for vid in ("video_0", "video_1"):
+            link_frames(root, vid, 600, modality)
+        frames = ["--data_root", root]
+    common = ["--arch", "TinyConv", *frames, "--prop_file_dir",
               str(tmp_path), "--frame_interval", "30", "--test_batchsize",
               "8", "--save_raw_scores"]
     jax_main(["thumos14", modality, "w.msgpack", "j.pkl"] + common
@@ -323,3 +334,8 @@ def test_ssn_test_cli_matches_jax_cli(tmp_path, monkeypatch):
     """The port's ssn_test (TinyConv, synthetic frames, float path) writes
     the JAX CLI's pickle from the same weights, within 1e-4."""
     check_cli(tmp_path, monkeypatch)
+
+
+def test_ssn_test_cli_matches_jax_cli_on_jpeg_frames(tmp_path, monkeypatch):
+    """The same on JPEG frame directories (``--data_root``), within 1e-4."""
+    check_cli(tmp_path, monkeypatch, data_root=True)

@@ -113,6 +113,34 @@ def test_ssn_train_cli_matches_jax_cli(workdir, monkeypatch):
         assert np.isfinite(act).all() and np.isfinite(reg_out).all()
 
 
+def test_ssn_train_cli_matches_jax_cli_on_jpeg_frames(workdir, monkeypatch):
+    """One ``ssn_train`` step on JPEG frame directories (``--data_root``,
+    links to the committed fixtures; the TSN multi-scale augmentation on
+    real pixels): the port's decoder against PIL under the JAX CLI, the
+    checkpoints within 1e-4 of each tensor's largest value."""
+    from tests.test_torch_port_jpeg import link_frames
+
+    monkeypatch.chdir(workdir)
+    root = str(workdir / "frames")
+    if not os.path.isdir(root):
+        for vid in ("video_0", "video_1", "video_2"):
+            link_frames(root, vid, 600, "RGB")
+    reg = np.asarray([[0.01, -0.02], [0.1, 0.2]])
+    _start(JSSN(num_class=20, base_model="TinyConv", dropout=0.0),
+           (jnp.zeros((1, 9, 32, 32, 3)), jnp.ones((1, 2))), "jstart", reg)
+    common = [c for c in COMMON if c != "--synthetic_data"]
+    args = ["thumos14", "RGB", *common, "--data_root", root, "-b", "2",
+            "--tem", "1", "--prop_file_dir", str(workdir), "--clip-gradient",
+            "40"]
+    j_ssn_train(args + ["--resume", "jstart.msgpack", "--gpus", "0",
+                        "--snapshot_pref", "jaxjpeg"])
+    stats = ssn_train.main(args + ["--resume", "jstart.pt", "--device",
+                                   "cpu", "--snapshot_pref", "portjpeg"])
+    assert len(stats.step_ms) == 1 and stats.images == 2 * 8 * 9
+    _compare("ssnjaxjpeg_thumos14_TinyConv_rgb_checkpoint.msgpack",
+             "ssnportjpeg_thumos14_TinyConv_rgb_checkpoint.pt")
+
+
 def test_ssn_train_evaluate_and_resume_epoch(workdir, monkeypatch, capsys):
     """--evaluate validates and writes nothing; --resume starts at the saved
     epoch: no step is left of --epochs 1, one epoch (of one step, at --tem
