@@ -2,15 +2,29 @@
 
 :func:`decode_jpeg` gives the bytes of PIL's ``Image.open(path).convert(
 mode)`` for ``mode`` ``"RGB"`` (``(H, W, 3)``) or ``"L"`` (``(H, W)``),
-uint8 and C-contiguous, without PIL: a baseline decoder written after
-libjpeg's islow IDCT, fancy upsampling and YCbCr tables (see the source's
-head). An ``"L"`` request on a colour file is PIL's integer luma of the RGB
-decode, never the file's Y channel. It takes sequential Huffman JPEGs of
-8-bit precision with 1 or 3 components; progressive, lossless and
-arithmetic-coded files, 12-bit and CMYK files, a truncated file and
-anything that is not a JPEG raise ``ValueError`` naming the file and the
-cause; a file that cannot be read raises ``OSError`` (``FileNotFoundError``
-...), as PIL's ``open`` does. Nothing falls back to PIL or to a grey frame.
+uint8 and C-contiguous, without PIL: a decoder written after
+libjpeg-turbo's (islow IDCT, fancy upsampling, YCbCr and YCCK tables,
+Huffman and arithmetic entropy decoding, progressive block smoothing,
+lossless prediction; see the source's head). An ``"L"`` request on a
+colour file is PIL's integer luma of the RGB decode, never the file's Y
+channel; a CMYK or YCCK file is read as PIL reads it (inverted CMYK, then
+Pillow's CMYK -> RGB).
+
+It takes every 8-bit JPEG that PIL decodes: sequential and progressive
+Huffman (SOF0-2), lossless Huffman (SOF3), sequential and progressive
+arithmetic coding (SOF9, SOF10, with DAC conditioning), 1, 3 or 4
+components, restart markers, a Motion-JPEG frame without DHT (the standard
+tables). Baseline files stream block by block; the others fill a
+coefficient store first. What PIL refuses raises ``ValueError`` naming the
+file and the cause: hierarchical files (SOF5-7, SOF13-15), lossless
+arithmetic (SOF11), a lossless YCbCr or YCCK file (libjpeg makes no colour
+conversion there), precision other than 8 bits, 2 components, a truncated
+file, anything that is not a JPEG. One file PIL refuses is decoded: an
+arithmetic-coded file larger than PIL's 64 KiB read block (PIL's source
+manager suspends, libjpeg's arithmetic decoder cannot), to the pixels of
+its baseline original. A file that cannot be read raises ``OSError``
+(``FileNotFoundError`` ...), as PIL's ``open`` does. Nothing falls back to
+PIL or to a grey frame.
 
 The library is its own, ``libadt_jpeg`` (not part of ``libadt_native``),
 built with g++ at the first decode (never at import, so runs on synthetic

@@ -126,15 +126,20 @@ before the final line):
               (``parallel_paths``). Then the host JPEG decoder
               (``check_decoder``: g++ builds ``libadt_jpeg``; every
               committed fixture of ``tests/fixtures/torch_port_jpeg``
-              decoded as RGB and L to PIL's digests; ms a 340x256 RGB
-              frame and a Flow x/y pair on 1 thread and on the CLIs'
-              decode pool) and the CLIs on JPEG frame directories
-              (``run_real_frames``: two THUMOS14 videos of 1,560 frames
-              cycling over the fixtures; ``ssn_test`` BNInception RGB and
-              Flow, ``binary_test`` and ``ssn_train`` -b 16, 2 steps, each
-              a path that must launch its kernels and decode once a frame
-              file read, beside the same run on synthetic frames, walls
-              and busy shares); last the committed orbax directory
+              (baseline, progressive, arithmetic, CMYK and YCCK,
+              smoothed) decoded as RGB and L to PIL's digests; ms a
+              340x256 RGB frame (baseline, progressive, arithmetic and
+              progressive arithmetic) and a Flow x/y pair on 1 thread
+              and on the CLIs' decode pool) and the CLIs on JPEG frame
+              directories (``run_real_frames``: two THUMOS14 videos of
+              1,560 frames cycling over the fixtures; ``ssn_test``
+              BNInception RGB and Flow, ``binary_test`` and ``ssn_train``
+              -b 16, 2 steps, each a path that must launch its kernels
+              and decode once a frame file read, beside the same run on
+              synthetic frames, walls and busy shares; then ``ssn_test``
+              RGB on the progressive and arithmetic transcodes of the
+              same frames, whose pickle must equal the baseline frames'
+              byte for byte); last the committed orbax directory
               (``run_orbax``: read to its digests and scored where
               tensorstore imports, else refused by name).
 5. checks   — for BNInception (RGB and RGBDiff) and InceptionV3: the
@@ -1656,11 +1661,15 @@ def run_data_parallel(d: str, smi: str) -> dict:
 
 def check_decoder(smi: str) -> None:
     """The host JPEG decoder (``data/jpeg.py``): every committed fixture
-    (``tests/fixtures/torch_port_jpeg``) decoded as RGB and as L, each
-    array's shape and sha256 equal to PIL's in ``digests.json``; then ms
-    per 340x256 RGB frame and per Flow x/y pair, on one thread and on the
-    scoring CLIs' default decode pool (``make_decode_pool(None)``), beside
-    the synthetic provider's ms per RGB frame."""
+    (``tests/fixtures/torch_port_jpeg``: baseline, progressive, arithmetic
+    with DAC and restarts, CMYK and YCCK, the smoothed
+    incomplete scripts, an arithmetic file past PIL's read block) decoded
+    as RGB and as L, each array's shape and sha256 equal to PIL's in
+    ``digests.json``; then ms per 340x256 RGB frame (baseline, and the
+    progressive, arithmetic and progressive arithmetic transcodes of the
+    same frames) and per Flow x/y pair, 400 decodes each on one thread and
+    on the scoring CLIs' default decode pool (``make_decode_pool(None)``),
+    beside the synthetic provider's ms per RGB frame."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1689,15 +1698,25 @@ def check_decoder(smi: str) -> None:
 
     frames = range(1, JPEG_FIXTURE_FRAMES + 1)
     rgb = [os.path.join(JPEG_FIXTURES, f"img_{i:05d}.jpg") for i in frames]
+    tc = [os.path.join(JPEG_FIXTURES, f"tc_{i:05d}.jpg") for i in frames]
     flow = [tuple(os.path.join(JPEG_FIXTURES, f"{a}_{i:05d}.jpg")
                   for a in "xy") for i in frames]
     synthetic = SyntheticFrameProvider()
     pool = make_decode_pool(None) or ThreadPoolExecutor(1)
+
+    def rgb_fn(path):
+        return decode_jpeg(path, "RGB")
+
     for name, fn, items in (
-            ("RGB frame 340x256", lambda p: decode_jpeg(p, "RGB"), rgb),
+            ("RGB frame 340x256", rgb_fn, rgb),
+            ("progressive RGB frame 340x256 (tc 1-4)", rgb_fn, tc[:4]),
+            ("arithmetic RGB frame 340x256 (sequential, tc 5-6)", rgb_fn,
+             tc[4:6]),
+            ("arithmetic RGB frame 340x256 (progressive, tc 7-8)", rgb_fn,
+             tc[6:]),
             ("Flow x/y pair 340x256",
              lambda xy: [decode_jpeg(p, "L") for p in xy], flow)):
-        jobs = items * 50
+        jobs = items * (400 // len(items))
         for j in items:
             fn(j)
         t0 = time.perf_counter()
@@ -1719,15 +1738,18 @@ def check_decoder(smi: str) -> None:
           flush=True)
 
 
-def link_jpeg_frames(root: str, videos, frames: int) -> None:
+def link_jpeg_frames(root: str, videos, frames: int,
+                     rgb: str = "img") -> None:
     """``root/<video>/img_*``, ``x_*`` and ``y_*`` for frames 1..frames:
     links cycling over the committed 340x256 fixtures, in one directory
-    that every video's directory links to."""
+    that every video's directory links to; ``rgb="tc"`` links the RGB
+    frames to the coefficient-identical transcodes ``tc_*`` instead (1-4
+    progressive Huffman, 5-8 arithmetic), frame for frame."""
     shared = os.path.join(root, ".frames")
     os.makedirs(shared)
     for i in range(1, frames + 1):
         k = (i - 1) % JPEG_FIXTURE_FRAMES + 1
-        for src, dst in ((f"img_{k:05d}.jpg", f"img_{i:05d}.jpg"),
+        for src, dst in ((f"{rgb}_{k:05d}.jpg", f"img_{i:05d}.jpg"),
                          (f"x_{k:05d}.jpg", f"x_{i:05d}.jpg"),
                          (f"y_{k:05d}.jpg", f"y_{i:05d}.jpg")):
             os.symlink(os.path.join(JPEG_FIXTURES, src),
@@ -1749,8 +1771,13 @@ def run_real_frames(d: str, smi: str) -> dict:
     (``--synthetic_data``, the same arguments), and both are run again
     under the profiler: the walls and device busy shares, side by side.
     ``ssn_train`` runs twice only, each under the profiler (the JPEG run
-    is the counted one), with the host seconds a batch of each. Returns
-    each path's launches."""
+    is the counted one), with the host seconds a batch of each. Last,
+    ``ssn_test`` BNInception RGB once more, on directories whose RGB frames
+    link to the coefficient-identical transcodes of the same frames (1-4
+    progressive Huffman, 5-8 arithmetic; ``link_jpeg_frames(rgb="tc")``):
+    a path of its own that must launch K1-K3 and decode once a file read,
+    and whose pickle must equal the baseline frames' byte for byte.
+    Returns each path's launches."""
     import contextlib
     from unittest import mock
 
@@ -1851,6 +1878,9 @@ def run_real_frames(d: str, smi: str) -> dict:
                                          f"loss {st.best_loss}")
             else:
                 check_pickle(argv[3], 20)
+                if key == "real_ssn_test_rgb":  # before the reruns below
+                    with open(argv[3], "rb") as f:
+                        rgb_pickle = f.read()
             if training:
                 _, jw, jb = prof["jpeg"]
                 _, sw, sb = profiled_run(cli_call(cli, synth,
@@ -1870,6 +1900,39 @@ def run_real_frames(d: str, smi: str) -> dict:
                   f"wall {jw:.3f} s busy {jb / jw:.1%}, synthetic wall "
                   f"{sw:.3f} s busy {sb / sw:.1%}; {decodes} decodes for "
                   f"{len(files)} frame loads{batches} ({smi})", flush=True)
+
+        # the same ssn_test on the coefficient-identical transcodes: the
+        # same pixels, so the same pickle, byte for byte
+        transcoded = os.path.join(real, "frames_tc")
+        link_jpeg_frames(transcoded, videos, PIPELINE_FRAMES, rgb="tc")
+        key, name, cli, argv, expect = runs[0]
+        argv = argv[:3] + [os.path.join(real, "rgb_tc.pkl")]
+        files.clear()
+        with mock.patch.object(pipeline.DirectoryFrameProvider, "load",
+                               counted):
+            paths["real_ssn_test_rgb_tc"] = drive(
+                f"{name} on progressive and arithmetic JPEG frames",
+                cli_call(cli, argv + ["--data_root", transcoded,
+                                      "--prop_file_dir", real], None),
+                expect + ("host_jpeg_decode",))
+        decodes = paths["real_ssn_test_rgb_tc"]["host_jpeg_decode"]
+        if decodes != sum(files):
+            raise AssertionError(
+                f"{name} on transcodes: {decodes} JPEG decodes for "
+                f"{len(files)} frame loads reading {sum(files)} files")
+        with open(argv[3], "rb") as f:
+            got = f.read()
+        if got != rgb_pickle:
+            delta = _max_abs_delta(pickle.loads(got), pickle.loads(rgb_pickle))
+            raise AssertionError(
+                f"{name}: the transcoded frames' pickle differs from the "
+                f"baseline frames' (max |d| {delta})")
+        print(f"real frames: {name} on the progressive and arithmetic "
+              f"transcodes: wall {paths['real_ssn_test_rgb_tc']['wall_s']:.3f}"
+              f" s, {decodes} decodes for {len(files)} frame loads, K1/K2/K3 "
+              + "/".join(str(paths["real_ssn_test_rgb_tc"][k]) for k in k1_3)
+              + f"; pickle byte-equal to the baseline frames' ({smi})",
+              flush=True)
     return paths
 
 

@@ -3,29 +3,44 @@ against PIL on the CPU, exactly (max |d| 0):
 
 * one parametrised test over the files PIL writes (4:2:0, 4:2:2, 4:4:4,
   grayscale, ``optimize``, restart markers, qualities 30-95, odd sizes
-  down to 1x1) and the structures it cannot write, from this module's
-  baseline encoder (:func:`encode_baseline`: 4:4:0, 4:1:1, 3:1 and mixed
-  sampling, non-interleaved scans, Adobe RGB, 'R','G','B' component ids,
-  16-bit quantization tables, codes of 3 to 16 bits), each decoded as RGB
-  and as L; a progressive file is refused by name;
+  down to 1x1, each also progressive; CMYK; a Motion-JPEG frame without
+  its DHT), the structures it cannot write, from this module's baseline
+  encoder (:func:`encode_baseline`: 4:4:0, 4:1:1, 3:1 and mixed sampling,
+  non-interleaved scans, Adobe RGB, 'R','G','B' component ids, 16-bit
+  quantization tables, codes of 3 to 16 bits), and lossless files from its
+  lossless encoder (:func:`encode_lossless`: predictors 1-7, point
+  transforms 0-3, grayscale and 3 components, subsampled, restarts), each
+  decoded as RGB and as L;
+* the committed fixtures PIL cannot write (``transcode.cpp`` beside them):
+  coefficient-identical transcodes of the 340x256 frames into progressive
+  Huffman and sequential and progressive arithmetic coding, which decode
+  to their baseline originals' bytes; arithmetic files with a DAC marker
+  and restarts; a YCCK file; progressive files whose scan scripts stop
+  early, where libjpeg's block smoothing shows; an arithmetic file larger
+  than PIL's 64 KiB read block, which PIL cannot read and the port can;
 * a colour file read as L (PIL's luma, not the file's Y), a grayscale file
   read as RGB;
-* truncated, empty, non-JPEG and CMYK files raise ``ValueError`` naming
-  the file;
+* truncated, empty and non-JPEG files, hierarchical, 12-bit, 2-component,
+  lossless arithmetic and lossless YCbCr files raise ``ValueError`` naming
+  the file, and PIL refuses each of them too;
 * six threads decoding at once give the serial decode;
 * the committed fixtures (``tests/fixtures/torch_port_jpeg``, written by
   :func:`write_fixtures`) still decode under PIL to ``digests.json``, and
   under the port's decoder too;
 * the port's ``DirectoryFrameProvider`` against the JAX package's, for
-  RGB, Flow and RGBDiff, exactly;
+  RGB, Flow and RGBDiff, on baseline, progressive, arithmetic and CMYK
+  frame directories, exactly;
 * the decoder's own library, its build failure and its launch counter.
 
-``python -m tests.test_torch_port_jpeg`` writes the fixtures anew.
+``python -m tests.test_torch_port_jpeg`` writes the fixtures anew (it builds
+``transcode.cpp`` with g++ against libjpeg; the tests never do).
 """
 
 import hashlib
 import json
 import os
+import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -48,6 +63,41 @@ RGB_FIXTURES = [f"img_{i:05d}.jpg" for i in range(1, N_FIXTURE_FRAMES + 1)]
 FLOW_FIXTURES = [f"{a}_{i:05d}.jpg" for i in range(1, N_FIXTURE_FRAMES + 1)
                  for a in "xy"]
 COLOUR_FIXTURES = ["colour_452x341.jpg", "colour_341x257.jpg"]
+#: coefficient-identical transcodes of img_00001..00008 (``transcode.cpp``
+#: options): 1-4 progressive Huffman, 5-6 sequential arithmetic, 7-8
+#: progressive arithmetic
+TRANSCODES = {f"tc_{i:05d}.jpg": (
+    ["--progressive"] if i <= 4 else ["--arith"] if i <= 6
+    else ["--arith", "--progressive"]) for i in range(1, 9)}
+#: the other files ``transcode.cpp`` writes: name -> (source, options); the
+#: source "small" is a 97x67 4:2:0 frame (an odd count of luma block
+#: rows), "large" a 400x270 frame whose arithmetic code outgrows PIL's 64
+#: KiB read block, "cmyk.jpg" the committed CMYK file Pillow writes
+TRANSCODED = {
+    "arith_dac_restart.jpg": ("small", ["--arith", "--dac", "--restart",
+                                        "5"]),
+    "arith_progressive_dac_restart.jpg": (
+        "small", ["--arith", "--progressive", "--dac", "--restart", "3"]),
+    "smooth_dc.jpg": ("small", ["--script", "dc"]),
+    "smooth_ac.jpg": ("small", ["--script", "ac"]),
+    "smooth_arith_ac.jpg": ("small", ["--arith", "--script", "ac"]),
+    # the same coefficients as sequential Huffman: no smoothing
+    "smooth_dc_unsmoothed.jpg": ("smooth_dc.jpg", []),
+    "smooth_ac_unsmoothed.jpg": ("smooth_ac.jpg", []),
+    "ycck.jpg": ("cmyk.jpg", ["--ycck"]),
+    "arith_large.jpg": ("large", ["--arith"]),
+}
+#: committed files PIL cannot decode: their digests are PIL's decode of
+#: the baseline file they were transcoded from
+PIL_UNREADABLE = ["arith_large.jpg"]
+SPECIAL_FIXTURES = ["cmyk.jpg"] + list(TRANSCODED)
+ALL_FIXTURES = (RGB_FIXTURES + FLOW_FIXTURES + COLOUR_FIXTURES
+                + list(TRANSCODES) + SPECIAL_FIXTURES)
+#: the frame files each kind of frame directory cycles over
+#: (:func:`link_frames`)
+FRAME_SETS = {"progressive": list(TRANSCODES)[:4],
+              "arithmetic": list(TRANSCODES)[4:],
+              "cmyk": ["cmyk.jpg", "ycck.jpg"]}
 
 
 def scene(h: int, w: int, channels: int, seed: int, amplitude=80.0,
@@ -91,12 +141,30 @@ def load_with_pil(provider, video_id: str, idx: int) -> list:
         for axis in ("x", "y")]
 
 
+def _cmyk(h: int, w: int, seed: int) -> Image.Image:
+    """A CMYK image of four smooth planes."""
+    return Image.frombytes("CMYK", (w, h), scene(h, w, 4, seed).tobytes())
+
+
+def build_transcoder(directory: str) -> str:
+    """``transcode.cpp`` built with g++ against libjpeg into directory."""
+    exe = os.path.join(directory, "transcode")
+    subprocess.run(["g++", "-O2", "-o", exe,
+                    os.path.join(FIXTURES, "transcode.cpp"), "-ljpeg"],
+                   check=True)
+    return exe
+
+
 def write_fixtures(directory: str = FIXTURES) -> None:
     """The committed frames: 8 RGB frames at 340x256 (quality 90, 4:2:0,
     as frame extractors write them), 8 Flow x/y pairs (grayscale, quality
-    90, smooth fields about 128), a 452x341 frame (4:2:0, quality 95) and
-    a 341x257 one (4:4:4, quality 75); and ``digests.json``: the sha256
-    and shape of PIL's ``convert("RGB")`` and ``convert("L")`` of each."""
+    90, smooth fields about 128), a 452x341 frame (4:2:0, quality 95), a
+    341x257 one (4:4:4, quality 75) and a 97x67 CMYK one (quality 90);
+    the files ``transcode.cpp`` writes from them and from temporary
+    baseline frames (:data:`TRANSCODES`, :data:`TRANSCODED`); and
+    ``digests.json``: the sha256 and shape of PIL's ``convert("RGB")`` and
+    ``convert("L")`` of each (of the baseline source for
+    :data:`PIL_UNREADABLE`)."""
     os.makedirs(directory, exist_ok=True)
     for i, name in enumerate(RGB_FIXTURES):
         Image.fromarray(scene(256, 340, 3, seed=i)).save(
@@ -110,30 +178,57 @@ def write_fixtures(directory: str = FIXTURES) -> None:
     Image.fromarray(scene(257, 341, 3, seed=201)).save(
         os.path.join(directory, COLOUR_FIXTURES[1]), quality=75,
         subsampling="4:4:4")
-    digests = {name: {mode: _digest(pil_decode(os.path.join(directory, name),
-                                               mode))
-                      for mode in ("RGB", "L")}
-               for name in RGB_FIXTURES + FLOW_FIXTURES + COLOUR_FIXTURES}
+    _cmyk(67, 97, seed=202).save(os.path.join(directory, "cmyk.jpg"),
+                                 quality=90)
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = build_transcoder(tmp)
+        sources = {"small": os.path.join(tmp, "small.jpg"),
+                   "large": os.path.join(tmp, "large.jpg")}
+        Image.fromarray(scene(67, 97, 3, seed=203)).save(sources["small"],
+                                                         quality=75)
+        Image.fromarray(scene(270, 400, 3, seed=204, noise=20)).save(
+            sources["large"], quality=95)
+        jobs = [(f"img_{name[3:]}", name, opts)
+                for name, opts in TRANSCODES.items()]
+        jobs += [(src, name, opts) for name, (src, opts) in TRANSCODED.items()]
+        for src, name, opts in jobs:
+            src = sources.get(src, os.path.join(directory, src))
+            subprocess.run([exe, src, os.path.join(directory, name), *opts],
+                           check=True)
+        digests = {}
+        for name in ALL_FIXTURES:
+            path = os.path.join(directory, name)
+            if name in PIL_UNREADABLE:
+                path = sources[TRANSCODED[name][0]]
+            digests[name] = {mode: _digest(pil_decode(path, mode))
+                             for mode in ("RGB", "L")}
     with open(os.path.join(directory, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")
 
 
-def link_frames(root: str, video: str, n_frames: int, modality: str) -> str:
+def link_frames(root: str, video: str, n_frames: int, modality: str,
+                kind: str = "baseline") -> str:
     """``root/video`` holding frames 1..n_frames of ``modality`` (the
     CLIs' file names, :func:`frame_template`) as links cycling over the
-    committed fixtures."""
+    committed fixtures: the baseline frames (``img_*``, ``x_*``, ``y_*``),
+    or, for another ``kind`` of :data:`FRAME_SETS`, its files (x and y
+    alike)."""
     d = os.path.join(root, video)
     os.makedirs(d, exist_ok=True)
     tmpl = frame_template(modality)
+    files = FRAME_SETS.get(kind)
     for i in range(1, n_frames + 1):
         k = (i - 1) % N_FIXTURE_FRAMES + 1
         if modality == "Flow":
             for a in "xy":
-                os.symlink(os.path.join(FIXTURES, f"{a}_{k:05d}.jpg"),
+                src = (files[(i - 1) % len(files)] if files
+                       else f"{a}_{k:05d}.jpg")
+                os.symlink(os.path.join(FIXTURES, src),
                            os.path.join(d, tmpl.format(a, i)))
         else:
-            os.symlink(os.path.join(FIXTURES, f"img_{k:05d}.jpg"),
+            src = files[(i - 1) % len(files)] if files else f"img_{k:05d}.jpg"
+            os.symlink(os.path.join(FIXTURES, src),
                        os.path.join(d, tmpl.format(i)))
     return d
 
@@ -317,11 +412,95 @@ def _planes(size, sampling, seed):
             for c, (h, v) in enumerate(sampling)]
 
 
+# ---------------------------------------------------------- a lossless encoder
+
+# difference categories 0-16: 3-bit codes for 0-3, 5-bit for the rest
+_LOSSLESS = ([3] * 4 + [5] * 13, list(range(17)))
+
+
+def _predict(a, r, c, predictor, first_row, initial):
+    """The prediction of sample (r, c) of the point-transformed plane a:
+    T.81 H.1.2.1's rules for the first row of a restart interval and the
+    first column, else predictor 1-7 from Ra (left), Rb (above), Rc."""
+    if first_row:
+        return initial if c == 0 else a[r, c - 1]
+    if c == 0:
+        return a[r - 1, c]
+    ra, rb, rc = int(a[r, c - 1]), int(a[r - 1, c]), int(a[r - 1, c - 1])
+    return (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1]
+
+
+def encode_lossless(size, planes, sampling, predictor, pt=0, restart_rows=0,
+                    jfif=False, adobe=None, ids=(1, 2, 3), sof=0xC3):
+    """A lossless Huffman JPEG (SOF3) of an image of ``size`` (H, W) from
+    ``planes`` (one uint8 array per component at its downsampled size, as
+    :func:`encode_baseline` takes them) with ``sampling`` (h, v), one
+    interleaved scan with ``predictor`` (1-7) and point transform ``pt``,
+    a restart marker every ``restart_rows`` MCU rows, optional JFIF and
+    Adobe markers and component ids; ``sof`` other than 0xC3 writes that
+    marker over the same bytes."""
+    H, W = size
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mx_n, my_n = -(-W // hmax), -(-H // vmax)
+    bits, codes = _canonical(*_LOSSLESS)
+    diffs = []
+    for p, (h, v) in zip(planes, sampling):
+        a = np.pad(p.astype(np.int64) >> pt,
+                   ((0, my_n * v - p.shape[0]), (0, mx_n * h - p.shape[1])),
+                   mode="edge")
+        d = np.zeros_like(a)
+        for r in range(a.shape[0]):
+            first = r % (restart_rows * v) == 0 if restart_rows else r == 0
+            for c in range(a.shape[1]):
+                pred = _predict(a, r, c, predictor, first,
+                                1 << (8 - pt - 1))
+                dd = (int(a[r, c]) - int(pred)) & 0xFFFF
+                d[r, c] = dd - 65536 if dd > 32768 else dd
+        diffs.append(d)
+    w = _BitWriter()
+    for my in range(my_n):
+        if restart_rows and my and my % restart_rows == 0:
+            w.flush()
+            w.out += bytes([0xFF, 0xD0 + (my // restart_rows - 1) % 8])
+        for mx in range(mx_n):
+            for d, (h, v) in zip(diffs, sampling):
+                for by in range(v):
+                    for bx in range(h):
+                        dv = int(d[my * v + by, mx * h + bx])
+                        s = abs(dv).bit_length()
+                        w.put(*codes[s])
+                        if 0 < s < 16:
+                            w.put(dv if dv > 0 else dv + (1 << s) - 1, s)
+    w.flush()
+    n = len(planes)
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                        + bytes([adobe]))
+    out += _segment(sof, bytes([8]) + H.to_bytes(2, "big")
+                    + W.to_bytes(2, "big") + bytes([n])
+                    + b"".join(bytes([ids[c], (h << 4) | v, 0])
+                               for c, (h, v) in enumerate(sampling)))
+    out += _segment(0xC4, bytes([0x00] + bits) + bytes(_LOSSLESS[1]))
+    if restart_rows:
+        out += _segment(0xDD, (restart_rows * mx_n).to_bytes(2, "big"))
+    out += _segment(0xDA, bytes([n]) + b"".join(bytes([ids[c], 0x00])
+                                                for c in range(n))
+                    + bytes([predictor, 0, pt]))
+    return bytes(out) + bytes(w.out) + b"\xff\xd9"
+
+
 # -------------------------------------------------------------- the cases
 
 def _pil(size, channels=3, **save):
     def write(path, seed):
-        Image.fromarray(scene(*size, channels, seed)).save(path, **save)
+        img = (_cmyk(*size, seed) if channels == 4
+               else Image.fromarray(scene(*size, channels, seed)))
+        img.save(path, **save)
     return write
 
 
@@ -331,6 +510,27 @@ def _ours(size, sampling, **enc):
             f.write(encode_baseline(size, _planes(size, sampling, seed),
                                     sampling, **enc))
     return write
+
+
+def _lossless(size, sampling, predictor, **enc):
+    def write(path, seed):
+        with open(path, "wb") as f:
+            f.write(encode_lossless(size, _planes(size, sampling, seed),
+                                    sampling, predictor, **enc))
+    return write
+
+
+def _without_dht(path, seed):
+    """A Motion-JPEG frame: PIL's baseline file (the standard Huffman
+    tables) with its DHT segments taken out."""
+    _pil((41, 57), quality=90)(path, seed)
+    with open(path, "rb") as f:
+        data = f.read()
+    while (i := data.find(b"\xff\xc4")) >= 0:
+        data = data[:i] + data[i + 2 + int.from_bytes(data[i + 2:i + 4],
+                                                       "big"):]
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 S444, S420 = [(1, 1)] * 3, [(2, 2), (1, 1), (1, 1)]
@@ -371,6 +571,44 @@ CASES = {
     "enc_unmarked_ycc": _ours((19, 27), S420, jfif=False),
     "enc_grayscale_h2v2": _ours((21, 13), [(2, 2)]),
     "enc_dqt16": _ours((33, 47), S420, qt16=True),
+    "mjpeg_without_dht": _without_dht,
+    "progressive_420": _pil((256, 340), progressive=True, quality=90),
+    "progressive_422": _pil((256, 340), progressive=True,
+                            subsampling="4:2:2", quality=90),
+    "progressive_444": _pil((256, 340), progressive=True,
+                            subsampling="4:4:4", quality=90),
+    "progressive_grayscale": _pil((256, 340), channels=1, progressive=True,
+                                  quality=90),
+    "progressive_optimize": _pil((256, 340), progressive=True, optimize=True,
+                                 quality=85),
+    "progressive_restart_blocks": _pil((257, 341), progressive=True,
+                                       restart_marker_blocks=7, quality=80),
+    "progressive_restart_rows": _pil((257, 341), progressive=True,
+                                     restart_marker_rows=1, quality=80),
+    "progressive_odd_17x9": _pil((9, 17), progressive=True, quality=90),
+    "progressive_tiny_1x1": _pil((1, 1), progressive=True, quality=90),
+    "progressive_q30": _pil((257, 341), progressive=True, quality=30),
+    "progressive_q95": _pil((257, 341), progressive=True, quality=95),
+    "cmyk": _pil((67, 97), channels=4, quality=90),
+    "cmyk_progressive_odd_17x9": _pil((9, 17), channels=4, progressive=True,
+                                      quality=75),
+    "lossless_p1_grayscale": _lossless((19, 23), [(1, 1)], 1),
+    "lossless_p2_rgb": _lossless((19, 23), S444, 2),
+    "lossless_p3_grayscale_pt2": _lossless((19, 23), [(1, 1)], 3, pt=2),
+    "lossless_p4_rgb_pt2": _lossless((19, 23), S444, 4, pt=2),
+    "lossless_p5_grayscale_restart": _lossless((21, 17), [(1, 1)], 5,
+                                               restart_rows=3, jfif=True),
+    "lossless_p6_rgb_restart": _lossless((21, 17), S444, 6, restart_rows=2),
+    "lossless_p7_rgb_pt2_restart": _lossless((21, 17), S444, 7, pt=2,
+                                             restart_rows=1),
+    "lossless_420_restart": _lossless((21, 17), S420, 6, restart_rows=2),
+    "lossless_422": _lossless((21, 17), [(2, 1), (1, 1), (1, 1)], 7),
+    "lossless_mixed_pt3": _lossless((13, 29), [(2, 2), (2, 1), (1, 2)], 5,
+                                    pt=3, restart_rows=1),
+    "lossless_grayscale_h2v2": _lossless((13, 29), [(2, 2)], 3),
+    "lossless_adobe_rgb": _lossless((13, 29), S444, 4, adobe=0),
+    "lossless_rgb_ids": _lossless((13, 29), S444, 1, ids=(82, 71, 66)),
+    "lossless_tiny_1x1": _lossless((1, 1), S444, 7),
 }
 
 
@@ -424,38 +662,93 @@ def _raw(data):
     return write
 
 
+def _patched(edit):
+    """PIL's 64x80 baseline file with ``edit(bytearray, i)`` applied, i the
+    index of its SOF0 marker."""
+    def write(path, seed):
+        _pil((64, 80), quality=90)(path, seed)
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        edit(data, data.index(b"\xff\xc0"))
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+    return write
+
+
+def _sof5(data, i):
+    data[i + 1] = 0xC5
+
+
+def _sof1_12bit(data, i):
+    data[i + 1] = 0xC1
+    data[i + 4] = 12
+
+
+def _cut_fixture(name, keep):
+    def write(path, seed):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[:keep])
+    return write
+
+
+def _restart_mid_row(path, seed):
+    """A lossless file whose restart interval (7) is not a whole number of
+    its MCU rows (10)."""
+    _lossless((9, 10), [(1, 1)], 1, restart_rows=1)(path, seed)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    i = data.index(b"\xff\xdd")
+    data[i + 4:i + 6] = (7).to_bytes(2, "big")
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+
+
+REFUSALS = {
+    "truncated_in_data": _cut(-400),
+    "truncated_before_eoi": _cut(-2),
+    "truncated_in_header": _cut(100),
+    "empty": _raw(b""),
+    "not_jpeg": _raw(b"\x89PNG\r\n\x1a\n not a jpeg"),
+    "hierarchical_sof5": _patched(_sof5),
+    "precision_12_sof1": _patched(_sof1_12bit),
+    "two_components": _ours((19, 27), [(1, 1)] * 2),
+    "arithmetic_truncated": _cut_fixture("tc_00005.jpg", 9000),
+    "lossless_arithmetic_sof11": _lossless((9, 10), [(1, 1)], 1, sof=0xCB),
+    "lossless_ycbcr": _lossless((9, 10), S444, 1, jfif=True),
+    "lossless_restart_mid_row": _restart_mid_row,
+}
+
+
 @pytest.mark.parametrize("case,match", [
     ("truncated_in_data", "truncated"),
     ("truncated_before_eoi", "truncated"),
     ("truncated_in_header", "truncated"),
     ("empty", "not a JPEG file"),
     ("not_jpeg", "not a JPEG file"),
-    ("progressive", r"progressive JPEG \(SOF2, marker 0xFFC2\)"),
-    ("cmyk", r"4 components \(SOF0"),
+    ("hierarchical_sof5", r"hierarchical JPEG \(SOF5, marker 0xFFC5\)"),
+    ("precision_12_sof1", r"12-bit precision \(SOF1, marker 0xFFC1\)"),
+    ("two_components", r"2 components \(SOF0"),
+    ("arithmetic_truncated", "truncated"),
+    ("lossless_arithmetic_sof11",
+     r"lossless arithmetic-coded JPEG \(SOF11, marker 0xFFCB\)"),
+    ("lossless_ycbcr", r"lossless JPEG \(SOF3\) in YCbCr"),
+    ("lossless_restart_mid_row",
+     "restart interval of 7 MCUs is not a multiple"),
 ])
 def test_refusals_name_the_file(tmp_path, case, match):
-    """What PIL would not read as RGB or L, or what this decoder does not
-    take, raises ValueError naming the file and the cause; no grey frame
-    comes back."""
-    write = {
-        "truncated_in_data": _cut(-400),
-        "truncated_before_eoi": _cut(-2),
-        "truncated_in_header": _cut(100),
-        "empty": _raw(b""),
-        "not_jpeg": _raw(b"\x89PNG\r\n\x1a\n not a jpeg"),
-        "progressive": _pil((64, 80), progressive=True, quality=90),
-        "cmyk": lambda p, seed: Image.new("CMYK", (16, 8), (1, 2, 3, 4))
-        .save(p, quality=90),
-    }[case]
+    """What PIL does not read as RGB or L raises ValueError naming the file
+    and the cause, and PIL refuses the same file; no grey frame comes
+    back."""
     path = str(tmp_path / f"frame_{case}.jpg")
-    write(path, seed=5)
+    REFUSALS[case](path, seed=5)
     for mode in ("RGB", "L"):
         with pytest.raises(ValueError, match=match) as e:
             decode_jpeg(path, mode)
         assert path in str(e.value)
-    if case.startswith(("truncated", "empty", "not_jpeg")):
-        with pytest.raises(OSError):     # PIL refuses them too
-            pil_decode(path, "RGB")
+    with pytest.raises(OSError):     # PIL refuses it too
+        pil_decode(path, "RGB")
 
 
 def test_unreadable_file_raises_oserror(tmp_path):
@@ -486,8 +779,7 @@ def test_mode_other_than_rgb_or_l_raises(tmp_path):
 def test_threads_decode_as_one(tmp_path):
     """The fixtures decoded by six threads at once (ctypes releases the
     GIL; the decoder keeps its state per call) equal a serial decode."""
-    jobs = [(os.path.join(FIXTURES, n), m) for n in
-            RGB_FIXTURES + FLOW_FIXTURES + COLOUR_FIXTURES
+    jobs = [(os.path.join(FIXTURES, n), m) for n in ALL_FIXTURES
             for m in ("RGB", "L")] * 2
     serial = [decode_jpeg(p, m) for p, m in jobs]
     got = [None] * len(jobs)
@@ -513,14 +805,16 @@ def _digests():
 
 
 def test_committed_fixtures_match_their_digests_under_pil():
-    """``digests.json`` is PIL's decode of the committed files, and every
-    committed frame is in it."""
+    """``digests.json`` is PIL's decode of the committed files (of the
+    baseline original for a file PIL cannot read), and every committed
+    frame is in it."""
     digests = _digests()
-    names = RGB_FIXTURES + FLOW_FIXTURES + COLOUR_FIXTURES
-    assert sorted(digests) == sorted(names)
+    assert sorted(digests) == sorted(ALL_FIXTURES)
     assert sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg")) \
-        == sorted(names)
-    for name in names:
+        == sorted(ALL_FIXTURES)
+    for name in ALL_FIXTURES:
+        if name in PIL_UNREADABLE:
+            continue
         for mode in ("RGB", "L"):
             assert _digest(pil_decode(os.path.join(FIXTURES, name), mode)) \
                 == digests[name][mode], (name, mode)
@@ -535,12 +829,65 @@ def test_decoder_matches_the_committed_digests():
                 == want, (name, mode)
 
 
-@pytest.mark.parametrize("modality", ["RGB", "Flow", "RGBDiff"])
-def test_directory_provider_matches_jax(tmp_path, modality):
+@pytest.mark.parametrize("name", sorted(TRANSCODES))
+def test_transcodes_decode_to_their_baseline_originals(name):
+    """A coefficient-identical transcode (progressive Huffman, sequential
+    or progressive arithmetic) decodes to the bytes of its baseline
+    original, under the port's decoder and PIL alike: a complete scan
+    script never smooths."""
+    original = os.path.join(FIXTURES, f"img_{name[3:]}")
+    for mode in ("RGB", "L"):
+        got = decode_jpeg(os.path.join(FIXTURES, name), mode)
+        np.testing.assert_array_equal(got, decode_jpeg(original, mode))
+        np.testing.assert_array_equal(got, pil_decode(original, mode))
+
+
+@pytest.mark.parametrize("name,unsmoothed", [
+    ("smooth_dc.jpg", "smooth_dc_unsmoothed.jpg"),
+    ("smooth_ac.jpg", "smooth_ac_unsmoothed.jpg"),
+    ("smooth_arith_ac.jpg", "smooth_ac_unsmoothed.jpg"),
+])
+def test_block_smoothing_where_the_scans_stop_early(name, unsmoothed):
+    """A progressive file whose script leaves AC1-AC9 unknown (DC only) or
+    unrefined (Al 1) equals PIL, and differs from the IDCT of the same
+    coefficients without smoothing (their sequential transcode, which both
+    decoders give alike): the test sees libjpeg's block smoothing."""
+    path = os.path.join(FIXTURES, name)
+    plain = os.path.join(FIXTURES, unsmoothed)
+    for mode in ("RGB", "L"):
+        got = decode_jpeg(path, mode)
+        np.testing.assert_array_equal(got, pil_decode(path, mode))
+        flat = decode_jpeg(plain, mode)
+        np.testing.assert_array_equal(flat, pil_decode(plain, mode))
+        assert (got != flat).mean() > 0.1, (mode, (got != flat).mean())
+
+
+def test_arithmetic_file_past_pils_read_block():
+    """PIL cannot read an arithmetic-coded file larger than its 64 KiB read
+    block (its source manager suspends, libjpeg's arithmetic decoder
+    cannot); the port decodes it to the pixels of its baseline original
+    (``digests.json``)."""
+    name = PIL_UNREADABLE[0]
+    path = os.path.join(FIXTURES, name)
+    assert os.path.getsize(path) > 65536
+    with pytest.raises(OSError):
+        pil_decode(path, "RGB")
+    for mode, want in _digests()[name].items():
+        assert _digest(decode_jpeg(path, mode)) == want, mode
+
+
+@pytest.mark.parametrize("modality,kind", [
+    pytest.param("RGB", "baseline", id="RGB"),
+    pytest.param("Flow", "baseline", id="Flow"),
+    pytest.param("RGBDiff", "baseline", id="RGBDiff"),
+    ("RGB", "progressive"), ("RGBDiff", "progressive"),
+    ("RGB", "arithmetic"), ("RGB", "cmyk"), ("Flow", "cmyk")])
+def test_directory_provider_matches_jax(tmp_path, modality, kind):
     """The port's DirectoryFrameProvider (its decoder) and the JAX
-    package's (PIL) load the same arrays from one frame directory, as the
-    plain version (:func:`load_with_pil`) does."""
-    link_frames(str(tmp_path), "video_0", 20, modality)
+    package's (PIL) load the same arrays from one frame directory of
+    baseline, progressive, arithmetic or CMYK/YCCK frames, as the plain
+    version (:func:`load_with_pil`) does."""
+    link_frames(str(tmp_path), "video_0", 20, modality, kind)
     tmpl = frame_template(modality)
     port = DirectoryFrameProvider(str(tmp_path), tmpl, modality)
     ref = JDirectoryFrameProvider(str(tmp_path), tmpl, modality)
