@@ -12,12 +12,17 @@ two int8 modes:
 * **One topology walk** (:func:`_walk_stem`, :func:`_walk_trunk`, copied)
   interpreted by several ops faces, so branch order and pool choices are
   written once.
-* **e2e, the scoring default**: ``_StemBf16Ops`` (the hybrid stem in bf16
-  on cuDNN, quantized once at its output) and ``_E2EOps`` (int8 activations
-  end to end through the hand-written kernels K1-K3 of ``kernels/int8.py``,
-  with the fused branch-entry conv); calibrated by :func:`calibrate_e2e`.
-  The port keeps only this hybrid stem, the only e2e stem the JAX
-  package's defaults reach.
+* **e2e, the scoring default**: ``_E2EOps`` (int8 activations end to end
+  through the hand-written kernels K1-K3 of ``kernels/int8.py``, with the
+  fused branch-entry conv), calibrated by :func:`calibrate_e2e`. Its stem
+  comes in two forms, as in the JAX package: the hybrid stem (the default,
+  ``hybrid_stem=True``; ``_StemBf16Ops``, bf16 on cuDNN, quantized once at
+  its output) or the all-int8 stem (``hybrid_stem=False``: the input
+  quantized once at ``__input_scale__`` into 16 channels, the extra ones
+  zero, then the stem's convs and pools on K1 and K2). A tree carries its
+  stem's form (``__stem__`` or not), and :func:`_e2e_stem_quantized`
+  dispatches on it, so a ``prequantized`` all-int8 tree scores as JAX
+  scores it.
 * **perlayer** (``--int8_mode perlayer``): ``_PerLayerOps``, bf16
   activations and every conv, the stem's included, in int8 through K1's
   bf16 dequantizing epilogue after a per-tensor activation quantize
@@ -25,12 +30,14 @@ two int8 modes:
   :func:`calibrate_activation_scales`); bf16 Caffe-ceil max pools and
   include-pad avg pools as torch ops (:func:`bninception_int8_features`).
   The same face, with dynamic scales and output maxes recorded, is the
-  e2e calibration pass.
+  e2e calibration pass (for the all-int8 stem, its stem too).
+* :func:`quantization_report`: int8 against float features (and fused
+  scores) on real frames, the check to run before deploying ``--int8``.
 
 Runtime trees hold torch tensors: conv weights ``wq`` repacked to
-``(O, KH, KW, C)`` int8 for K1 (the per-layer tree's stem conv padded with
-zero channels to a multiple of 16, K1's 16-byte rule), ``m``/``bq``
-float32, the stem's folded kernels bf16 OIHW (see :func:`tensor_tree`).
+``(O, KH, KW, C)`` int8 for K1 (a stem conv's C padded with zero channels
+to a multiple of 16, K1's 16-byte rule), ``m``/``bq`` float32, the hybrid
+stem's folded kernels bf16 OIHW (see :func:`tensor_tree`).
 """
 
 from __future__ import annotations
@@ -89,10 +96,8 @@ def fold_bn(state_dict: Mapping[str, Any], eps: float = 1e-5) -> dict:
 def quantize_backbone(state_dict: Mapping[str, Any],
                       folded: dict = None) -> QuantizedParams:
     """BN-fold then per-output-channel int8-quantize every conv (the
-    per-layer tree). A conv whose input channels are not a multiple of 16
-    (the stem conv: 3, 10 or 15) gets zero weight channels up to the next
-    one; its input is quantized into as many channels, the extra ones
-    zero, so the s32 sums are the unpadded conv's."""
+    per-layer tree; the stem conv's weights padded as :func:`_pack_wq`
+    pads them)."""
     folded = folded if folded is not None else fold_bn(state_dict)
     q: QuantizedParams = {}
     for name, leaf in folded.items():
@@ -100,7 +105,6 @@ def quantize_backbone(state_dict: Mapping[str, Any],
         sw = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0        # (O,)
         sw = np.where(sw == 0, 1.0, sw)
         wq = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
-        wq = np.pad(wq, ((0, 0), (0, 0), (0, -wq.shape[2] % 16), (0, 0)))
         q[name] = {"wq": _pack_wq(wq),
                    "sw": torch.from_numpy(np.asarray(sw, np.float32)),
                    "bias": torch.from_numpy(np.asarray(leaf["bias"],
@@ -164,15 +168,18 @@ class _EntryDefault:
 
 def quantize_backbone_e2e(state_dict: Mapping[str, Any],
                           out_maxes: Dict[str, float],
+                          hybrid_stem: bool = True,
                           folded: dict = None) -> QuantizedParams:
     """BN-fold + int8-quantize with input-scale folding for e2e activations.
 
     ``out_maxes``: {"input": max|normalized input|, conv_name: max post-ReLU
-    conv output} from :func:`_e2e_output_maxes`. The stem (conv1..conv2_3x3)
-    stays bf16 on its folded weights (``__stem__``) and is quantized once at
-    its output (``__stem_scale__``); the trunk's convs absorb their input
-    scales and quantize per output channel. ``__feat_scale__`` is the final
-    concat's per-channel scale vector, applied after global average pooling.
+    conv output} from :func:`_e2e_output_maxes`. With ``hybrid_stem`` the
+    stem (conv1..conv2_3x3) stays bf16 on its folded weights (``__stem__``)
+    and is quantized once at its output (``__stem_scale__``); without, the
+    scale walk starts at the input's scalar scale and the stem's convs are
+    int8 like the trunk's. Every int8 conv absorbs its input scales and
+    quantizes per output channel. ``__feat_scale__`` is the final concat's
+    per-channel scale vector, applied after global average pooling.
     Returns the runtime tensor tree (:func:`tensor_tree`) on the CPU.
     """
     folded = folded if folded is not None else fold_bn(state_dict)
@@ -180,11 +187,14 @@ def quantize_backbone_e2e(state_dict: Mapping[str, Any],
     qe: Dict[str, Any] = {}
     ops = _ScaleOps(folded, s, qe)
 
-    qe["__stem__"] = {name: {"kernel": folded[name]["kernel"],
-                             "bias": folded[name]["bias"]}
-                      for name in STEM_CONVS}
-    qe["__stem_scale__"] = np.asarray(s["conv2_3x3"], np.float32)
-    sx = np.full(folded["conv2_3x3"]["kernel"].shape[3], s["conv2_3x3"])
+    if hybrid_stem:
+        qe["__stem__"] = {name: {"kernel": folded[name]["kernel"],
+                                 "bias": folded[name]["bias"]}
+                          for name in STEM_CONVS}
+        qe["__stem_scale__"] = np.asarray(s["conv2_3x3"], np.float32)
+        sx = np.full(folded["conv2_3x3"]["kernel"].shape[3], s["conv2_3x3"])
+    else:
+        sx = _walk_stem(ops, np.asarray(s["input"]))
     sx = _walk_trunk(ops, sx)
 
     qe["__input_scale__"] = np.asarray(s["input"], np.float32)
@@ -253,7 +263,12 @@ class _ScaleOps(_EntryDefault):
 
 
 def _pack_wq(wq: np.ndarray) -> torch.Tensor:
-    """HWIO int8 -> (O, KH, KW, C) contiguous, the layout K1 reads."""
+    """HWIO int8 -> (O, KH, KW, C) contiguous, the layout K1 reads. A conv
+    whose input channels are not a multiple of 16 (a stem conv: 3, 10 or
+    15) gets zero weight channels up to the next one; its input is
+    quantized into as many channels, the extra ones zero
+    (:func:`_quantize_input`), so the s32 sums are the unpadded conv's."""
+    wq = np.pad(wq, ((0, 0), (0, 0), (0, -wq.shape[2] % 16), (0, 0)))
     return torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 0, 1, 2)))
 
 
@@ -264,10 +279,11 @@ def _f32(a) -> torch.Tensor:
 def tensor_tree(qe: Dict[str, Any]) -> QuantizedParams:
     """A numpy e2e tree in the JAX package's layout -> runtime tensors.
 
-    Conv entries: ``wq`` HWIO int8 -> (O, KH, KW, C) int8, ``m``/``bq``
-    float32. ``__stem__``: folded HWIO float32 -> bf16 OIHW (rounded to
-    nearest even, as ``jnp.asarray(..., bfloat16)`` does). Scalars and the
-    feature scale stay float32.
+    Conv entries: ``wq`` HWIO int8 -> (O, KH, KW, C) int8
+    (:func:`_pack_wq`), ``m``/``bq`` float32. ``__stem__`` (a hybrid-stem
+    tree): folded HWIO float32 -> bf16 OIHW (rounded to nearest even, as
+    ``jnp.asarray(..., bfloat16)`` does). Scalars and the feature scale
+    stay float32.
     """
     def layer(v):
         return {"wq": _pack_wq(np.asarray(v["wq"], np.int8)),
@@ -373,8 +389,15 @@ def _stem_bf16(stem: dict, x: torch.Tensor,
 
 
 def _e2e_stem_quantized(qe: QuantizedParams, x: torch.Tensor) -> torch.Tensor:
-    """Normalized NHWC frames -> int8 NHWC trunk input, at any spatial size:
-    the bf16 folded stem, quantized once at its output."""
+    """Normalized NHWC frames -> int8 NHWC trunk input, at any spatial size.
+
+    Hybrid tree (``__stem__``): the bf16 folded stem, quantized once at its
+    output. All-int8 tree: the input quantized at ``__input_scale__`` into
+    the stem conv's padded channels, then the int8 stem on K1 and K2."""
+    if "__stem__" not in qe:
+        xq = _quantize_input(x, qe["__input_scale__"],
+                             qe["conv1_7x7_s2"]["wq"].shape[-1])
+        return _walk_stem(_E2EOps(qe), xq)
     h = _stem_bf16(qe["__stem__"], x)
     hq = torch.clamp(torch.round(h.float() / qe["__stem_scale__"]), 0, 127)
     return hq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
@@ -545,39 +568,108 @@ def _avg_pool_bf16(x: torch.Tensor, kernel: int, stride: int,
 
 
 def _e2e_output_maxes(q: QuantizedParams, x: torch.Tensor,
-                      stem: dict) -> Dict[str, float]:
+                      stem: dict = None) -> Dict[str, float]:
     """Calibration pass: each conv's post-ReLU OUTPUT max (+ the input max).
 
-    The stem runs in bf16 on its folded weights, as the hybrid runtime does,
-    so conv2_3x3's max is measured on the tensor the runtime quantizes; the
-    trunk runs the per-layer dynamic-scale int8 forward. One host transfer
-    at the end.
+    With ``stem`` (folded OIHW weights of the stem convs: the hybrid-stem
+    calibration) the stem runs in bf16 on them, as the hybrid runtime does,
+    so conv2_3x3's max is measured on the tensor the runtime quantizes;
+    without, the stem runs the int8 proxy, as the trunk always does: the
+    per-layer dynamic-scale int8 forward. One host transfer at the end.
     """
     maxes: Dict[str, Any] = {"input": x.abs().amax().float()}
-    h = _stem_bf16(stem, x, output_maxes=maxes)
-    h = h.permute(0, 2, 3, 1).contiguous()
-    _walk_trunk(_PerLayerOps(q, output_maxes=maxes), h)
+    ops = _PerLayerOps(q, output_maxes=maxes)
+    if stem is not None:
+        h = _stem_bf16(stem, x, output_maxes=maxes)
+        h = h.permute(0, 2, 3, 1).contiguous()
+    else:
+        h = _walk_stem(ops, x.to(torch.bfloat16))
+    _walk_trunk(ops, h)
     names = list(maxes)
     values = torch.stack([maxes[n] for n in names]).cpu().tolist()
     return dict(zip(names, values))
 
 
 def calibrate_e2e(state_dict: Mapping[str, Any],
-                  sample_frames: torch.Tensor) -> QuantizedParams:
+                  sample_frames: torch.Tensor,
+                  hybrid_stem: bool = True) -> QuantizedParams:
     """Calibrate + build the e2e-quantized backbone in one step.
 
     ``sample_frames``: representative NORMALIZED NHWC frames on the device
     the calibration pass should run on (multi-video spread: an activation
-    exceeding its calibrated max saturates at 127). Returns the runtime tree
-    on the CPU.
+    exceeding its calibrated max saturates at 127). ``hybrid_stem``: the
+    bf16 stem (the default) or the all-int8 one
+    (:func:`quantize_backbone_e2e`). Returns the runtime tree on the CPU.
     """
     folded = fold_bn(state_dict)      # folded once, shared below
     dev = sample_frames.device
     q0 = tree_to(quantize_backbone(state_dict, folded=folded), dev)
-    stem = {k: {"kernel": _f32(folded[k]["kernel"]).permute(3, 2, 0, 1)
-                .contiguous().to(dev),
-                "bias": _f32(folded[k]["bias"]).to(dev)}
-            for k in STEM_CONVS}
+    stem = None
+    if hybrid_stem:
+        stem = {k: {"kernel": _f32(folded[k]["kernel"]).permute(3, 2, 0, 1)
+                    .contiguous().to(dev),
+                    "bias": _f32(folded[k]["bias"]).to(dev)}
+                for k in STEM_CONVS}
     with torch.no_grad():
         maxes = _e2e_output_maxes(q0, sample_frames, stem)
-    return quantize_backbone_e2e(state_dict, maxes, folded=folded)
+    return quantize_backbone_e2e(state_dict, maxes, hybrid_stem=hybrid_stem,
+                                 folded=folded)
+
+
+def quantization_report(backbone, state_dict: Mapping[str, Any],
+                        frames: torch.Tensor, fused_kernel=None,
+                        fused_bias=None, layout=None,
+                        mode: str = "perlayer") -> Dict[str, float]:
+    """int8 against float divergence on real inputs, the check to run with
+    a converted reference checkpoint before deploying ``--int8``.
+
+    ``backbone``: the port's float BNInception module, run on
+    ``state_dict`` (its weights, e.g. ``backbone.state_dict()``) in eval
+    mode with TF32 off; ``frames``: NORMALIZED NHWC frames, on the device
+    everything runs on. ``mode``: ``"perlayer"`` (static scales calibrated
+    on ``frames``) or ``"e2e"`` (hybrid stem, calibrated on ``frames``).
+    Returns the mean per-frame feature cosine and the feature relative
+    RMS; with the fused test FC (``fused_kernel`` (1024, cols),
+    ``fused_bias``) the fused scores' relative RMS, and with ``layout`` (a
+    ``ReorganizedScoreLayout``) that of each head's columns:
+    ``act_rel_rms`` / ``comp_rel_rms`` / ``reg_rel_rms``."""
+    from ...ops.stpp import reorganized_score_slices
+    from ...train.trainer import float32_convs_and_matmuls
+
+    if mode not in ("perlayer", "e2e"):
+        raise ValueError(f"unknown quantization_report mode {mode!r}")
+    dev = frames.device
+    float32_convs_and_matmuls()
+    weights = {k: torch.as_tensor(v).to(dev) for k, v in state_dict.items()}
+    with torch.no_grad():
+        ref = torch.func.functional_call(backbone.eval(), weights, (frames,))
+        if mode == "e2e":
+            qe = tree_to(calibrate_e2e(state_dict, frames), dev)
+            got = bninception_int8_e2e_features(qe, frames)
+        else:
+            q = tree_to(quantize_backbone(state_dict), dev)
+            scales = calibrate_activation_scales(q, frames)
+            got = bninception_int8_features(q, frames, act_scales=scales)
+    ref = _host(ref).astype(np.float64)
+    got = _host(got).astype(np.float64)
+    cos = float(np.mean([
+        np.dot(r, g) / (np.linalg.norm(r) * np.linalg.norm(g) + 1e-12)
+        for r, g in zip(ref, got)]))
+    rel = float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) + 1e-12))
+    report = {"feature_cosine": cos, "feature_rel_rms": rel}
+    if fused_kernel is not None:
+        kernel, bias = _host(fused_kernel), _host(fused_bias)
+        sref = ref @ kernel + bias
+        sgot = got @ kernel + bias
+
+        def rel_rms(a, b):
+            return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+        report["score_rel_rms"] = rel_rms(sgot, sref)
+        if layout is not None:
+            for name, sl in zip(("act", "comp", "reg"),
+                                reorganized_score_slices(layout)):
+                if sl is not None:
+                    report[f"{name}_rel_rms"] = rel_rms(sgot[:, sl],
+                                                        sref[:, sl])
+    return report

@@ -22,9 +22,13 @@ from the JAX package) and interpreted by several ops faces:
 * ``_StemBf16Ops`` — the hybrid stem (Conv2d_1a .. Conv2d_4a) in bf16,
   quantized once at its output.
 
-Only the hybrid stem is ported: it is the JAX package's default and the only
-stem its CLI reaches. Runtime trees hold torch tensors in the layout of
-:func:`~.bn_inception_int8.tensor_tree`.
+The stem has the JAX package's two forms: the hybrid one (the default,
+``hybrid_stem=True``) or the all-int8 one (``hybrid_stem=False``: the input
+quantized once at ``__input_scale__`` into 16 channels, the extra ones
+zero, then the stem on ``_ForwardOps``: K1 and K2). Both calibrate on the
+same float forward. :func:`_iv3_stem_quantized` dispatches on the tree's
+form (``__stem__`` or not). Runtime trees hold torch tensors in the layout
+of :func:`~.bn_inception_int8.tensor_tree`.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import torch.nn.functional as F
 from ...kernels.int8 import int8_avg_pool_exclude_pad, int8_conv, int8_max_pool
 from . import bn_inception_int8 as bn_int8
 from .bn_inception_int8 import (QuantizedParams, _EntryDefault,
-                                _fuse_entry_convs, _host, tensor_tree)
+                                _fuse_entry_convs, _host, _quantize_input,
+                                tensor_tree)
 
 _SAME3 = ((1, 1), (1, 1))
 _NOPAD = ((0, 0), (0, 0))
@@ -341,45 +346,63 @@ def _torch_folded(folded: dict, device) -> dict:
             for n, f in folded.items()}
 
 
-def quantize_iv3_e2e(folded: dict, maxes: Dict[str, float]) -> QuantizedParams:
-    """The hybrid-stem e2e tree from calibration maxes: the stem's folded
-    weights (``__stem__``, bf16 at run time) quantized once at the
-    Conv2d_4a output (``__stem_scale__``), the trunk through ``_ScaleOps``,
-    the fused entry convs. Returns the runtime tensor tree on the CPU."""
+def quantize_iv3_e2e(folded: dict, maxes: Dict[str, float],
+                     hybrid_stem: bool = True) -> QuantizedParams:
+    """The e2e tree from calibration maxes. With ``hybrid_stem``: the
+    stem's folded weights (``__stem__``, bf16 at run time) quantized once
+    at the Conv2d_4a output (``__stem_scale__``), the trunk through
+    ``_ScaleOps``; without: the whole net through ``_ScaleOps`` from the
+    input's scale on each of the stem conv's input channels. Then the fused
+    entry convs. Returns the runtime tensor tree on the CPU."""
     scales = {k: max(float(v), 1e-8) / 127.0 for k, v in maxes.items()}
     qe: Dict[str, Any] = {"__input_scale__": np.asarray(scales["input"],
                                                         np.float32)}
-    qe["__stem__"] = {n: {"kernel": folded[n]["kernel"],
-                          "bias": folded[n]["bias"]} for n in STEM_CONVS}
-    s4a = scales["Conv2d_4a_3x3"]
-    qe["__stem_scale__"] = np.asarray(s4a, np.float32)
-    cin_trunk = folded["Conv2d_4a_3x3"]["kernel"].shape[3]    # 192
-    _walk_trunk(_ScaleOps(folded, scales, qe), np.full(cin_trunk, s4a))
+    if hybrid_stem:
+        qe["__stem__"] = {n: {"kernel": folded[n]["kernel"],
+                              "bias": folded[n]["bias"]} for n in STEM_CONVS}
+        s4a = scales["Conv2d_4a_3x3"]
+        qe["__stem_scale__"] = np.asarray(s4a, np.float32)
+        cin_trunk = folded["Conv2d_4a_3x3"]["kernel"].shape[3]    # 192
+        _walk_trunk(_ScaleOps(folded, scales, qe), np.full(cin_trunk, s4a))
+    else:
+        # input channels from the stem conv's kernel (3 RGB / 10 Flow)
+        cin = folded["Conv2d_1a_3x3"]["kernel"].shape[2]
+        _walk(_ScaleOps(folded, scales, qe), np.full(cin, scales["input"]))
     qe["__entry__"] = _fuse_entry_convs(
         qe, ((m, _entry_names(m)) for m in ENTRY_MODULES))
     return tensor_tree(qe)
 
 
 def calibrate_e2e_iv3(state_dict: Mapping[str, Any],
-                      sample_frames: torch.Tensor) -> QuantizedParams:
-    """Calibrate + build the e2e-quantized IV3 backbone (hybrid stem).
+                      sample_frames: torch.Tensor,
+                      hybrid_stem: bool = True) -> QuantizedParams:
+    """Calibrate + build the e2e-quantized IV3 backbone.
 
     ``sample_frames``: representative NORMALIZED NHWC frames on the device
     the calibration pass should run on (any spatial size: VALID semantics).
     The calibration face is the float forward, so Conv2d_4a's max is exactly
     the tensor the hybrid runtime quantizes (a max pool keeps the max).
+    ``hybrid_stem``: the bf16 stem (the default) or the all-int8 one
+    (:func:`quantize_iv3_e2e`), from the same maxes.
     """
     folded = fold_bn_iv3(state_dict)
     with torch.no_grad():
         maxes = _calibration_maxes_iv3(
             _torch_folded(folded, sample_frames.device),
             sample_frames)
-    return quantize_iv3_e2e(folded, maxes)
+    return quantize_iv3_e2e(folded, maxes, hybrid_stem=hybrid_stem)
 
 
 def _iv3_stem_quantized(qe: QuantizedParams, x: torch.Tensor) -> torch.Tensor:
     """Normalized NHWC frames -> int8 NHWC trunk input (35x35 at 299), any
-    spatial size: the bf16 folded stem, quantized once at its output."""
+    spatial size. Hybrid tree (``__stem__``): the bf16 folded stem,
+    quantized once at its output. All-int8 tree: the input quantized at
+    ``__input_scale__`` into Conv2d_1a's padded channels, then the int8
+    stem on K1 and K2."""
+    if "__stem__" not in qe:
+        xq = _quantize_input(x, qe["__input_scale__"],
+                             qe["Conv2d_1a_3x3"]["wq"].shape[-1])
+        return _walk_stem(_ForwardOps(qe), xq)
     h = _walk_stem(_StemBf16Ops(qe["__stem__"]), _to_bf16_nchw(x))
     hq = torch.clamp(torch.round(h.float() / qe["__stem_scale__"]), 0, 127)
     return hq.to(torch.int8).permute(0, 2, 3, 1).contiguous()

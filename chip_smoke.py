@@ -24,7 +24,12 @@ before the final line):
               conv2_3x3 and two unfused 1x1s; K1 at tile
               tails (rows, columns and depth not multiples of the tile) and
               K2 at grids no tile divides, with signed inputs (K2's with
-              -128 and all-negative windows at the padded edges); and A1
+              -128 and all-negative windows at the padded edges); K1's
+              int8 epilogue and K2 at the all-int8 stems' geometries
+              (BNInception's 7x7 s2 conv on 16 channels of which 3 are
+              real, its 1x1 and 3x3, its two Caffe-ceil pools;
+              InceptionV3's five stem convs and two VALID pools; at the
+              shared stem's 128 frames and at 640 crops); and A1
               (max-pool backward) at every BNInception max pool of the
               training step (1,152 images) in float32 and in bfloat16, at
               InceptionV3's four VALID pools (the InceptionV3 training
@@ -57,11 +62,30 @@ before the final line):
               shared-stem default on 15-channel differences of 6 frames),
               ``ssn_test --test_crops 1`` (host center crops, int8-e2e per
               crop) and ``binary_test --host_crops`` (10 host crops), each
-              a path of its own that must launch K1-K3 (perlayer: K1); and
-              SSN training steps at
+              a path of its own that must launch K1-K3 (perlayer: K1);
+              then the all-int8 stems (``run_int8_stem``, phase
+              int8_stem): for BNInception RGB and Flow and InceptionV3
+              RGB, a tree from ``calibrate_e2e``/``calibrate_e2e_iv3(...,
+              hybrid_stem=False)`` scored through the shared-stem scorer's
+              ``prequantized=`` (one video, a path of its own: K1-K3, K1
+              and K2 also at the stem), its 640-crop step timed beside the
+              hybrid one in turns, its stem and trunk on the card
+              bit-exact against the plain kernels on the CPU, its features
+              against float (min cos > 0.99, rel < 0.12) and against the
+              hybrid stem's; ``quantization_report`` in both modes on
+              BNInception RGB with the fused test FC and layout (phase
+              quantization_report: cos > 0.99, rel < 0.1); and SSN
+              training steps at
               full width (BNInception 224^2, 16 videos x 8 proposals x 9
               segments = 1,152 images per step, frozen BN, dropout 0.8)
-              through ``make_train_step``. Each score pickle is checked for
+              through ``make_train_step``, then one such step from the
+              same weights in each max-pool backward mode (phase
+              pool_modes, ``run_pool_modes``: ``"pallas"`` and ``"sas"``
+              (first-match, A1 at every pool) and ``"eq_mask"`` (A1 at
+              its stride-1 pool only), each a path of its own that must
+              launch A1; equal losses, ``"sas"`` gradients equal to
+              ``"pallas"``'s bit for bit under deterministic cuDNN,
+              eq-mask's gradient gap, step ms and peak memory). Each score pickle is checked for
               shapes and finite values, the training metrics for finite
               values. Then ``ssn_test`` of THUMOS14 RGB with ``--arch
               resnet101`` and ``--arch vgg16`` (float32: they have no int8
@@ -216,6 +240,7 @@ JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port_jpeg")
 JPEG_FIXTURE_FRAMES = 8   # img_/x_/y_ 00001..00008: 340x256 frames
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_orbax")
 REAL_TRAIN_STEPS = 2      # ssn_train -b 16 steps on JPEG frames
+POOL_MODE_STEPS = 3       # timed training steps of each pool backward mode
 
 
 def _smi() -> str:
@@ -284,12 +309,16 @@ def work(nbytes: float, ops: float, peak: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv_work(x, w, out) -> tuple:
+def conv_work(x, w, out, real_c=None) -> tuple:
     """K1's bound: x (its channels only, for a slice), w, scale and bias
-    read once, ``out`` written once; 2 ops per MAC at the int8 peak."""
+    read once, ``out`` written once; 2 ops per MAC at the int8 peak.
+    ``real_c``: the channels that carry data where the rest are zero
+    padding (a stem's 3 of 16): the function's work counts only those."""
     O, kh, kw, C = w.shape
-    nbytes = x.numel() + w.numel() + 8 * O + out.numel() * out.element_size()
-    return work(nbytes, 2 * out.numel() * kh * kw * C, INT8_OPS)
+    c = C if real_c is None else real_c
+    nbytes = ((x.numel() + w.numel()) * c // C + 8 * O
+              + out.numel() * out.element_size())
+    return work(nbytes, 2 * out.numel() * kh * kw * c, INT8_OPS)
 
 
 def pool_work(x, out, k: int) -> tuple:
@@ -392,8 +421,10 @@ def check_kernels(card: str) -> list:
                              device=dev, dtype=torch.int8)
 
     rows = {"int8_conv": [], "int8_conv/per_axis_pad": [],
-            "int8_conv/perlayer": [],
+            "int8_conv/perlayer": [], "int8_conv/int8_stem": [],
+            "int8_conv/int8_stem_iv3": [],
             "int8_max_pool": [], "int8_max_pool/valid": [],
+            "int8_max_pool/stem": [], "int8_max_pool/stem_iv3": [],
             "int8_avg_pool": [], "int8_avg_pool/exclude_pad": [],
             "max_pool_bwd": []}
 
@@ -448,7 +479,7 @@ def check_kernels(card: str) -> list:
 
     def check_convs(name, cases, epilogues=((torch.int8, "i8"),
                                             (torch.bfloat16, "bf16"))):
-        for label, x, w, stride, pad in cases:
+        for label, x, w, stride, pad, *real_c in cases:
             O, kh, kw, C = w.shape
             library = None
             if kh == kw == 1 and stride == 1 and x.is_contiguous():
@@ -473,7 +504,13 @@ def check_kernels(card: str) -> list:
 
                 got = fn()
                 record(name, f"{label}/{tag}", got, plain(), fn, plain,
-                       conv_work(x, w, got), library)
+                       conv_work(x, w, got, *real_c), library)
+                if real_c:
+                    padded, _ = conv_work(x, w, got)
+                    print(f"kernel {name}[{label}/{tag}]: the bound counts "
+                          f"the C = {real_c[0]} channels that carry data; "
+                          f"over the {C} the kernel reads it would be "
+                          f"{padded:.3f} ms", flush=True)
 
     # K1: the 3a fused entry conv, a 3a 3x3 reading its slice of the entry
     # output in place, the 3c 3x3 s2, a 4e 3x3 s2, the 5b fused entry conv
@@ -509,19 +546,73 @@ def check_kernels(card: str) -> list:
     stem_w = weights(64, 7, 7, 16)
     stem_w[..., 3:] = 0
     check_convs("int8_conv/perlayer", [
-        ("stem_7x7_s2_p3_C3_in_16", stem_x, stem_w, 2, 3),
+        ("stem_7x7_s2_p3_C3_in_16", stem_x, stem_w, 2, 3, 3),
         ("conv2_3x3", act(SLICE_N, 56, 56, 64), weights(192, 3, 3, 64), 1, 1),
         ("3a_1x1", act(SLICE_N, 28, 28, 192), weights(64, 1, 1, 192), 1, 0),
         ("5b_1x1", act(SLICE_N, 7, 7, 1024), weights(352, 1, 1, 1024), 1, 0),
     ], epilogues=((torch.bfloat16, "bf16"),))
-    useful, _ = work(SLICE_N * 224 * 224 * 3 + 64 * 49 * 3 + 8 * 64
-                     + SLICE_N * 112 * 112 * 64 * 2,
-                     2 * SLICE_N * 112 * 112 * 64 * 49 * 3, INT8_OPS)
-    print(f"kernel int8_conv/perlayer[stem_7x7_s2_p3_C3_in_16]: the useful "
-          f"work (C = 3) is bound at {useful:.3f} ms; the row's bound counts "
-          "the 16 channels the kernel reads", flush=True)
     del stem_x, stem_w
     torch.cuda.empty_cache()
+
+    # K1's requantizing epilogue at the all-int8 stems (hybrid_stem=False),
+    # each conv at the shared stem's 128 frames (64 ticks and their flips;
+    # BNInception 256x340, InceptionV3 341x452), BNInception's conv1 also
+    # at 640 crops of 224^2: the input quantized from normalized pixels
+    # (signed) into 16 channels of which 3 are real, as are the weights';
+    # the later stem convs on post-ReLU int8
+    def stem_conv_inputs(n, h, w, O, k, stride, pad):
+        x = act(n, h, w, 16, lo=-127)
+        x[..., 3:] = 0
+        wq = weights(O, k, k, 16)
+        wq[..., 3:] = 0
+        return x, wq, stride, pad, 3
+
+    frames2 = 2 * 64
+    for name, cases in (
+            ("int8_conv/int8_stem", [
+                ("conv1_7x7_s2_p3_frames_C3_in_16",
+                 *stem_conv_inputs(frames2, 256, 340, 64, 7, 2, 3)),
+                ("conv1_7x7_s2_p3_crops_C3_in_16",
+                 *stem_conv_inputs(SLICE_N, 224, 224, 64, 7, 2, 3)),
+                ("conv2_3x3_reduce_1x1", act(frames2, 64, 85, 64),
+                 weights(64, 1, 1, 64), 1, 0),
+                ("conv2_3x3", act(frames2, 64, 85, 64),
+                 weights(192, 3, 3, 64), 1, 1)]),
+            ("int8_conv/int8_stem_iv3", [
+                ("Conv2d_1a_3x3_s2_valid_C3_in_16",
+                 *stem_conv_inputs(frames2, 341, 452, 32, 3, 2, (0, 0))),
+                ("Conv2d_2a_3x3_valid", act(frames2, 170, 225, 32),
+                 weights(32, 3, 3, 32), 1, (0, 0)),
+                ("Conv2d_2b_3x3_same", act(frames2, 168, 223, 32),
+                 weights(64, 3, 3, 32), 1, (1, 1)),
+                ("Conv2d_3b_1x1", act(frames2, 83, 111, 64),
+                 weights(80, 1, 1, 64), 1, (0, 0)),
+                ("Conv2d_4a_3x3_valid", act(frames2, 83, 111, 80),
+                 weights(192, 3, 3, 80), 1, (0, 0))])):
+        check_convs(name, cases, epilogues=((torch.int8, "i8"),))
+        del cases
+        torch.cuda.empty_cache()
+
+    # K2 at the all-int8 stems' pools (post-ReLU int8 shifted to signed):
+    # BNInception's two Caffe-ceil s2 pools at the shared stem's frames and
+    # at 224^2 crops, InceptionV3's two VALID s2 pools likewise (299^2)
+    for name, pads_of, shapes in (
+            ("int8_max_pool/stem",
+             lambda h, w: pool_pads(h, w, 3, 2, ceil=True),
+             (("pool1_frames_ceil_s2", (frames2, 128, 170, 64)),
+              ("pool2_frames_ceil_s2", (frames2, 64, 85, 192)),
+              ("pool1_crops_ceil_s2", (SLICE_N, 112, 112, 64)),
+              ("pool2_crops_ceil_s2", (SLICE_N, 56, 56, 192)))),
+            ("int8_max_pool/stem_iv3", lambda h, w: ((0, 0), (0, 0)),
+             (("pool1_frames_valid_s2", (frames2, 168, 223, 64)),
+              ("pool2_frames_valid_s2", (frames2, 81, 109, 192)),
+              ("pool1_crops_valid_s2", (SLICE_N, 147, 147, 64)),
+              ("pool2_crops_valid_s2", (SLICE_N, 71, 71, 192))))):
+        for label, shape in shapes:
+            x = act(*shape) - 64
+            check_max_pool(name, label, x, 2, pads_of(*shape[1:3]))
+            del x
+        torch.cuda.empty_cache()
 
     # K2: the 3c and 4e passthrough ceil pools (s2) and the 5b pool branch
     # (s1 p1) on signed values, so -128 padding must never win; then grids
@@ -875,6 +966,7 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
         paths["train"] = drive(
             f"train ({TRAIN_STEPS} steps)",
             lambda: train.update(run_training(d)), ("max_pool_bwd",))
+        paths.update(run_pool_modes(d, smi))
         cli3, out, K = clis["inceptionv3_rgb"]
         paths["inceptionv3_rgb"] = drive(
             "ssn_test activitynet1.2 RGB --arch InceptionV3",
@@ -887,6 +979,8 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
             int8_kernels + ("int8_avg_pool",))
         print(f"main path: pickle ok (P={check_pickle(out, K)})", flush=True)
         paths.update(run_scoring_surface(d, clis))
+        paths.update(run_int8_stem(d, models, smi))
+        run_quantization_report(smi)
         for key, arch in (("resnet101_rgb", "resnet101"),
                           ("vgg16_rgb", "vgg16")):
             # float32 backbones: no int8 path, so no kernel to launch
@@ -2699,6 +2793,307 @@ def perlayer_breakdown(q, scales, x, smi) -> None:
           + f" ({smi})", flush=True)
 
 
+def run_int8_stem(d: str, models: dict, smi: str) -> dict:
+    """Phase int8_stem: the all-int8 stems (``hybrid_stem=False``) at full
+    width, for BNInception RGB and Flow (THUMOS14, K = 20) and InceptionV3
+    RGB (ActivityNet v1.2, K = 100, 299^2). For each: the hybrid
+    shared-stem scorer calibrated on 10 crops; the all-int8 tree from
+    ``calibrate_e2e`` / ``calibrate_e2e_iv3(..., hybrid_stem=False)`` on the
+    same crops, handed to a second scorer through ``prequantized=`` (as the
+    JAX package reaches it); one 1,560-frame video scored through it
+    (``score_video``: a path of its own that must launch K1-K3); the
+    640-crop step of both scorers in turns (median of 10, CUDA events) and
+    their launches a step (the all-int8 step launches K1 3 (BNInception) or
+    5 (InceptionV3) and K2 2 times more: its stem); the all-int8 stem on
+    the card bit-exact against the plain kernels on the CPU,
+    ``_int8_checks`` (its trunk bit-exact, its features against float:
+    min cos > 0.99, rel RMS < 0.12) and its features against the hybrid
+    tree's. Returns each path's launches."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.config import get_configs
+    from action_detection_torch.data.pipeline import SyntheticFrameProvider
+    from action_detection_torch.data.ssn_dataset import SSNDataset
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.infer.scorer import ProposalScorer
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+    from action_detection_torch.models.backbones import (
+        inception_v3_int8 as iq)
+
+    class IV3Acts(iq._ForwardOps):      # the last concat, before the mean
+        def finish(self, y):
+            return y
+
+    t_start = time.perf_counter()
+    paths = {}
+    for key, dataset, modality, n_check in (
+            ("bninception_rgb", "thumos14", "RGB", 10),
+            ("bninception_flow", "thumos14", "Flow", 10),
+            ("inceptionv3_rgb", "activitynet1.2", "RGB", 4)):
+        model = models[key]
+        spec, cfg = model.input_spec, get_configs(dataset)
+        iv3 = model.arch == "InceptionV3"
+        new_length = model.resolved_new_length
+        if iv3:
+            calibrate, stem = iq.calibrate_e2e_iv3, iq._iv3_stem_quantized
+            trunk_ops = lambda qe, h: iq._walk_trunk(IV3Acts(qe), h)  # noqa
+            trunk, features = iq.iv3_trunk, iq.inception_v3_int8_e2e_features
+            stem_convs, k3 = 5, "int8_avg_pool_exclude_pad"
+        else:
+            calibrate, stem = bq.calibrate_e2e, bq._e2e_stem_quantized
+            trunk_ops = lambda qe, h: bq._walk_trunk(bq._E2EOps(qe), h)  # noqa
+            trunk, features = bq._e2e_trunk, bq.bninception_int8_e2e_features
+            stem_convs, k3 = 3, "int8_avg_pool"
+        S, cs = spec.scale_size, spec.input_size
+        W = S * 340 // 256                    # 340x256, 452x341 frames
+        rng = np.random.RandomState(11)
+        frames = rng.randint(0, 256, size=(64, S, W, 3 if modality == "RGB"
+                                           else 10), dtype=np.uint8)
+        oy, ox = (S - cs) // 2, (W - cs) // 2
+        calib = np.concatenate([frames[:2, oy:oy + cs, ox:ox + cs]] * 5)
+        kw = dict(reg_stats=np.asarray(REG_STATS, np.float32),
+                  num_class=model.num_class, stpp_cfg=cfg.stpp,
+                  chunk_frames=64, modality=modality, device="cuda",
+                  quantize="e2e", shared_stem=True)
+        hybrid = ProposalScorer(model, spec, calibration_frames=calib, **kw)
+        with torch.no_grad():
+            sample = hybrid._prep_calibration(torch.as_tensor(calib).cuda())
+        qe8 = calibrate(model.base_model.state_dict(), sample,
+                        hybrid_stem=False)
+        if "__stem__" in qe8 or "__stem__" not in hybrid._quantized:
+            raise AssertionError(f"{key}: the trees' stems are wrong")
+        allint8 = ProposalScorer(model, spec, prequantized=(qe8, None),
+                                 **kw)
+
+        ds = SSNDataset(os.path.join(d, f"{cfg.test_list}_proposal_list"
+                                        ".txt"), cfg.sampling,
+                        new_length=new_length, test_interval=6)
+        provider = SyntheticFrameProvider(modality=modality)
+        scored = {}
+        paths[f"int8_stem {key}"] = drive(
+            f"int8_stem {key}: score_video through the all-int8 tree "
+            "(prequantized=)", lambda: scored.update(out=allint8.score_video(
+                ds.get_test_sample(0), provider)),
+            ("int8_conv", "int8_max_pool", k3))
+        out = scored["out"]
+        for a in (out.act_scores, out.comp_scores, out.reg_scores):
+            if not np.isfinite(a).all() or a.shape[0] != len(out.rel_props):
+                raise AssertionError(f"int8_stem {key}: scores {a.shape}")
+
+        chunk = torch.as_tensor(frames).cuda()
+        steps = {"hybrid": hybrid, "all-int8": allint8}
+        ms, per_step = {n: [] for n in steps}, {}
+        for name in ("hybrid", "all-int8", "all-int8", "hybrid"):
+            ms[name].append(_time_ms(
+                lambda sc=steps[name]: sc._score_chunk(chunk, 64), reps=10,
+                warmup=2))
+        for name, sc in steps.items():
+            reset_launch_counts()
+            sc._score_chunk(chunk, 64)
+            torch.cuda.synchronize()
+            per_step[name] = {k: n for k, n in launch_counts().items() if n}
+        more = tuple(per_step["all-int8"].get(k, 0) - per_step["hybrid"].get(
+            k, 0) for k in ("int8_conv", "int8_max_pool"))
+        th, t8 = (" / ".join(f"{t:.2f}" for t in ms[n]) for n in steps)
+        print(f"step: {model.arch} {modality} {SLICE_N}-crop shared-stem "
+              f"step, hybrid stem {th} ms, all-int8 stem {t8} ms (turns "
+              f"hybrid, int8, int8, hybrid; median of 10 each); launches a "
+              f"step hybrid {per_step['hybrid']}, all-int8 "
+              f"{per_step['all-int8']} ({smi})", flush=True)
+        if more != (stem_convs, 2):
+            raise AssertionError(f"int8_stem {key}: the all-int8 step "
+                                 f"launched K1/K2 {more} more than the "
+                                 f"hybrid one, not {(stem_convs, 2)}")
+
+        x = device_oversample_normed(chunk[:2], spec, modality,
+                                     new_length)[:n_check]
+        qd = allint8._quantized
+        with torch.no_grad():
+            h = stem(qd, x).cpu()
+            href = stem(bq.tree_to(qd, "cpu"), x.cpu())
+        if not torch.equal(h, href):
+            raise AssertionError(f"{key} all-int8 stem on the card differs "
+                                 "from the plain kernels on the CPU in "
+                                 f"{(h != href).sum().item()} values")
+        print(f"check: {model.arch} {modality} all-int8 stem (K1, K2 on the "
+              f"card) == plain versions on the CPU, bit-exact, "
+              f"{tuple(h.shape)}", flush=True)
+        _int8_checks(f"{model.arch} {modality} all-int8 stem", model, qd, x,
+                     stem, trunk_ops, trunk, features)
+        with torch.no_grad():
+            fh = features(hybrid._quantized, x).double().cpu()
+            f8 = features(qd, x).double().cpu()
+        cos = torch.nn.functional.cosine_similarity(fh, f8, dim=1).min()
+        rel = ((f8 - fh).norm() / fh.norm()).item()
+        print(f"check: {model.arch} {modality} all-int8 vs hybrid-stem "
+              f"features: min cos {cos.item():.6f}, rel rms {rel:.5f}",
+              flush=True)
+        hybrid.close()
+        allint8.close()
+        del chunk, x, qd, qe8
+        torch.cuda.empty_cache()
+    print(f"timing: the int8_stem phase {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
+    return paths
+
+
+def run_quantization_report(smi: str) -> None:
+    """Phase quantization_report: ``quantization_report`` in both modes on
+    BNInception RGB at 224^2, on 20 crops (2 ticks x 10) of random 340x256
+    frames, with a THUMOS14 SSN's fused test FC and score layout; the
+    weights are torch's default init (seed 3) with perturbed BN statistics
+    (tests/test_int8.py's torch twin). Every key printed; feature cosine >
+    0.99 and feature relative RMS < 0.1 in both modes."""
+    import numpy as np
+    import torch
+
+    from action_detection_torch.config import get_configs
+    from action_detection_torch.data.transforms import (
+        device_oversample_normed)
+    from action_detection_torch.models import SSN
+    from action_detection_torch.models.backbones.bn_inception_int8 import (
+        quantization_report)
+    from action_detection_torch.models.ssn import fuse_test_heads
+    from action_detection_torch.ops.stpp import (ReorganizedScoreLayout,
+                                                 StppConfig)
+
+    t0 = time.perf_counter()
+    cfg = get_configs("thumos14")
+    torch.manual_seed(3)
+    model = SSN(num_class=cfg.num_class, dropout=0.0, stpp_cfg=cfg.stpp)
+    with torch.no_grad():
+        for m in model.base_model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.02)
+                m.running_var.uniform_(0.9, 1.4)
+                m.weight.normal_(1.0, 0.02)
+                m.bias.normal_(0, 0.02)
+    kernel, bias = fuse_test_heads(model, cfg.num_class, cfg.stpp)
+    K = cfg.num_class
+    layout = ReorganizedScoreLayout(
+        K + 1, K, 2 * K, StppConfig.from_raw(cfg.stpp).feat_multiplier)
+    backbone = model.base_model.to("cuda")
+    rng = np.random.RandomState(12)
+    frames = torch.as_tensor(rng.randint(0, 256, size=(2, 256, 340, 3),
+                                         dtype=np.uint8)).cuda()
+    x = device_oversample_normed(frames, model.input_spec)
+    for mode in ("perlayer", "e2e"):
+        rep = quantization_report(backbone, backbone.state_dict(), x,
+                                  fused_kernel=kernel, fused_bias=bias,
+                                  layout=layout, mode=mode)
+        print(f"quantization_report {mode} (BNInception RGB, "
+              f"{x.shape[0]} crops of 224^2): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in rep.items())
+              + f" ({smi})", flush=True)
+        if not (rep["feature_cosine"] > 0.99
+                and rep["feature_rel_rms"] < 0.1):
+            raise AssertionError(f"quantization_report {mode}: {rep}")
+    backbone.to("cpu")
+    print(f"timing: the quantization_report phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_pool_modes(d: str, smi: str) -> dict:
+    """Phase pool_modes: one BNInception RGB training step
+    (``make_train_step``, -b ``TRAIN_VIDEOS`` = 1,152 images, dropout 0.8)
+    from the same weights on the same batch in each max-pool backward mode:
+    ``"pallas"`` and ``"sas"`` (first-match: A1 at every pool, the same
+    launches in both) and ``"eq_mask"`` (its strided pools on the eq-mask
+    backward, A1 at the stride-1 5b pool only, so fewer launches). The
+    first step of each mode runs with cuDNN's deterministic algorithms
+    (and torch's where it has them), so its gradients can be compared: the
+    losses equal across the modes, ``"sas"`` equal to ``"pallas"`` bit for
+    bit, eq-mask's largest |d grad| against ``"pallas"`` printed. ``POOL_MODE_STEPS`` more steps of each mode, with cuDNN's
+    defaults, give its step ms (the median) and peak memory. Returns each
+    mode's launches."""
+    import warnings
+
+    import torch
+
+    from action_detection_torch.ops import pooling
+    from action_detection_torch.train import batch_to_device
+
+    t0 = time.perf_counter()
+    _, make_batch, _ = _train_setup(d, "cuda", seed=1)
+    batch = batch_to_device(make_batch(range(TRAIN_VIDEOS)), "cuda")
+    prev = pooling.pool_backward()
+    paths, res = {}, {}
+    try:
+        for i, mode in enumerate(("pallas", "sas", "eq_mask")):
+            pooling.set_pool_backward(mode)
+            model, _, step = _train_setup(d, "cuda", seed=1)
+            got = {}
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                paths[f"pool_modes {mode}"] = drive(
+                    f"pool_modes: train step, pool backward {mode!r}",
+                    lambda: got.update(met=step(batch)), ("max_pool_bwd",))
+            torch.backends.cudnn.deterministic = False
+            torch.use_deterministic_algorithms(False)
+            nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                             if "deterministic" in str(w.message)})
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(POOL_MODE_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                step(batch)
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            res[i] = (mode, got["met"]["loss"].item(), grads,
+                      statistics.median(ms),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+            print(f"pool_modes {mode}: loss {res[i][1]:.7f}, step "
+                  f"{res[i][3]:.2f} ms (median of "
+                  f"{', '.join(f'{t:.2f}' for t in ms)}), peak "
+                  f"{res[i][4]:.2f} GiB "
+                  f"({TRAIN_N} images, float32, TF32 off"
+                  + (f"; without a deterministic implementation: {nondet}"
+                     if nondet else "") + f") ({smi})", flush=True)
+            del model, step
+            torch.cuda.empty_cache()
+    finally:
+        pooling.set_pool_backward(prev)
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+    def worst(g1, g2):
+        return max((g1[n] - g2[n]).abs().max().item() for n in g1)
+
+    base = res[0][2]
+    scale = max(g.abs().max().item() for g in base.values())
+    sas, eq = worst(res[1][2], base), worst(res[2][2], base)
+    a1 = [paths[f"pool_modes {m}"]["max_pool_bwd"]
+          for m in ("pallas", "sas", "eq_mask")]
+    print(f"pool_modes: |d grad| against 'pallas' over every parameter: "
+          f"'sas' {sas}, 'eq_mask' {eq} ({eq / scale:.2e} of the largest "
+          f"gradient element {scale:.4g}); A1 launches pallas/sas/eq_mask "
+          f"{a1}; eq_mask step {res[2][3]:.2f} ms against pallas "
+          f"{res[0][3]:.2f} and sas {res[1][3]:.2f}, peak {res[2][4]:.2f} "
+          f"GiB against {res[0][4]:.2f} and {res[1][4]:.2f} ({smi})",
+          flush=True)
+    losses = {res[i][1] for i in res}
+    if len(losses) != 1 or sas != 0.0 or a1[1] != a1[0] or \
+            not 0 < a1[2] < a1[0]:
+        raise AssertionError(f"pool_modes: losses {losses}, 'sas' |d| "
+                             f"{sas}, A1 launches {a1}")
+    print(f"timing: the pool_modes phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
 def time_flow(model, smi, hw=(256, 340)):
     """Flow: 64 ticks of 10-channel stacks at scale size ``hw``."""
     import numpy as np
@@ -2871,8 +3266,18 @@ def main() -> int:
                                    "int8_conv"),
         "int8_conv/perlayer": (conv, f"{TPU_SRC}:79", "bninception_perlayer",
                                "int8_conv"),
+        "int8_conv/int8_stem": (conv, f"{TPU_SRC}:451",
+                                "int8_stem bninception_rgb", "int8_conv"),
+        "int8_conv/int8_stem_iv3": (conv, f"{IV3_SRC}:398",
+                                    "int8_stem inceptionv3_rgb",
+                                    "int8_conv"),
         "int8_max_pool": (pool, f"{TPU_SRC}:230", "bninception_rgb",
                           "int8_max_pool"),
+        "int8_max_pool/stem": (pool, f"{TPU_SRC}:451",
+                               "int8_stem bninception_rgb", "int8_max_pool"),
+        "int8_max_pool/stem_iv3": (pool, f"{IV3_SRC}:398",
+                                   "int8_stem inceptionv3_rgb",
+                                   "int8_max_pool"),
         "int8_max_pool/valid": (pool, f"{IV3_SRC}:300", "inceptionv3_rgb",
                                 "int8_max_pool"),
         "int8_avg_pool": (pool, f"{TPU_SRC}:244", "bninception_rgb",

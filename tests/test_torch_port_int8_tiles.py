@@ -172,6 +172,30 @@ def test_k1_plan_model_bit_exact(case, out_dtype):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("case", [
+    ((1, 20, 22), 3, 64, 7, 2, 3),          # BNInception conv1, RGB
+    ((1, 20, 22), 10, 64, 7, 2, 3),         # conv1, Flow
+    ((1, 21, 23), 3, 32, 3, 2, (0, 0))])    # InceptionV3 Conv2d_1a
+def test_k1_plan_model_all_int8_stem(case):
+    """The all-int8 stems' first conv: signed input (normalized pixels
+    quantized into 16 channels, the extra ones zero, as are the weights')
+    and the requantizing int8 epilogue."""
+    (N, H, W), real, O, kk, stride, pad = case
+    rng = np.random.RandomState(H * W + real)
+    x = torch.from_numpy(rng.randint(-127, 128, (N, H, W, 16))
+                         .astype(np.int8))
+    x[..., real:] = 0
+    w = torch.from_numpy(rng.randint(-127, 128, (O, kk, kk, 16))
+                         .astype(np.int8))
+    w[..., real:] = 0
+    m = torch.from_numpy((rng.rand(O) * 8.0 / (kk * kk * real * 64))
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.randn(O) * 20).astype(np.float32))
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad)
+    assert (ref > 0).float().mean() > 0.1               # not trivial
+    assert torch.equal(k1_model(x, w, m, b, stride, pad, torch.int8), ref)
+
+
 @pytest.mark.parametrize("O,bn", [(24, 32), (32, 32), (40, 64), (64, 64),
                                   (96, 128), (176, 64), (192, 64),
                                   (384, 128), (736, 128), (768, 128)])
@@ -287,6 +311,14 @@ K2_CASES = [
     ("edge_9x11_s1_p1", (2, 9, 11, 96), 1, dict(pad=1)),
     ("edge_1x1_s1_p1", (2, 1, 1, 16), 1, dict(pad=1)),
     ("edge_4x3_ceil_s2", (2, 4, 3, 48), 2, dict(ceil=True)),
+    # the all-int8 stems' pools: BNInception's Caffe-ceil s2 at a 224^2
+    # crop and at the shared stem's 340x256 frame (bottom/right pad 1),
+    # InceptionV3's VALID s2 at 299^2
+    ("stem_pool1_ceil_s2", (1, 112, 112, 64), 2, dict(ceil=True)),
+    ("stem_pool1_frame_ceil_s2", (1, 128, 170, 64), 2, dict(ceil=True)),
+    ("stem_pool2_frame_ceil_s2", (1, 64, 85, 192), 2, dict(ceil=True)),
+    ("iv3_stem_pool1_valid_s2", (1, 147, 147, 64), 2, dict()),
+    ("iv3_stem_pool2_valid_s2", (1, 71, 71, 192), 2, dict()),
 ]
 
 
@@ -565,4 +597,40 @@ def test_inceptionv3_trunk_meets_the_16_byte_rule(monkeypatch):
     out = iq._walk_trunk(iq._ForwardOps(qe), h)
     assert out.shape == (1, 2048)
     assert any(off > 0 for _, _, off, _ in rec.convs)
+    _assert_16_byte_rule(rec)
+
+
+@pytest.mark.parametrize("arch,modality,hw", [
+    ("BNInception", "RGB", (64, 80)), ("BNInception", "Flow", (64, 80)),
+    ("BNInception", "RGBDiff", (64, 64)), ("InceptionV3", "RGB", (75, 91))])
+def test_all_int8_stems_meet_the_16_byte_rule(monkeypatch, arch, modality,
+                                              hw):
+    """The all-int8 stems (``hybrid_stem=False``): the input quantized into
+    16 channels (3, 10 or 15 real), the stem convs on K1 and their pools
+    on K2 (Caffe ceil 3x3 s2 or VALID 3x3 s2) all meet the rule."""
+    model, _, _ = get_backbone(arch, modality)
+    sd = seeded_init(model, seed=0).state_dict()
+    C = {"RGB": 3, "Flow": 10, "RGBDiff": 15}[modality]
+    if arch == "InceptionV3":
+        mod, stem, names = iq, iq._iv3_stem_quantized, (
+            "int8_conv", "int8_max_pool")
+        folded = iq.fold_bn_iv3(sd)
+        qe = iq.quantize_iv3_e2e(folded, dict({n: 1.0 for n in folded},
+                                              input=1.0), hybrid_stem=False)
+        first, convs = "Conv2d_1a_3x3", 5
+    else:
+        mod, stem, names = bq, bq._e2e_stem_quantized, (
+            "int8_conv", "int8_max_pool")
+        folded = bq.fold_bn(sd)
+        qe = bq.quantize_backbone_e2e(sd, dict({n: 1.0 for n in folded},
+                                               input=1.0), hybrid_stem=False,
+                                      folded=folded)
+        first, convs = "conv1_7x7_s2", 3
+    assert "__stem__" not in qe and qe[first]["wq"].shape[-1] == 16
+    assert not qe[first]["wq"][..., C:].any()
+    rec = _Recorder(monkeypatch, mod, names)
+    x = torch.randn(2, *hw, C) * 50
+    h = stem(qe, x)
+    assert h.dtype == torch.int8 and h.shape[-1] == 192
+    assert len(rec.convs) == convs and len(rec.pools) == 2
     _assert_16_byte_rule(rec)

@@ -403,3 +403,149 @@ def test_cuda_max_pool_bwd_training_pools(cuda_device, case):
     bf16 = int(dtype == torch.bfloat16)
     assert (a1.max_pool_bwd.launches, a1.max_pool_bwd.bf16_launches) == \
         (before[0] + 1, before[1] + bf16)
+
+
+# K1's requantizing epilogue at the all-int8 stems' geometries: the input
+# quantized from normalized pixels (signed) into 16 channels, of which 3
+# (RGB), 10 (Flow) or 15 (RGBDiff) are real, the weights' extra channels
+# zero too; then the stem convs after it. (N, H, W, C, real C, O, (KH, KW),
+# stride, (pad_h, pad_w))
+STEM_CONV_CASES = [
+    (2, 224, 224, 16, 3, 64, (7, 7), 2, (3, 3)),    # BNInception conv1, crop
+    (1, 256, 340, 16, 10, 64, (7, 7), 2, (3, 3)),   # conv1, shared-stem frame
+    (1, 224, 224, 16, 15, 64, (7, 7), 2, (3, 3)),   # conv1, RGBDiff
+    (2, 64, 85, 64, 64, 64, (1, 1), 1, (0, 0)),     # conv2_3x3_reduce
+    (2, 64, 85, 64, 64, 192, (3, 3), 1, (1, 1)),    # conv2_3x3
+    (2, 299, 299, 16, 3, 32, (3, 3), 2, (0, 0)),    # InceptionV3 Conv2d_1a
+    (2, 149, 149, 32, 32, 32, (3, 3), 1, (0, 0)),   # Conv2d_2a
+    (2, 147, 147, 32, 32, 64, (3, 3), 1, (1, 1)),   # Conv2d_2b
+    (2, 73, 73, 64, 64, 80, (1, 1), 1, (0, 0)),     # Conv2d_3b
+    (2, 73, 73, 80, 80, 192, (3, 3), 1, (0, 0)),    # Conv2d_4a
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STEM_CONV_CASES)
+def test_cuda_conv_all_int8_stem(cuda_device, case):
+    N, H, W, C, real, O, (kh, kw), stride, pad = case
+    g = torch.Generator().manual_seed(N * H + W + O)
+    x = torch.randint(-127, 128, (N, H, W, C), generator=g, dtype=torch.int8)
+    if real == C:       # a stem conv after the first: post-ReLU input
+        x = x.abs()
+    x[..., real:] = 0
+    w = torch.randint(-127, 128, (O, kh, kw, C), generator=g,
+                      dtype=torch.int8)
+    w[..., real:] = 0
+    m = torch.rand(O, generator=g) * 8.0 / (kh * kw * real * 64)
+    b = torch.randn(O, generator=g) * 20
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad)
+    before = k.int8_conv.launches
+    got = k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)), stride,
+                      pad)
+    torch.cuda.synchronize()
+    assert k.int8_conv.launches == before + 1
+    assert (ref > 0).float().mean() > 0.1       # not trivial
+    assert torch.equal(got.cpu(), ref)
+
+
+# K2 at the all-int8 stems' pools: Caffe-ceil s2 at a 224^2 crop and at a
+# 340x256 frame of the shared stem (bottom/right padding 1), and
+# InceptionV3's VALID s2 pools at 299^2
+STEM_POOL_CASES = [
+    ((2, 112, 112, 64), dict(kernel=3, stride=2, ceil=True)),
+    ((2, 128, 170, 64), dict(kernel=3, stride=2, ceil=True)),
+    ((2, 56, 56, 192), dict(kernel=3, stride=2, ceil=True)),
+    ((2, 64, 85, 192), dict(kernel=3, stride=2, ceil=True)),
+    ((2, 147, 147, 64), dict(kernel=3, stride=2)),
+    ((2, 71, 71, 192), dict(kernel=3, stride=2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STEM_POOL_CASES)
+def test_cuda_max_pool_all_int8_stem(cuda_device, case):
+    shape, kw = case
+    x = _signed_pool_input(shape, sum(shape))
+    args = (kw["kernel"], kw["stride"], pool_pads(*shape[1:3], **kw))
+    before = k.int8_max_pool.launches
+    got = k.int8_max_pool(x.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert k.int8_max_pool.launches == before + 1
+    assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,modality", [("BNInception", "RGB"),
+                                           ("BNInception", "Flow"),
+                                           ("InceptionV3", "RGB")])
+def test_cuda_all_int8_stem_matches_cpu(cuda_device, arch, modality):
+    """A seeded backbone's ``hybrid_stem=False`` tree: the int8 stem output
+    on the card (K1, K2) equal to the plain kernels' on the CPU."""
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq, get_backbone, inception_v3_int8 as iq)
+    from action_detection_torch.models.convert import seeded_init
+
+    backbone = seeded_init(get_backbone(arch, modality)[0], seed=1)
+    size, c = (75, 3) if arch == "InceptionV3" else (64, 3 if
+                                                     modality == "RGB"
+                                                     else 10)
+    g = torch.Generator().manual_seed(size + c)
+    x = torch.rand((4, size, size, c), generator=g) * 255 - 117
+    calibrate, stem = ((iq.calibrate_e2e_iv3, iq._iv3_stem_quantized)
+                       if arch == "InceptionV3"
+                       else (bq.calibrate_e2e, bq._e2e_stem_quantized))
+    qe = calibrate(backbone.state_dict(), x, hybrid_stem=False)
+    before = (k.int8_conv.launches, k.int8_max_pool.launches)
+    got = stem(bq.tree_to(qe, cuda_device), x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert k.int8_conv.launches - before[0] == (3 if arch == "BNInception"
+                                                else 5)
+    assert k.int8_max_pool.launches == before[1] + 2
+    assert torch.equal(got.cpu(), stem(qe, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,stride,a1_launches", [
+    ("pallas", 2, 1), ("sas", 2, 1), ("sas", 1, 1), ("eq_mask", 2, 0),
+    ("eq_mask", 1, 1)])
+def test_cuda_pool_modes_route(cuda_device, mode, stride, a1_launches):
+    """``max_pool_2d`` on the card: every first-match backward launches A1
+    (``"pallas"``, ``"sas"`` and eq-mask's stride-1 pools), eq-mask's
+    strided pools do not; the gradient equals the CPU's in the same mode."""
+    from action_detection_torch.ops import pooling
+
+    g = torch.Generator().manual_seed(stride)
+    x = (torch.randint(0, 8, (2, 17, 17, 40), generator=g) / 4.0)
+    pad = ((1, 1), (1, 1))
+    prev = pooling.set_pool_backward(mode)
+    try:
+        grads = []
+        for dev in ("cpu", cuda_device):
+            xd = x.to(dev).requires_grad_()
+            before = a1.max_pool_bwd.launches
+            pooling.max_pool_2d(xd, 3, stride, pad).sum().backward()
+            torch.cuda.synchronize()
+            grads.append(xd.grad.cpu())
+        assert a1.max_pool_bwd.launches == before + a1_launches
+        assert torch.equal(grads[0], grads[1])
+    finally:
+        pooling.set_pool_backward(prev)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_max_pool_2d_runs_k2(cuda_device):
+    """``max_pool_2d`` on int8 card tensors launches K2 (and refuses what K2
+    does not take); int32 pools forward on the generic path."""
+    from action_detection_torch.ops.pooling import max_pool_2d
+
+    x = _signed_pool_input((2, 56, 56, 64), 7)
+    pads = pool_pads(56, 56, 3, 2, ceil=True)
+    before = k.int8_max_pool.launches
+    got = max_pool_2d(x.to(cuda_device), 3, 2, pads)
+    torch.cuda.synchronize()
+    assert k.int8_max_pool.launches == before + 1
+    assert torch.equal(got.cpu(), k.int8_max_pool_plain(x, 3, 2, pads))
+    with pytest.raises(ValueError):
+        max_pool_2d(x.to(cuda_device), (3, 2), 2, pads)
+    y32 = max_pool_2d(x.to(torch.int32).to(cuda_device), 3, 2, pads)
+    assert torch.equal(y32.cpu(), got.cpu().to(torch.int32))
