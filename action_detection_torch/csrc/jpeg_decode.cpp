@@ -49,8 +49,10 @@
 // All state lives on the stack or in per-call buffers, so calls from
 // several threads run at once (ctypes releases the GIL around each).
 //
-// Build (done by data/jpeg.py at the first decode, into _build/):
-//   g++ -O2 -std=c++17 -shared -fPIC -o libadt_jpeg_<hash>.so jpeg_decode.cpp
+// Build (done by data/image.py at the first decode, into _build/, one
+// library with image_decode.cpp, which sniffs a frame file's format):
+//   g++ -O2 -std=c++17 -shared -fPIC -o libadt_image_<hash>.so
+//       jpeg_decode.cpp image_decode.cpp
 
 #include <algorithm>
 #include <cerrno>
@@ -1910,37 +1912,51 @@ bool read_file(const char* path, std::vector<uint8_t>* data) {
 
 extern "C" {
 
-// Decode the JPEG file at path into out, (height, width, channels) uint8
-// C-contiguous; channels 3 is PIL's convert("RGB"), 1 its convert("L").
-// info receives height, width, the file's component count and errno.
-// Returns 0; 1 with a message in err for a file this decoder refuses; 2
-// where the file cannot be read (info[3] = errno); 3, before decoding,
-// where capacity (out's bytes) is not height * width * channels: call
-// again with such a buffer.
-int adt_jpeg_decode_file(const char* path, int channels, uint8_t* out,
-                         int64_t capacity, int64_t* info, char* err,
-                         int64_t errlen) {
+// Decode the JPEG in data[0, len) into out, (height, width, channels)
+// uint8 C-contiguous; channels 3 is PIL's convert("RGB"), 1 its
+// convert("L"). info receives height, width and the file's component
+// count. Returns 0; 1 with a message in err for a file this decoder
+// refuses; 3, before decoding, where capacity (out's bytes) is not
+// height * width * channels: call again with such a buffer. The image
+// decoder (image_decode.cpp) hands its JPEG files to this function.
+int adt_jpeg_decode_buffer(const uint8_t* data, int64_t len, int channels,
+                           uint8_t* out, int64_t capacity, int64_t* info,
+                           char* err, int64_t errlen) {
   try {
     if (channels != 1 && channels != 3) fail("channels must be 1 or 3");
-    std::vector<uint8_t> data;
-    errno = 0;
-    if (!read_file(path, &data)) {
-      info[3] = errno;
-      return 2;
-    }
     Image head;
-    read_header(data.data(), int64_t(data.size()), &head);
+    read_header(data, len, &head);
     info[0] = head.height;
     info[1] = head.width;
     info[2] = head.ncomp;
     if (capacity != int64_t(head.height) * head.width * channels) return 3;
-    Decoder d(data.data(), int64_t(data.size()));
+    Decoder d(data, len);
     d.parse();
     write_output(d.img, channels, out);
     return 0;
   } catch (const std::exception& e) {  // JpegError, std::bad_alloc
     return report(e, err, errlen);
   }
+}
+
+// adt_jpeg_decode_buffer on the bytes of the file at path; info[3]
+// receives errno. Returns 2 where the file cannot be read (info[3] =
+// errno), else what adt_jpeg_decode_buffer returns.
+int adt_jpeg_decode_file(const char* path, int channels, uint8_t* out,
+                         int64_t capacity, int64_t* info, char* err,
+                         int64_t errlen) {
+  std::vector<uint8_t> data;
+  try {
+    errno = 0;
+    if (!read_file(path, &data)) {
+      info[3] = errno;
+      return 2;
+    }
+  } catch (const std::exception& e) {  // std::bad_alloc
+    return report(e, err, errlen);
+  }
+  return adt_jpeg_decode_buffer(data.data(), int64_t(data.size()), channels,
+                                out, capacity, info, err, errlen);
 }
 
 }  // extern "C"

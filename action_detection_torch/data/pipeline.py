@@ -7,8 +7,9 @@ makes its pixels with the same ``zlib.crc32`` key and ``RandomState.randint``
 draws as the reference, so at the THUMOS scale size (340x256 frames, scale
 size 256) the pixels are equal to the JAX package's without PIL; other scale
 sizes resize with :func:`~.transforms.scale_frame`, bit-exact with PIL.
-JPEG frames (:class:`DirectoryFrameProvider`) are decoded by the port's own
-C++ decoder (:func:`~.jpeg.decode_jpeg`), bit-exact with PIL's
+Frame files (:class:`DirectoryFrameProvider`: JPEG, PNG, BMP or PNM, by
+their first bytes, as PIL sniffs) are decoded by the port's own C++
+decoder (:func:`~.image.decode_image`), bit-exact with PIL's
 ``convert("RGB")`` and ``convert("L")``; the port imports PIL nowhere.
 """
 
@@ -29,10 +30,14 @@ from .transforms import (Compose, GroupCenterCrop, GroupOverSample,
 
 
 class DirectoryFrameProvider:
-    """Loads extracted JPEG frames from per-video directories.
+    """Loads extracted frames from per-video directories.
 
     ``image_tmpl``: 'img_{:05d}.jpg' (RGB) or '{}_{:05d}.jpg' (flow, formatted
-    with 'x'/'y' + index).
+    with 'x'/'y' + index). A file is read by its first bytes, as PIL's
+    ``Image.open`` reads it, whatever its name: JPEG, PNG, BMP (or DIB) and
+    PNM (P1-P6) decode (:func:`~.image.decode_image`); any other format PIL
+    opens (GIF, TIFF, WebP, ...) raises ``ValueError`` naming the file and
+    the format.
     """
 
     def __init__(self, root: str = "", image_tmpl: str = "img_{:05d}.jpg",
@@ -44,13 +49,13 @@ class DirectoryFrameProvider:
     def load(self, video_id: str, idx: int) -> List[np.ndarray]:
         import os
 
-        from .jpeg import decode_jpeg
+        from .image import decode_image
 
         directory = os.path.join(self.root, video_id)
         if self.modality in ("RGB", "RGBDiff"):
-            return [decode_jpeg(os.path.join(
+            return [decode_image(os.path.join(
                 directory, self.image_tmpl.format(idx)), "RGB")]
-        return [decode_jpeg(os.path.join(
+        return [decode_image(os.path.join(
             directory, self.image_tmpl.format(axis, idx)), "L")
             for axis in ("x", "y")]
 

@@ -2,10 +2,12 @@
 launch counters that show which kernels a run went through. The counters
 also cover the C++ host kernels of ``utils/native.py`` (``host_nms``,
 ``host_tag_search``), which the evaluation and TAG paths call, and the
-JPEG decoder of ``data/jpeg.py`` (``host_jpeg_decode``: one a decoded
-file), which every run on frame directories calls."""
+frame decoder of ``data/image.py``, one counter a format
+(``host_jpeg_decode``, ``host_png_decode``, ``host_bmp_decode``,
+``host_pnm_decode``: one a decoded file), which every run on frame
+directories calls."""
 
-from ..data.jpeg import decode_jpeg
+from ..data.image import DECODES
 from ..utils.native import nms_indices, tag_box_search
 from .int8 import (int8_avg_pool, int8_avg_pool_exclude_pad,
                    int8_avg_pool_plain, int8_conv, int8_conv_plain,
@@ -16,8 +18,8 @@ from .pool_bwd import max_pool_bwd, max_pool_bwd_plain
 #: ``launches`` per launch
 KERNELS = {k.__name__: k for k in (int8_conv, int8_max_pool, int8_avg_pool,
                                    int8_avg_pool_exclude_pad, max_pool_bwd)}
-KERNELS.update(host_nms=nms_indices, host_tag_search=tag_box_search,
-               host_jpeg_decode=decode_jpeg)
+KERNELS.update(host_nms=nms_indices, host_tag_search=tag_box_search)
+KERNELS.update({f"host_{f}_decode": c for f, c in DECODES.items()})
 
 
 def reset_launch_counts() -> None:

@@ -12,6 +12,9 @@
   ``classifier_0`` -> ``classifier.0``), the inverse of the JAX package's
   ``convert.py:_nest_path``. The flax ``backbone`` scope becomes
   ``base_model``.
+* :func:`jax_from_state_dict` is its inverse: the port's ``state_dict``
+  as the JAX package's flax ``(params, batch_stats)`` trees, scoped as the
+  JAX package's ``convert.py:_nest_path`` scopes a torch layer.
 * :func:`quantized_from_jax` maps a JAX int8-e2e tree
   (``quantize_backbone_e2e`` or ``calibrate_e2e_iv3``) onto the port's int8
   runtime tensors, so a test can hold the int8 runtime apart from
@@ -103,6 +106,98 @@ def state_dict_from_jax(params: dict, batch_stats: dict = None
             sd[k[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def _flax_scope(layer: str, arch: str, is_bn: bool) -> tuple:
+    """The flax scope of a backbone layer (its torch module path), as the
+    JAX package's ``convert.py:_nest_path`` gives it: BNInception's
+    ``inception_3a_1x1`` under ``inception_3a``; InceptionV3's
+    ``Mixed_5b.branch1x1.conv`` -> ``(Mixed_5b, branch1x1_conv)``; ResNet's
+    ``layer1.0.downsample.1`` -> ``(layer1_0, downsample_bn)``; VGG's
+    ``features.N`` -> ``features_N`` (``features_N_bn`` for a BN) and
+    ``classifier.N`` -> ``classifier_N``; any other name as it is."""
+    if arch == "BNInception" and layer.startswith("inception_"):
+        return ("_".join(layer.split("_")[:2]), layer)
+    parts = layer.split(".")
+    if arch == "InceptionV3" and len(parts) > 1:
+        if parts[-1] in ("conv", "bn"):
+            parts = parts[:-2] + [f"{parts[-2]}_{parts[-1]}"]
+        return tuple(parts)
+    if arch.startswith("vgg") and len(parts) == 2:
+        return (f"{parts[0]}_{parts[1]}"
+                + ("_bn" if is_bn and parts[0] == "features" else ""),)
+    if arch.startswith("resnet") and len(parts) > 1:
+        out, i = [], 0
+        while i < len(parts):
+            p = parts[i]
+            if p.startswith("layer") and i + 1 < len(parts) \
+                    and parts[i + 1].isdigit():
+                out.append(f"{p}_{parts[i + 1]}")
+                i += 2
+            elif p == "downsample" and i + 1 < len(parts):
+                out.append("downsample_conv" if parts[i + 1] == "0"
+                           else "downsample_bn")
+                i += 2
+            else:
+                out.append(p)
+                i += 1
+        return tuple(out)
+    return (layer,)
+
+
+def jax_from_state_dict(state_dict: Dict[str, Any], arch: str
+                        ) -> tuple:
+    """The port's SSN, binary or bare-backbone ``state_dict`` -> the JAX
+    package's flax ``(params, batch_stats)`` trees (float32 numpy, a
+    bfloat16 tensor widened exactly), the inverse of
+    :func:`state_dict_from_jax`: ``base_model.*`` under ``backbone`` (a
+    key without that prefix and outside the heads is a bare backbone's),
+    each layer under :func:`_flax_scope` of ``arch``; conv ``weight (O, I,
+    H, W)`` -> ``kernel (H, W, I, O)``, linear ``weight (O, I)`` ->
+    ``kernel (I, O)``, BN ``weight``/``bias`` -> ``scale``/``bias`` in
+    ``params`` and ``running_mean``/``running_var`` -> ``mean``/``var`` in
+    ``batch_stats``; ``num_batches_tracked`` is dropped (flax keeps no
+    such count)."""
+    layers: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in state_dict.items():
+        layer, _, leaf = key.rpartition(".")
+        if leaf != "num_batches_tracked":
+            layers.setdefault(layer, {})[leaf] = _host(v).astype(np.float32)
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for layer, leaves in layers.items():
+        head = layer.split(".")[0]
+        is_bn = "running_mean" in leaves
+        if head in HEADS and "." not in layer:
+            path = (layer,)
+        else:
+            name = layer[len("base_model."):] if layer.startswith(
+                "base_model.") else layer
+            path = ("backbone",) * layer.startswith("base_model.") + \
+                _flax_scope(name, arch, is_bn)
+        for leaf, a in leaves.items():
+            if leaf == "weight" and is_bn:
+                put(params, path, "scale", a)
+            elif leaf == "weight":
+                put(params, path, "kernel", a.transpose(2, 3, 1, 0)
+                    if a.ndim == 4 else a.T)
+            elif leaf == "bias":
+                put(params, path, "bias", a)
+            elif leaf == "running_mean":
+                put(stats, path, "mean", a)
+            elif leaf == "running_var":
+                put(stats, path, "var", a)
+            else:
+                raise ValueError(f"{layer}.{leaf}: a state dict entry with "
+                                 "no flax counterpart")
+    return params, stats
 
 
 def quantized_from_jax(qe: Dict[str, Any]) -> Dict[str, Any]:

@@ -19,6 +19,10 @@ copy follow the JAX package's ``train/checkpoint.py`` with ``.pt`` for
   ``reg_stats`` possibly a numpy array; ``models/convert.py:
   ssn_state_from_reference``), in torch's zip format or its older one.
 
+:func:`save_checkpoint_orbax` writes the JAX package's orbax directory of
+a port ``state_dict`` (``models/convert.py:jax_from_state_dict``), where
+``tensorstore`` imports.
+
 Torch files load with ``weights_only=True``: nothing but tensors,
 containers and numbers is unpickled, plus, by name, the numpy globals that
 rebuild an array or a scalar (:data:`NUMPY_GLOBALS`, and the numeric
@@ -30,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -123,6 +128,113 @@ def _orbax_leaf(a: np.ndarray):
     return a
 
 
+def _tensorstore(directory: str, doing: str):
+    """``tensorstore``, or ``ImportError`` naming it where it does not
+    import (the port's only use of it is orbax directories)."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{directory} is an orbax checkpoint directory: {doing} it needs "
+            f"the tensorstore package, which does not import here ({e}); "
+            "use a checkpoint.msgpack, a .pt or a .pth") from e
+    return ts
+
+
+#: the OCDBT configuration orbax 0.11 gives its kvstore, and the zarr
+#: compressor of its arrays
+ORBAX_OCDBT_CONFIG = {"max_inline_value_bytes": 1024,
+                      "max_decoded_node_bytes": 100000000,
+                      "version_tree_arity_log2": 4,
+                      "compression": {"id": "zstd"}}
+ORBAX_COMPRESSOR = {"id": "zstd", "level": 1}
+#: ``_CHECKPOINT_METADATA``'s handler, as orbax's StandardCheckpointer
+#: names it
+ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                 "StandardCheckpointHandler")
+
+
+def _orbax_leaves(tree: dict, prefix: tuple = ()):
+    """``(path, leaf)`` of a nested dict, an empty dict a leaf of its own
+    (orbax writes it as a ``Dict`` it skips on restore)."""
+    for k, v in tree.items():
+        if isinstance(v, dict) and v:
+            yield from _orbax_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def save_checkpoint_orbax(directory: str, state_dict: Mapping[str, Any],
+                          reg_stats, arch: str = "", epoch: int = 0,
+                          best_loss: float = float("inf")) -> None:
+    """What the JAX package's ``save_checkpoint_orbax`` writes, from a port
+    ``state_dict``: ``epoch`` (int64), ``best_loss`` (float64),
+    ``reg_stats``, and the flax ``params`` and ``batch_stats`` of
+    ``models/convert.py:jax_from_state_dict(state_dict, arch)``, each an
+    array in the ``ocdbt`` kvstore over the directory (orbax's
+    configuration, one zarr array a tree path joined with ``.``, one
+    chunk, zstd; ``use_zarr3`` false), with orbax 0.11's ``_METADATA`` and
+    ``_CHECKPOINT_METADATA``; the ``ARCH`` sidecar. Written into
+    ``<directory>.tmp_ocp``, which then replaces ``directory``, as JAX
+    does. Where ``tensorstore`` does not import, ``ImportError`` naming
+    it. :func:`read_orbax` and the JAX package's ``load_checkpoint_orbax``
+    read it back."""
+    from ..models.convert import jax_from_state_dict
+
+    ts = _tensorstore(directory, "writing")
+    params, stats = jax_from_state_dict(state_dict, arch)
+    tree = {"epoch": np.int64(epoch), "best_loss": np.float64(best_loss),
+            "reg_stats": np.asarray(reg_stats), "params": params,
+            "batch_stats": stats}
+    final = os.path.abspath(directory)
+    tmp = final + ".tmp_ocp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    started = time.time_ns()
+    kvstore = {"driver": "ocdbt", "base": "file://" + tmp,
+               "config": ORBAX_OCDBT_CONFIG}
+    context = ts.Context()
+    meta, writes = {}, []
+    for path, leaf in sorted(_orbax_leaves(tree)):
+        if isinstance(leaf, dict):      # empty: orbax skips it on restore
+            value = {"value_type": "Dict", "skip_deserialize": True}
+        else:
+            a = np.asarray(leaf, order="C")
+            spec = {"driver": "zarr",
+                    "kvstore": dict(kvstore, path=".".join(path)),
+                    "metadata": {"shape": list(a.shape),
+                                 "chunks": list(a.shape),
+                                 "dtype": a.dtype.str,
+                                 "compressor": ORBAX_COMPRESSOR,
+                                 "fill_value": None,
+                                 "dimension_separator": "."}}
+            store = ts.open(spec, create=True, context=context).result()
+            writes.append(store.write(a))
+            value = {"value_type": "np.ndarray", "skip_deserialize": False}
+        meta[str(path)] = {"key_metadata": [{"key": k, "key_type": 2}
+                                            for k in path],
+                           "value_metadata": value}
+    for w in writes:
+        w.result()
+    with open(os.path.join(tmp, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": meta, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+    with open(os.path.join(tmp, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": ORBAX_HANDLER, "metrics": {},
+                   "performance_metrics": {},
+                   "init_timestamp_nsecs": started,
+                   "commit_timestamp_nsecs": time.time_ns(),
+                   "custom_metadata": {}}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    with open(os.path.join(final, "ARCH"), "w") as f:
+        f.write(arch)
+
+
 def read_orbax(directory: str) -> Dict[str, Any]:
     """The contents of a JAX ``save_checkpoint_orbax`` directory as the JAX
     package's ``load_checkpoint_orbax`` returns them: ``params``,
@@ -144,14 +256,7 @@ def read_orbax(directory: str) -> Dict[str, Any]:
             f"{directory} is a directory but not an orbax checkpoint: it "
             f"has no {' and no '.join(missing)} (pass an orbax checkpoint "
             "directory, a checkpoint.msgpack, a .pt or a .pth)")
-    try:
-        import tensorstore as ts
-    except ImportError as e:
-        raise ImportError(
-            f"{directory} is an orbax checkpoint directory: reading it needs "
-            f"the tensorstore package, which does not import here ({e}); "
-            "pass the checkpoint as a checkpoint.msgpack, a .pt or a "
-            ".pth") from e
+    ts = _tensorstore(directory, "reading")
     with open(os.path.join(directory, "_METADATA")) as f:
         meta = json.load(f)
     kvstore = {"driver": "ocdbt",

@@ -1,8 +1,8 @@
 """Where the port's native libraries are built, and how they are named.
 
 The CUDA kernels (``kernels/build.py``, nvcc), the C++ host kernels
-(``utils/native.py``, g++) and the JPEG decoder (``data/jpeg.py``, g++, a
-library of its own) compile at first use from ``csrc/`` into
+(``utils/native.py``, g++) and the frame decoder (``data/image.py``, g++,
+a library of its own) compile at first use from ``csrc/`` into
 ``action_detection_torch/_build/`` (listed in .gitignore). A library's file
 name carries a hash of its sources and its compiler command, so an edited
 source or flag builds a new library beside the old one. A build holds an
@@ -55,31 +55,32 @@ def build_lock(path: str):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def build_host_library(stem: str, source: str, what: str,
+def build_host_library(stem: str, sources: list, what: str,
                        build_dir: str = BUILD_DIR) -> str:
-    """Compile one C++ ``source`` into ``<build_dir>/<stem>_<hash>.so``
-    with ``$CXX`` (g++) and :data:`HOST_CXX_FLAGS`, unless that library is
-    there already; returns its path. The compiler's output is kept as
+    """Compile the C++ files ``sources`` into one
+    ``<build_dir>/<stem>_<hash>.so`` with ``$CXX`` (g++) and
+    :data:`HOST_CXX_FLAGS`, unless that library is there already; returns
+    its path. The compiler's output is kept as
     ``<library>.log``; a failed build raises ``ImportError`` naming ``what``
     and the log, with its text."""
     cxx = os.environ.get("CXX", "g++")
-    path = hashed_library_path(stem, (cxx,) + HOST_CXX_FLAGS, [source],
+    path = hashed_library_path(stem, (cxx,) + HOST_CXX_FLAGS, sources,
                                build_dir)
     if os.path.isfile(path):
         return path
     with build_lock(path):
         if not os.path.isfile(path):    # nobody built it meanwhile
-            _compile_host(cxx, source, path, what, build_dir)
+            _compile_host(cxx, sources, path, what, build_dir)
     return path
 
 
-def _compile_host(cxx: str, source: str, path: str, what: str,
+def _compile_host(cxx: str, sources: list, path: str, what: str,
                   build_dir: str) -> None:
     log = path + ".log"
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         lib = os.path.join(tmp, "lib.so")
         try:
-            proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", lib, source],
+            proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", lib, *sources],
                                   capture_output=True, text=True,
                                   timeout=300)
             out, ok = proc.stdout + proc.stderr, proc.returncode == 0

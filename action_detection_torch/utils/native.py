@@ -42,7 +42,7 @@ SIGNATURES = {
 def build_native(build_dir: str = BUILD_DIR) -> str:
     """Compile ``csrc/adt_native.cpp`` unless this source and command have a
     library in ``build_dir`` already; returns its path."""
-    return build_host_library("libadt_native", SOURCE,
+    return build_host_library("libadt_native", [SOURCE],
                               "the C++ host kernels", build_dir)
 
 

@@ -10,7 +10,8 @@ before the final line):
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
               versions. No CUDA device: exit 1.
 2. build    — nvcc builds the kernels K1-K3 and A1, and g++ the C++ host
-              kernels (NMS, TAG box search), from
+              kernels (NMS, TAG box search; the frame decoder at its
+              first phase), from
               ``action_detection_torch/csrc`` into
               ``action_detection_torch/_build``.
 3. kernels  — K1 (int8 conv, both epilogues), K2 (int8 max pool, both
@@ -147,25 +148,41 @@ before the final line):
               multi-host flags on NCCL (one rank under DDP), its
               checkpoint scored by ``ssn_test``. The ``kernels`` line
               gives each kernel's launches on these paths
-              (``parallel_paths``). Then the host JPEG decoder
-              (``check_decoder``: g++ builds ``libadt_jpeg``; every
+              (``parallel_paths``). Then the host frame decoder
+              (``check_decoder``: g++ builds ``libadt_image``; every
               committed fixture of ``tests/fixtures/torch_port_jpeg``
               (baseline, progressive, arithmetic, CMYK and YCCK,
-              smoothed) decoded as RGB and L to PIL's digests; ms a
-              340x256 RGB frame (baseline, progressive, arithmetic and
-              progressive arithmetic) and a Flow x/y pair on 1 thread
-              and on the CLIs' decode pool) and the CLIs on JPEG frame
-              directories (``run_real_frames``: two THUMOS14 videos of
-              1,560 frames cycling over the fixtures; ``ssn_test``
-              BNInception RGB and Flow, ``binary_test`` and ``ssn_train``
-              -b 16, 2 steps, each a path that must launch its kernels
-              and decode once a frame file read, beside the same run on
-              synthetic frames, walls and busy shares; then ``ssn_test``
-              RGB on the progressive and arithmetic transcodes of the
-              same frames, whose pickle must equal the baseline frames'
-              byte for byte); last the committed orbax directory
-              (``run_orbax``: read to its digests and scored where
-              tensorstore imports, else refused by name).
+              smoothed) and of ``tests/fixtures/torch_port_frames``
+              (PNG, BMP and PNM) decoded as RGB and L to PIL's digests;
+              ms a 340x256 RGB frame (baseline, progressive, arithmetic
+              and progressive arithmetic JPEG; the same pixels as a PNG
+              with a filter chosen a row, an Adam7 PNG, a BMP and a PPM,
+              re-encoded at run time by ``tests/frame_encoders.py``) and
+              a Flow x/y pair on 1 thread and on the CLIs' decode pool)
+              and the CLIs on frame directories (``run_real_frames``:
+              two THUMOS14 videos of 1,560 frames cycling over the
+              fixtures; ``ssn_test`` BNInception RGB and Flow,
+              ``binary_test`` and ``ssn_train`` -b 16, 2 steps, each a
+              path that must launch its kernels and decode once a frame
+              file read, beside the same run on synthetic frames, walls
+              and busy shares; then ``ssn_test`` RGB on the progressive
+              and arithmetic transcodes of the same frames, and on their
+              PNG, BMP and PPM re-encodings under the ``img_*.jpg``
+              names, each pickle byte-equal to the baseline frames' and
+              each decode counted under its format); the committed
+              orbax directory (``run_orbax``: read to its digests,
+              scored and written back by the port where tensorstore
+              imports, else reading and writing refused by name); last
+              the port's THUMOS14 recipe
+              (``action_detection_torch/scripts/reproduce_thumos14.sh``,
+              ``run_recipe``) by ``bash`` at full width (BNInception, -b
+              16; ``tests/recipe_db.py``'s dataset of 2 train and 2 test
+              videos linking to the JPEG frames, its ``python`` shim
+              appending ``--epochs 1``): ``gen_proposal_list`` ->
+              ``ssn_train`` RGB and Flow (``$FLOW_INIT`` a seeded
+              reference ``.pth``), each of which must launch A1 ->
+              ``ssn_test`` RGB and Flow, each of which must launch K1-K3
+              -> the fused mAP table, each step's wall printed.
 5. checks   — for BNInception (RGB and RGBDiff) and InceptionV3: the
               int8-e2e trunk held bit-exact against the plain kernels on
               the CPU, the int8 features against the float backbone (cos >
@@ -238,6 +255,7 @@ PIPELINE_FRAMES = 1560    # frames of each pipeline test video (52 s, 30 fps)
 PIPELINE_INTERVAL = 5     # binary_test's --frame_interval (its default)
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port_jpeg")
 JPEG_FIXTURE_FRAMES = 8   # img_/x_/y_ 00001..00008: 340x256 frames
+FRAME_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port_frames")
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_orbax")
 REAL_TRAIN_STEPS = 2      # ssn_train -b 16 steps on JPEG frames
 POOL_MODE_STEPS = 3       # timed training steps of each pool backward mode
@@ -995,11 +1013,15 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
         paths.update(run_training_clis(d, smi, rows))
         paths.update(run_data_parallel(d, smi))
         t0 = time.perf_counter()
-        check_decoder(smi)
+        check_decoder(d, smi)
         paths.update(run_real_frames(d, smi))
         run_orbax(d)
         print(f"timing: the decoder, real-frame and orbax phases "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        paths.update(run_recipe(d, smi))
+        print(f"timing: the recipe phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
         check_train_step_small(d)
         if profile:
@@ -1121,50 +1143,22 @@ def time_float_step(model, smi) -> float:
     return ms
 
 
-def flax_trees(state_dict) -> tuple:
-    """A port BNInception SSN state dict as the JAX package's flax
-    ``(params, batch_stats)`` trees: the backbone under ``backbone``, each
-    ``inception_*`` layer under its module's scope
-    (``action_detection_tpu/models/convert.py:_nest_path``), kernels HWIO
-    and (in, out), BN ``scale``/``bias`` and ``mean``/``var``."""
-    params, stats = {}, {}
-    for key, t in state_dict.items():
-        layer, leaf = key.rsplit(".", 1)
-        if leaf == "num_batches_tracked":
-            continue
-        path = layer.split(".")
-        if path[0] == "base_model":
-            name = path[1]
-            path = ["backbone"] + (["_".join(name.split("_")[:2])]
-                                   if name.startswith("inception_") else []
-                                   ) + [name]
-        node = stats if leaf.startswith("running_") else params
-        for p in path:
-            node = node.setdefault(p, {})
-        a = t.numpy()
-        if leaf == "weight":
-            node["kernel" if a.ndim > 1 else "scale"] = (
-                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
-        else:
-            node[{"bias": "bias", "running_mean": "mean",
-                  "running_var": "var"}[leaf]] = a
-    return params, stats
-
-
 def run_checkpoints(d: str, smi: str) -> dict:
     """Main path, part 4: one seeded BNInception SSN (THUMOS14 RGB) written
     three ways, as the port's ``.pt``, as the JAX package's
     ``checkpoint.msgpack`` (``train/flax_msgpack.py``'s writer on the flax
-    trees) and as a reference ``.pth.tar`` (``module.`` keys, no
-    ``num_batches_tracked``, numpy ``reg_stats``) under its published file
-    name in a model cache; ``ssn_test`` scores each, and ``--use_reference``
-    with ``$ADT_MODEL_CACHE`` at that cache, each a path of its own (K1-K3
+    trees of ``models/convert.py:jax_from_state_dict``) and as a reference
+    ``.pth.tar`` (``module.`` keys, no ``num_batches_tracked``, numpy
+    ``reg_stats``) under its published file name in a model cache;
+    ``ssn_test`` scores each, and ``--use_reference`` with
+    ``$ADT_MODEL_CACHE`` at that cache, each a path of its own (K1-K3
     must launch). The four pickles must be equal."""
     import numpy as np
     import torch
 
     from action_detection_torch.cli.ssn_test import main as ssn_test
     from action_detection_torch.config import get_reference_model_url
+    from action_detection_torch.models import jax_from_state_dict
     from action_detection_torch.train import flax_msgpack
 
     c = os.path.join(d, "checkpoints")
@@ -1172,7 +1166,7 @@ def run_checkpoints(d: str, smi: str) -> dict:
     os.makedirs(cache)
     model, pt = _seeded_checkpoint(c, "bni", 20, "BNInception", "RGB", 11)
     sd = model.state_dict()
-    params, stats = flax_trees(sd)
+    params, stats = jax_from_state_dict(sd, "BNInception")
     msgpack = os.path.join(c, "checkpoint.msgpack")
     with open(msgpack, "wb") as f:
         f.write(flax_msgpack.serialize({
@@ -1753,42 +1747,90 @@ def run_data_parallel(d: str, smi: str) -> dict:
     return paths
 
 
-def check_decoder(smi: str) -> None:
-    """The host JPEG decoder (``data/jpeg.py``): every committed fixture
-    (``tests/fixtures/torch_port_jpeg``: baseline, progressive, arithmetic
-    with DAC and restarts, CMYK and YCCK, the smoothed
-    incomplete scripts, an arithmetic file past PIL's read block) decoded
-    as RGB and as L, each array's shape and sha256 equal to PIL's in
-    ``digests.json``; then ms per 340x256 RGB frame (baseline, and the
-    progressive, arithmetic and progressive arithmetic transcodes of the
-    same frames) and per Flow x/y pair, 400 decodes each on one thread and
-    on the scoring CLIs' default decode pool (``make_decode_pool(None)``),
-    beside the synthetic provider's ms per RGB frame."""
+def write_lossless_frames(directory: str) -> dict:
+    """The 8 committed 340x256 RGB JPEG frames' decoded pixels re-encoded
+    losslessly under ``directory``, as ``img_0000k.jpg`` (the CLIs' frame
+    name): frames 1 and 2 a PNG with a filter chosen a row, 3 and 4 an
+    Adam7 PNG, 5 and 6 a 24-bit BMP, 7 and 8 a binary PPM (so the odd
+    frames a scoring run reads, 6 frames apart, hold all four). Returns
+    each format's files."""
+    from action_detection_torch.data.jpeg import decode_jpeg
+
+    from tests.frame_encoders import bmp_bytes, png_rgb, ppm_rgb
+
+    encoders = (("png", png_rgb), ("png_adam7",
+                                   lambda a: png_rgb(a, interlace=True)),
+                ("bmp", lambda a: bmp_bytes(a, 24)), ("ppm", ppm_rgb))
+    os.makedirs(directory)
+    files = {name: [] for name, _ in encoders}
+    for k in range(1, JPEG_FIXTURE_FRAMES + 1):
+        rgb = decode_jpeg(os.path.join(JPEG_FIXTURES, f"img_{k:05d}.jpg"))
+        name, encode = encoders[(k - 1) // 2]
+        path = os.path.join(directory, f"img_{k:05d}.jpg")
+        with open(path, "wb") as f:
+            f.write(encode(rgb))
+        files[name].append(path)
+    return files
+
+
+def check_digests(directory: str, decode) -> int:
+    """Every file of ``directory/digests.json`` decoded by ``decode`` as
+    RGB and as L to PIL's shape and sha256; returns the decodes made."""
     import hashlib
-    from concurrent.futures import ThreadPoolExecutor
 
-    from action_detection_torch.data.jpeg import build_jpeg, decode_jpeg
-    from action_detection_torch.data.pipeline import (SyntheticFrameProvider,
-                                                      make_decode_pool)
-
-    t0 = time.perf_counter()
-    lib = build_jpeg()
-    print(f"build: {os.path.relpath(lib, ROOT)} (JPEG decoder) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+    with open(os.path.join(directory, "digests.json")) as f:
         digests = json.load(f)
     n = 0
     for name, modes in sorted(digests.items()):
         for mode, want in sorted(modes.items()):
-            a = decode_jpeg(os.path.join(JPEG_FIXTURES, name), mode)
+            a = decode(os.path.join(directory, name), mode)
             got = {"shape": list(a.shape),
                    "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
             if got != want:
                 raise AssertionError(f"decoder: {name} as {mode}: {got}, "
                                      f"PIL's digest {want}")
             n += 1
-    print(f"decoder: {n} decodes of the {len(digests)} committed fixtures "
-          "(RGB and L) equal PIL's digests (shape and sha256)", flush=True)
+    return n
+
+
+def check_decoder(d: str, smi: str) -> None:
+    """The host frame decoder (``data/image.py``, its JPEG half
+    ``data/jpeg.py``): every committed JPEG fixture
+    (``tests/fixtures/torch_port_jpeg``: baseline, progressive, arithmetic
+    with DAC and restarts, CMYK and YCCK, the smoothed
+    incomplete scripts, an arithmetic file past PIL's read block) and
+    every PNG, BMP and PNM fixture (``tests/fixtures/torch_port_frames``)
+    decoded as RGB and as L, each array's shape and sha256 equal to PIL's
+    in ``digests.json``; then ms per 340x256 RGB frame (baseline, and the
+    progressive, arithmetic and progressive arithmetic transcodes of the
+    same frames; their pixels re-encoded as filtered and Adam7 PNGs, BMPs
+    and PPMs, ``write_lossless_frames`` into ``d/lossless``, which
+    ``run_real_frames`` scores) and per Flow x/y pair, 400 decodes each on
+    one thread and on the scoring CLIs' default decode pool
+    (``make_decode_pool(None)``), beside the synthetic provider's ms per
+    RGB frame."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from action_detection_torch.data.image import build_decoder, decode_image
+    from action_detection_torch.data.jpeg import decode_jpeg
+    from action_detection_torch.data.pipeline import (SyntheticFrameProvider,
+                                                      make_decode_pool)
+
+    t0 = time.perf_counter()
+    lib = build_decoder()
+    print(f"build: {os.path.relpath(lib, ROOT)} (frame decoder) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n = check_digests(JPEG_FIXTURES, decode_jpeg)
+    print(f"decoder: {n} decodes of the committed JPEG fixtures (RGB and L) "
+          "equal PIL's digests (shape and sha256)", flush=True)
+    n = check_digests(FRAME_FIXTURES, decode_image)
+    print(f"decoder: {n} decodes of the committed PNG, BMP and PNM "
+          "fixtures (RGB and L) equal PIL's digests (shape and sha256)",
+          flush=True)
+    t0 = time.perf_counter()
+    lossless = write_lossless_frames(os.path.join(d, "lossless"))
+    print(f"decoder: the 8 JPEG frames re-encoded as PNG, Adam7 PNG, BMP "
+          f"and PPM in {time.perf_counter() - t0:.1f} s", flush=True)
 
     frames = range(1, JPEG_FIXTURE_FRAMES + 1)
     rgb = [os.path.join(JPEG_FIXTURES, f"img_{i:05d}.jpg") for i in frames]
@@ -1801,8 +1843,17 @@ def check_decoder(smi: str) -> None:
     def rgb_fn(path):
         return decode_jpeg(path, "RGB")
 
+    def image_fn(path):
+        return decode_image(path, "RGB")
+
     for name, fn, items in (
             ("RGB frame 340x256", rgb_fn, rgb),
+            ("PNG RGB frame 340x256 (a filter chosen a row)", image_fn,
+             lossless["png"]),
+            ("PNG RGB frame 340x256 (Adam7)", image_fn,
+             lossless["png_adam7"]),
+            ("BMP RGB frame 340x256 (24-bit)", image_fn, lossless["bmp"]),
+            ("PPM RGB frame 340x256 (P6)", image_fn, lossless["ppm"]),
             ("progressive RGB frame 340x256 (tc 1-4)", rgb_fn, tc[:4]),
             ("arithmetic RGB frame 340x256 (sequential, tc 5-6)", rgb_fn,
              tc[4:6]),
@@ -1833,21 +1884,24 @@ def check_decoder(smi: str) -> None:
 
 
 def link_jpeg_frames(root: str, videos, frames: int,
-                     rgb: str = "img") -> None:
+                     rgb: str = "img", rgb_dir: str = JPEG_FIXTURES) -> None:
     """``root/<video>/img_*``, ``x_*`` and ``y_*`` for frames 1..frames:
     links cycling over the committed 340x256 fixtures, in one directory
     that every video's directory links to; ``rgb="tc"`` links the RGB
     frames to the coefficient-identical transcodes ``tc_*`` instead (1-4
-    progressive Huffman, 5-8 arithmetic), frame for frame."""
+    progressive Huffman, 5-8 arithmetic), frame for frame; ``rgb_dir``
+    the directory of the RGB frames (``write_lossless_frames``'s)."""
     shared = os.path.join(root, ".frames")
     os.makedirs(shared)
     for i in range(1, frames + 1):
         k = (i - 1) % JPEG_FIXTURE_FRAMES + 1
-        for src, dst in ((f"{rgb}_{k:05d}.jpg", f"img_{i:05d}.jpg"),
-                         (f"x_{k:05d}.jpg", f"x_{i:05d}.jpg"),
-                         (f"y_{k:05d}.jpg", f"y_{i:05d}.jpg")):
-            os.symlink(os.path.join(JPEG_FIXTURES, src),
-                       os.path.join(shared, dst))
+        for src, dst in ((os.path.join(rgb_dir, f"{rgb}_{k:05d}.jpg"),
+                          f"img_{i:05d}.jpg"),
+                         (os.path.join(JPEG_FIXTURES, f"x_{k:05d}.jpg"),
+                          f"x_{i:05d}.jpg"),
+                         (os.path.join(JPEG_FIXTURES, f"y_{k:05d}.jpg"),
+                          f"y_{i:05d}.jpg")):
+            os.symlink(src, os.path.join(shared, dst))
     for v in videos:
         os.symlink(shared, os.path.join(root, v))
 
@@ -1870,8 +1924,12 @@ def run_real_frames(d: str, smi: str) -> dict:
     link to the coefficient-identical transcodes of the same frames (1-4
     progressive Huffman, 5-8 arithmetic; ``link_jpeg_frames(rgb="tc")``):
     a path of its own that must launch K1-K3 and decode once a file read,
-    and whose pickle must equal the baseline frames' byte for byte.
-    Returns each path's launches."""
+    and whose pickle must equal the baseline frames' byte for byte; and
+    once more on directories whose ``img_*.jpg`` files hold the same
+    pixels as PNG, Adam7 PNG, BMP and PPM files (``check_decoder``'s
+    ``d/lossless``): K1-K3, one PNG, BMP or PNM decode a file read and no
+    JPEG one, the same pickle byte for byte. Returns each path's
+    launches."""
     import contextlib
     from unittest import mock
 
@@ -2027,6 +2085,42 @@ def run_real_frames(d: str, smi: str) -> dict:
               + "/".join(str(paths["real_ssn_test_rgb_tc"][k]) for k in k1_3)
               + f"; pickle byte-equal to the baseline frames' ({smi})",
               flush=True)
+
+        # and on the same pixels as PNG, Adam7 PNG, BMP and PPM files
+        # under the same img_*.jpg names (check_decoder wrote them)
+        lossless = os.path.join(real, "frames_lossless")
+        link_jpeg_frames(lossless, videos, PIPELINE_FRAMES,
+                         rgb_dir=os.path.join(d, "lossless"))
+        argv = argv[:3] + [os.path.join(real, "rgb_lossless.pkl")]
+        files.clear()
+        formats = ("host_png_decode", "host_bmp_decode", "host_pnm_decode")
+        with mock.patch.object(pipeline.DirectoryFrameProvider, "load",
+                               counted):
+            run = paths["real_ssn_test_rgb_lossless"] = drive(
+                f"{name} on PNG, BMP and PPM frames",
+                cli_call(cli, argv + ["--data_root", lossless,
+                                      "--prop_file_dir", real], None),
+                expect + formats)
+        decodes = sum(run[f] for f in formats)
+        if decodes != sum(files) or run["host_jpeg_decode"]:
+            raise AssertionError(
+                f"{name} on PNG, BMP and PPM frames: {decodes} decodes "
+                f"({run['host_jpeg_decode']} JPEG) for {len(files)} frame "
+                f"loads reading {sum(files)} files")
+        with open(argv[3], "rb") as f:
+            got = f.read()
+        if got != rgb_pickle:
+            delta = _max_abs_delta(pickle.loads(got), pickle.loads(rgb_pickle))
+            raise AssertionError(
+                f"{name}: the PNG/BMP/PPM frames' pickle differs from the "
+                f"JPEG frames' (max |d| {delta})")
+        print(f"real frames: {name} on PNG, Adam7 PNG, BMP and PPM frames "
+              f"named img_*.jpg: wall {run['wall_s']:.3f} s, PNG/BMP/PNM "
+              "decodes " + "/".join(str(run[f]) for f in formats)
+              + f" for {len(files)} frame loads, K1/K2/K3 "
+              + "/".join(str(run[k]) for k in k1_3)
+              + f"; pickle byte-equal to the JPEG frames' ({smi})",
+              flush=True)
     return paths
 
 
@@ -2050,29 +2144,47 @@ def _leaf_digest(a) -> dict:
 
 def run_orbax(d: str) -> None:
     """The committed orbax directory (``tests/fixtures/torch_port_orbax``,
-    a TinyConv SSN written by the JAX package's ``save_checkpoint_orbax``).
-    Where ``tensorstore`` imports: its tree against the committed digests,
-    then ``ssn_test --arch TinyConv`` scores it. Where it does not: the
-    port refuses the directory with an error naming tensorstore, which is
-    what the port does on such a card."""
+    a TinyConv SSN written by the JAX package's ``save_checkpoint_orbax``)
+    and the port's writer (``save_checkpoint_orbax``). Where
+    ``tensorstore`` imports: the directory's tree against the committed
+    digests, then ``ssn_test --arch TinyConv`` scores it, and the port
+    writes its tree back as a directory that reads to the same digests.
+    Where it does not: the port refuses to read or write such a directory
+    with an error naming tensorstore, which is what the port does on such
+    a card."""
+    import numpy as np
+
     from action_detection_torch.cli.ssn_test import main as ssn_test
+    from action_detection_torch.models import state_dict_from_jax
     from action_detection_torch.train import load_checkpoint
-    from action_detection_torch.train.checkpoint import read_orbax
+    from action_detection_torch.train.checkpoint import (
+        read_orbax, save_checkpoint_orbax)
 
     ck = os.path.join(ORBAX_FIXTURE, "ssn_tinyconv")
     try:
         import tensorstore  # noqa: F401
     except ImportError:
-        try:
-            load_checkpoint(ck)
-        except ImportError as e:
-            if "tensorstore" not in str(e):
-                raise AssertionError(f"orbax refusal without its cause: {e}")
-            print("orbax: this card has no tensorstore, so the port refuses "
-                  f"orbax checkpoint directories: {str(e)[:160]}...",
-                  flush=True)
-            return
-        raise AssertionError("an orbax directory loaded without tensorstore")
+        written = os.path.join(d, "orbax_written")
+        for what, call in (
+                ("read", lambda: load_checkpoint(ck)),
+                ("write", lambda: save_checkpoint_orbax(
+                    written, {"activity_fc.bias": np.zeros(2, np.float32)},
+                    REG_STATS, arch="TinyConv"))):
+            try:
+                call()
+            except ImportError as e:
+                if "tensorstore" not in str(e):
+                    raise AssertionError(
+                        f"orbax {what} refusal without its cause: {e}")
+                print(f"orbax: this card has no tensorstore, so the port "
+                      f"refuses to {what} orbax checkpoint directories: "
+                      f"{str(e)[:160]}...", flush=True)
+                continue
+            raise AssertionError(f"an orbax directory {what} without "
+                                 "tensorstore")
+        if os.path.exists(written) or os.path.exists(written + ".tmp_ocp"):
+            raise AssertionError("the refused orbax write left a directory")
+        return
     with open(os.path.join(ORBAX_FIXTURE, "digests.json")) as f:
         want = json.load(f)
     tree = read_orbax(ck)
@@ -2098,6 +2210,101 @@ def run_orbax(d: str) -> None:
               "--synthetic_data", "--prop_file_dir", d])
     print(f"orbax: the committed directory read to its {len(want)} digests "
           f"and scored (P={check_pickle(out, 20)})", flush=True)
+    written = os.path.join(d, "orbax_written")
+    save_checkpoint_orbax(written, state_dict_from_jax(
+        tree["params"], tree["batch_stats"]), tree["reg_stats"],
+        arch=tree["arch"], epoch=tree["epoch"], best_loss=tree["best_loss"])
+    back = read_orbax(written)
+    if {k: back[k] for k in ("epoch", "arch", "best_loss")} != {
+            k: tree[k] for k in ("epoch", "arch", "best_loss")}:
+        raise AssertionError("orbax: the port's directory reads back "
+                             "otherwise")
+    print("orbax: the port wrote the tree back as a directory that reads "
+          "back", flush=True)
+
+
+def run_recipe(d: str, smi: str) -> dict:
+    """Main path, part 9: the port's THUMOS14 reproduction recipe
+    (``action_detection_torch/scripts/reproduce_thumos14.sh``) run by
+    ``bash`` as written, at full width (BNInception, the recipe's -b 16),
+    in ``d/recipe``: ``gen_proposal_list`` -> ``ssn_train`` RGB and Flow
+    (``$FLOW_INIT`` a seeded reference-format BNInception ``.pth``) ->
+    ``ssn_test`` RGB and Flow (the int8-e2e shared-stem default) ->
+    ``eval_detection_results`` fusing them 1:2. The dataset is
+    ``tests/recipe_db.py``'s: normalized THUMOS14 lists of 2 train and 2
+    test videos of 300 frames linking to the JPEG fixtures (20 train items
+    at ``--tem`` 10: one step of 16 an epoch, one validation batch). The
+    ``python`` shim first on ``PATH`` appends ``--epochs 1`` to
+    ``ssn_train`` and nothing else, runs each CLI in its own process and
+    prints its wall and launch counts: each training run must launch A1,
+    each scoring run K1-K3, each its JPEG decodes. The mAP of seeded
+    weights on 8 cycling frames means nothing; it is printed to show that
+    the pipeline ran. Returns each step's launches."""
+    import numpy as np
+    import torch
+
+    from tests.recipe_db import (map_row, recipe_steps, write_flow_init,
+                                 write_python_shim, write_recipe_db)
+
+    torch.cuda.empty_cache()    # the CLIs' processes share the card
+    work = os.path.join(d, "recipe")
+    frames = os.path.join(work, "frames")
+    write_recipe_db(work, frames, "thumos14", train_videos=2, test_videos=2,
+                    frames=300)
+    bin_dir = os.path.join(work, "bin")
+    write_python_shim(bin_dir, {("port", "ssn_train"): ["--epochs", "1"]})
+    flow_init = os.path.join(work, "flow_init.pth")
+    write_flow_init(flow_init, "BNInception", seed=12)
+    env = dict(os.environ, PATH=bin_dir + os.pathsep + os.environ["PATH"],
+               FLOW_INIT=flow_init)
+    env.pop("KINETICS", None)
+    script = os.path.join(ROOT, "action_detection_torch", "scripts",
+                          "reproduce_thumos14.sh")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", script, frames, "work"], cwd=work,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise AssertionError(f"recipe: exit {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    steps = recipe_steps(proc.stdout)
+    clis = [s["cli"] for s in steps]
+    want = ["gen_proposal_list", "ssn_train", "ssn_train", "ssn_test",
+            "ssn_test", "eval_detection_results"]
+    if clis != want:
+        raise AssertionError(f"recipe: steps {clis}, not {want}")
+    if "cross-modality first conv: 3 -> 10 channels" not in out:
+        raise AssertionError("recipe: the Flow run did not read FLOW_INIT")
+    paths = {}
+    for step, (key, expect) in zip(steps[1:5], (
+            ("recipe ssn_train RGB", ("max_pool_bwd",)),
+            ("recipe ssn_train Flow", ("max_pool_bwd",)),
+            ("recipe ssn_test RGB", ("int8_conv", "int8_max_pool",
+                                     "int8_avg_pool")),
+            ("recipe ssn_test Flow", ("int8_conv", "int8_max_pool",
+                                      "int8_avg_pool")))):
+        launches = step["launches"]
+        for k in expect + ("host_jpeg_decode",):
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} never launched on the {key} path")
+        paths[key] = dict(launches, wall_s=step["wall_s"])
+    for modality in ("rgb", "flow"):
+        check_pickle(os.path.join(work, "work", f"scores_{modality}.pkl"), 20)
+    for step in steps:
+        launches = {k: v for k, v in step.get("launches", {}).items() if v}
+        print(f"recipe: {step['cli']} {' '.join(step['argv'][:2])}: wall "
+              f"{step['wall_s']:.2f} s, launches {launches} ({smi})",
+              flush=True)
+    table = out[out.rindex("Detection Performance on thumos14"):]
+    print("recipe: " + "\nrecipe: ".join(table.splitlines()[:6]), flush=True)
+    row = map_row(proc.stdout)
+    if len(row) != 10 or not np.isfinite(row).all():
+        raise AssertionError(f"recipe: mAP row {row}")
+    print(f"recipe: reproduce_thumos14.sh ran end to end in {wall:.1f} s "
+          f"(seeded weights: the mAP means nothing) ({smi})", flush=True)
+    return paths
 
 
 def _ddp_setup(d: str, device: str):

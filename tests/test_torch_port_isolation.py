@@ -26,7 +26,12 @@ perlayer``), RGBDiff (the int8-e2e shared-stem scorer, ``ssn_train`` and
 parallel: ``ssn_train`` as two processes joined on gloo by the multi-host
 flags, each under the blocks. And one scores JPEG frame directories (links to
 the committed fixtures) through ``ssn_test`` on the port's decoder; its
-pickle equals that of the same run in the test process on PIL's decode."""
+pickle equals that of the same run in the test process on PIL's decode.
+One decodes the PNG, BMP and PNM fixtures and a directory of such frames
+and meets the orbax writer's refusal; one runs the twin THUMOS14 recipe
+with the blocks in every process it starts; and one reads the sources:
+no module of the port, no twin script and nothing ``chip_smoke.py``
+imports imports jax, PIL or the JAX package."""
 
 import os
 import subprocess
@@ -630,3 +635,143 @@ def test_jpeg_scoring_without_pil_equals_pil_frames(tmp_path, monkeypatch):
             np.testing.assert_array_equal(g, w)
     # one decode per RGB frame load: 24 ticks of 10 frames a video
     assert int(last.split()[1]) == len(loads) == 48
+
+
+FRAMES = BLOCK + textwrap.dedent("""
+    import hashlib, json, os, tempfile
+    import numpy as np
+    from action_detection_torch.data.image import decode_image
+    from action_detection_torch.data.jpeg import decode_jpeg
+    from action_detection_torch.data.pipeline import DirectoryFrameProvider
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+    from action_detection_torch.train.checkpoint import save_checkpoint_orbax
+    from tests.frame_encoders import bmp_bytes, png_rgb, ppm_rgb
+
+    root = os.path.join("tests", "fixtures", "torch_port_frames")
+    with open(os.path.join(root, "digests.json")) as f:
+        digests = json.load(f)
+    n = 0
+    for name, modes in digests.items():
+        for mode, want in modes.items():
+            a = decode_image(os.path.join(root, name), mode)
+            assert {"shape": list(a.shape), "sha256": hashlib.sha256(
+                a.tobytes()).hexdigest()} == want, (name, mode)
+            n += 1
+    jpegs = os.path.join("tests", "fixtures", "torch_port_jpeg")
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "v"))
+        for i, enc in enumerate((png_rgb, lambda a: bmp_bytes(a, 24),
+                                 ppm_rgb), 1):
+            rgb = decode_jpeg(os.path.join(jpegs, f"img_{i:05d}.jpg"))
+            with open(os.path.join(d, "v", f"img_{i:05d}.jpg"), "wb") as f:
+                f.write(enc(rgb))
+            got = DirectoryFrameProvider(d).load("v", i)[0]
+            assert np.array_equal(got, rgb), i
+        try:
+            save_checkpoint_orbax(os.path.join(d, "ck"), {}, np.zeros(4))
+        except ImportError as e:
+            assert "tensorstore" in str(e), e
+        else:
+            raise AssertionError("an orbax write without tensorstore")
+    counts = launch_counts()
+    assert [counts[f"host_{k}_decode"] for k in ("jpeg", "png", "bmp",
+                                                 "pnm")] == [3, 1, 1, 1], counts
+    leaked = sorted(m for m in BLOCKED if sys.modules.get(m) is not None)
+    assert not leaked, leaked
+    print("FRAMES-OK", n)
+""")
+
+
+def test_frame_formats_and_orbax_writer_without_jax_pil_tensorstore():
+    """The PNG, BMP and PNM decoder with PIL (and the rest) blocked: every
+    committed fixture to PIL's digests, a frame directory of PNG, BMP and
+    PPM files through ``DirectoryFrameProvider``, and the orbax writer's
+    refusal naming tensorstore."""
+    out = _run(FRAMES, **ONE_THREAD)
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("FRAMES-OK"), out
+    assert int(last.split()[1]) > 200
+
+
+def test_twin_recipe_without_jax_flax_yaml_pil(tmp_path):
+    """``action_detection_torch/scripts/reproduce_thumos14.sh`` run by
+    ``bash`` end to end (TinyConv on the CPU through the recipes' shim)
+    with jax, flax, yaml, PIL and the rest blocked in every Python process
+    it starts (a ``sitecustomize`` on ``PYTHONPATH``)."""
+    from tests.recipe_db import (recipe_steps, write_flow_init,
+                                 write_python_shim, write_recipe_db)
+
+    block_dir = tmp_path / "block"
+    block_dir.mkdir()
+    (block_dir / "sitecustomize.py").write_text(BLOCK)
+    work = str(tmp_path / "work")
+    write_recipe_db(work, str(tmp_path / "frames"), "thumos14")
+    small = ["--arch", "TinyConv", "--device", "cpu"]
+    write_python_shim(str(tmp_path / "bin"), {
+        ("port", "ssn_train"): small + ["--epochs", "1", "-b", "2", "--tem",
+                                        "1", "-j", "1"],
+        ("port", "ssn_test"): small + ["--frame_interval", "30"],
+        ("port", "eval_detection_results"): ["-j", "1"]},
+        rename=("BNInception", "TinyConv"))
+    write_flow_init(str(tmp_path / "flow_init.pth"), "TinyConv")
+    env = dict(os.environ, PYTHONPATH=f"{block_dir}{os.pathsep}{ROOT}",
+               PATH=f"{tmp_path / 'bin'}{os.pathsep}{os.environ['PATH']}",
+               FLOW_INIT=str(tmp_path / "flow_init.pth"), **ONE_THREAD)
+    proc = subprocess.run(
+        ["bash", os.path.join(ROOT, "action_detection_torch", "scripts",
+                              "reproduce_thumos14.sh"),
+         str(tmp_path / "frames")], cwd=work, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert [s["cli"] for s in recipe_steps(proc.stdout)] == [
+        "gen_proposal_list", "ssn_train", "ssn_train", "ssn_test",
+        "ssn_test", "eval_detection_results"]
+    assert os.path.isfile(os.path.join(work, "work_thumos14",
+                                       "scores_flow.pkl"))
+
+
+#: what no module of the port, no twin script and nothing chip_smoke.py
+#: imports may import
+FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL",
+           "action_detection_tpu")
+
+
+def test_port_scripts_and_chip_smoke_import_nothing_foreign():
+    """Every module of ``action_detection_torch``, ``chip_smoke.py`` and
+    the test helpers it imports (``tests/frame_encoders.py``,
+    ``tests/recipe_db.py``) import none of :data:`FOREIGN`, at any depth
+    of the file; the twin recipes call only the port's CLIs."""
+    import ast
+    import glob
+
+    files = (glob.glob(os.path.join(ROOT, "action_detection_torch", "**",
+                                    "*.py"), recursive=True)
+             + [os.path.join(ROOT, "chip_smoke.py"),
+                os.path.join(ROOT, "tests", "frame_encoders.py"),
+                os.path.join(ROOT, "tests", "recipe_db.py")])
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(
+                         node, ast.ImportFrom) and not node.level else [])
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in FOREIGN]
+    assert not bad, bad
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        smoke = f.read()
+    assert "tests.frame_encoders" in smoke and "tests.recipe_db" in smoke
+    for script in glob.glob(os.path.join(ROOT, "action_detection_torch",
+                                         "scripts", "*.sh")):
+        with open(script) as f:
+            text = f.read()
+        assert "action_detection_tpu" not in text, script
+        calls = [line.split()[1:3] for line in text.splitlines()
+                 if line.startswith("python ")]
+        assert calls and all(c[0] == "-m" and c[1].startswith(
+            "action_detection_torch.cli.") for c in calls), script

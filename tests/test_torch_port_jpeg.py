@@ -30,7 +30,8 @@ against PIL on the CPU, exactly (max |d| 0):
 * the port's ``DirectoryFrameProvider`` against the JAX package's, for
   RGB, Flow and RGBDiff, on baseline, progressive, arithmetic and CMYK
   frame directories, exactly;
-* the decoder's own library, its build failure and its launch counter.
+* the decoder's own library (``data/image.py`` builds it), its build
+  failure and its launch counter.
 
 ``python -m tests.test_torch_port_jpeg`` writes the fixtures anew (it builds
 ``transcode.cpp`` with g++ against libjpeg; the tests never do).
@@ -50,7 +51,7 @@ from PIL import Image
 from action_detection_tpu.data.pipeline import (
     DirectoryFrameProvider as JDirectoryFrameProvider)
 
-from action_detection_torch.data import jpeg
+from action_detection_torch.data import image
 from action_detection_torch.data.jpeg import decode_jpeg
 from action_detection_torch.data.pipeline import (DirectoryFrameProvider,
                                                   frame_template)
@@ -903,15 +904,17 @@ def test_directory_provider_matches_jax(tmp_path, modality, kind):
 
 
 def test_decoder_is_a_library_of_its_own(tmp_path):
-    """``libadt_jpeg`` builds into the given directory, with its log, apart
-    from ``libadt_native``; a second call reuses it."""
-    path = jpeg.build_jpeg(str(tmp_path))
-    assert os.path.basename(path).startswith("libadt_jpeg_")
+    """The decoder's library (``libadt_image``: the JPEG decoder and the
+    PNG, BMP and PNM one of ``data/image.py``) builds into the given
+    directory, with its log, apart from ``libadt_native``; a second call
+    reuses it."""
+    path = image.build_decoder(str(tmp_path))
+    assert os.path.basename(path).startswith("libadt_image_")
     assert os.path.isfile(path) and os.path.isfile(path + ".log")
     assert not any(f.startswith("libadt_native") for f in
                    os.listdir(tmp_path))
     mtime = os.path.getmtime(path)
-    assert jpeg.build_jpeg(str(tmp_path)) == path
+    assert image.build_decoder(str(tmp_path)) == path
     assert os.path.getmtime(path) == mtime
 
 
@@ -919,8 +922,8 @@ def test_broken_compiler_raises_importerror_naming_the_log(tmp_path,
                                                            monkeypatch):
     monkeypatch.setenv("CXX", "false")
     with pytest.raises(ImportError,
-                       match=r"JPEG decoder did not build \(log .*\.log\)"):
-        jpeg.build_jpeg(str(tmp_path))
+                       match=r"frame decoder did not build \(log .*\.log\)"):
+        image.build_decoder(str(tmp_path))
     assert not any(f.endswith(".so") for f in os.listdir(tmp_path))
 
 
