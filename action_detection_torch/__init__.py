@@ -34,8 +34,8 @@ Package layout (each module mirrors one module of action_detection_tpu):
                the fan-out over devices and cross-video packing
   parallel/    device selection, the process group, DDP wrapping, batch
                slices and metric means (data-parallel training)
-  utils/       meters and the device trace, the build paths, the native
-               host library
+  utils/       meters, the device trace and the scoring path's host spans,
+               the build paths, the native host library
   cli/         ssn_train, binary_train, ssn_test, binary_test,
                eval_detection_results, gen_bottom_up_proposals,
                gen_sliding_window_proposals, gen_proposal_list

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.meters import profiler, span_begin, span_end
 from .ssn_dataset import SSNDataset
 from .transforms import (Compose, GroupCenterCrop, GroupOverSample,
                          GroupScale, scale_frame, stack_images)
@@ -250,10 +251,16 @@ def iter_windowed_decode(jobs: Sequence, load_one: Callable,
                          executor: Optional[ThreadPoolExecutor],
                          window: int) -> Iterator:
     """Yield ``load_one(job)`` for each job in order, decoding up to ``window``
-    jobs ahead on ``executor``. Synchronous when executor is None."""
+    jobs ahead on ``executor``. Synchronous when executor is None. Under a
+    profiler, the consumer's wait for a job that is not decoded yet (the
+    whole ``load_one`` when synchronous) is a ``frames.wait`` span."""
     if executor is None:
         for job in jobs:
-            yield load_one(job)
+            sp = profiler._is_profiler_enabled and span_begin("frames.wait")
+            frames = load_one(job)
+            if sp:
+                span_end(sp)
+            yield frames
         return
     futures: dict = {}
     n = len(jobs)
@@ -261,7 +268,13 @@ def iter_windowed_decode(jobs: Sequence, load_one: Callable,
         for k in range(j, min(j + window, n)):
             if k not in futures:
                 futures[k] = executor.submit(load_one, jobs[k])
-        yield futures.pop(j).result()
+        future = futures.pop(j)
+        sp = (profiler._is_profiler_enabled and not future.done()
+              and span_begin("frames.wait"))
+        frames = future.result()
+        if sp:
+            span_end(sp)
+        yield frames
 
 
 def pad_chunk_ticks(chunk: np.ndarray, host_crops: int,

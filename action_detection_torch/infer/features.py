@@ -48,6 +48,7 @@ from ..models.backbones.quantize import (calibrate_e2e_backbone,
                                          int8_support_error, supports_int8,
                                          supports_shared_stem)
 from ..train.trainer import float32_convs_and_matmuls
+from ..utils.meters import profiler, span_begin, span_end
 
 
 def resolve_device(device) -> torch.device:
@@ -315,7 +316,9 @@ def fan_out(scorer_factory, devices: Sequence, items: Iterable,
     scorer a device (``scorer_factory(device)``, the first one built here)
     and one thread a device, that device current, taking items from one
     queue and calling ``score_item(scorer, item)``; the scorers are closed
-    at the end. Threads on one device share its default stream.
+    at the end. Threads on one device share its default stream. Under a
+    profiler each build is a ``score.build`` span and each item a
+    ``score.item`` span, of the item's index in ``items``.
 
     Lazy calibration election: when the first device's scorer would
     calibrate int8 on its first chunk and there are several devices, this
@@ -327,8 +330,8 @@ def fan_out(scorer_factory, devices: Sequence, items: Iterable,
     if not devices:
         raise RuntimeError("no device to score on")
     work: "queue.Queue" = queue.Queue()
-    for item in items:
-        work.put(item)
+    for i, item in enumerate(items):
+        work.put((i, item))
     errors: list = []
     lock = threading.Lock()
     shared = {"export": None}
@@ -339,9 +342,26 @@ def fan_out(scorer_factory, devices: Sequence, items: Iterable,
         except queue.Empty:
             return False, None
 
+    def build(device):
+        sp = profiler._is_profiler_enabled and span_begin("score.build")
+        try:
+            return scorer_factory(device)
+        finally:
+            if sp:
+                span_end(sp)
+
+    def score(scorer, job) -> None:
+        i, item = job
+        sp = profiler._is_profiler_enabled and span_begin("score.item", i)
+        try:
+            score_item(scorer, item)
+        finally:
+            if sp:
+                span_end(sp)
+
     def drain(scorer) -> None:
         while not errors:
-            more, item = next_item()
+            more, job = next_item()
             if not more:
                 return
             if scorer.needs_lazy_calibration:
@@ -349,17 +369,17 @@ def fan_out(scorer_factory, devices: Sequence, items: Iterable,
                     if shared["export"] is None:
                         # until an export exists, a concurrent score would
                         # calibrate scales of its own
-                        score_item(scorer, item)
+                        score(scorer, job)
                         shared["export"] = scorer.export_quantized()
                         continue
                     scorer.install_prequantized(shared["export"])
-            score_item(scorer, item)
+            score(scorer, job)
 
     def worker(device, scorer=None) -> None:
         try:
             with on_device(device):
                 if scorer is None:
-                    scorer = scorer_factory(device)
+                    scorer = build(device)
                 try:
                     drain(scorer)
                 finally:
@@ -369,14 +389,14 @@ def fan_out(scorer_factory, devices: Sequence, items: Iterable,
                 errors.append(e)
 
     with on_device(devices[0]):
-        first = scorer_factory(devices[0])
+        first = build(devices[0])
         try:
             while (len(devices) > 1 and first.needs_lazy_calibration
                    and shared["export"] is None):
-                more, item = next_item()
+                more, job = next_item()
                 if not more:
                     break
-                score_item(first, item)
+                score(first, job)
                 # a zero-tick video scores no chunk: go on
                 shared["export"] = first.export_quantized()
         except BaseException:

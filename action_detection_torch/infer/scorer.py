@@ -22,6 +22,10 @@
   first chunk is elected once and shared, so the scores do not depend on
   the device count. ``make_sharded_frame_scorer`` splits one video's frames
   over the devices instead.
+* Under a profiler the scoring thread's host work is recorded as spans
+  (``utils/meters.py``): per chunk ``chunk.stack`` (building it),
+  ``chunk.h2d`` (the pageable copy) and ``chunk.launch`` (enqueueing the
+  model step); per work item ``pack.finish`` (pooling and readback).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..models.backbones import InputSpec
 from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
                         reorganized_stpp_pool)
+from ..utils.meters import profiler, span_begin, span_end
 from .features import CropFeatureScorer, fan_out, on_device
 
 #: videos a ``--pack`` work item holds (bounds the host memory of a pack)
@@ -125,10 +130,23 @@ class ProposalScorer(CropFeatureScorer):
         Crops are mean-reduced on *features* before the fused FC — identical
         by linearity.
         """
+        sp = profiler._is_profiler_enabled and span_begin("chunk.launch")
         feats = self._crop_features(frames_u8)
         with torch.no_grad():
             feats = feats.reshape(self.test_crops, n_stacks, -1).mean(dim=0)
-            return torch.matmul(feats, self._kernel) + self._bias
+            scores = torch.matmul(feats, self._kernel) + self._bias
+        if sp:
+            span_end(sp)
+        return scores
+
+    def _to_device(self, chunk: np.ndarray) -> torch.Tensor:
+        """A host chunk on the device (a pageable copy, which waits for the
+        stream)."""
+        sp = profiler._is_profiler_enabled and span_begin("chunk.h2d")
+        frames = torch.from_numpy(chunk).to(self.device)
+        if sp:
+            span_end(sp)
+        return frames
 
     # --- host orchestration ---
 
@@ -158,17 +176,24 @@ class ProposalScorer(CropFeatureScorer):
         filled = 0
         for chunk in chunks:
             n_real = chunk.shape[0] // host_crops
+            sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
             chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
-            frames = torch.from_numpy(chunk).to(self.device)
-            out_chunks.append(self._score_chunk(frames, self.chunk_frames))
+            if sp:
+                span_end(sp)
+            out_chunks.append(self._score_chunk(self._to_device(chunk),
+                                                self.chunk_frames))
             filled += n_real
             self.device_ticks += self.chunk_frames
             self.real_ticks += n_real
         if filled != T:
             raise RuntimeError(f"scored {filled} of {T} ticks of "
                                f"{sample.video_id}")
-        return self._pool_video(sample, torch.cat(out_chunks, dim=0), T,
-                                keep_raw=keep_raw)
+        sp = profiler._is_profiler_enabled and span_begin("pack.finish")
+        out = self._pool_video(sample, torch.cat(out_chunks, dim=0), T,
+                               keep_raw=keep_raw)
+        if sp:
+            span_end(sp)
+        return out
 
     def _pool_video(self, sample: TestSample, frame_scores: torch.Tensor,
                     T: int, keep_raw: bool = False) -> ScoredVideo:
@@ -221,10 +246,13 @@ class ProposalScorer(CropFeatureScorer):
         pending = []        # (chunk scores on the device, [(video, row)])
 
         def flush(buf) -> None:
+            sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
             chunk = pad_chunk_ticks(np.stack([a for _, _, a in buf]), 1,
                                     self.chunk_frames)
-            scores = self._score_chunk(torch.from_numpy(chunk).to(
-                self.device), self.chunk_frames)
+            if sp:
+                span_end(sp)
+            scores = self._score_chunk(self._to_device(chunk),
+                                       self.chunk_frames)
             self.device_ticks += self.chunk_frames
             self.real_ticks += len(buf)
             pending.append((scores, [(si, row) for si, row, _ in buf]))
@@ -243,6 +271,7 @@ class ProposalScorer(CropFeatureScorer):
             return [self._empty_scored(s, keep_raw=keep_raw)
                     for s in samples]
 
+        sp = profiler._is_profiler_enabled and span_begin("pack.finish")
         row_of = {key: ci * self.chunk_frames + r
                   for ci, (_, keys) in enumerate(pending)
                   for r, key in enumerate(keys)}
@@ -264,6 +293,8 @@ class ProposalScorer(CropFeatureScorer):
                 mat = all_scores.index_select(
                     0, torch.from_numpy(idx).to(self.device))
             outs.append(self._pool_video(s, mat, T, keep_raw=keep_raw))
+        if sp:
+            span_end(sp)
         return outs
 
 

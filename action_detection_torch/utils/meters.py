@@ -1,18 +1,33 @@
-"""Training observability: meters, timers, step timing and a device trace.
+"""Observability: meters, step timing, a device trace and host spans.
 
 Port of ``action_detection_tpu/utils/meters.py``: ``AverageMeter`` and
-``MeterBank`` give the reference's ``val (avg)`` print style; ``Timer``
-accumulates wall clock. :class:`StepTimer` times each train step on the
-device (CUDA events, read once at the end; the host clock on the CPU), and
-:func:`device_trace` writes a ``torch.profiler`` trace (``--trace_dir``).
+``MeterBank`` give the reference's ``val (avg)`` print style.
+:class:`StepTimer` times each train step on the device (CUDA events, read
+once at the end; the host clock on the CPU), and :func:`device_trace`
+writes a ``torch.profiler`` trace (``--trace_dir``).
+
+Spans (:func:`span_begin`, :func:`span_end`, :func:`spans_between`) time
+the host's work at the scoring path's layer boundaries: ``score.build``
+and ``score.item`` (``infer/features.py:fan_out``), ``frames.wait``
+(``data/pipeline.py:iter_windowed_decode``), ``chunk.stack``,
+``chunk.h2d``, ``chunk.launch`` and ``pack.finish``
+(``infer/scorer.py``). They are recorded only while a torch profiler is
+active in the process: a span site reads ``profiler._is_profiler_enabled``
+(torch's own flag) and does nothing more when it is False. Their clock is
+``time.time_ns()``, the clock of the profiler's events, so a span and the
+device activity it caused line up on one time axis.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+from torch.autograd import profiler
 
 
 class AverageMeter:
@@ -54,28 +69,6 @@ class MeterBank:
         keys = keys or list(self._meters)
         return " ".join(f"{k} {self._meters[k]:{fmt}}" for k in keys
                         if k in self._meters)
-
-
-class Timer:
-    """Accumulating wall-clock timer usable as a context manager."""
-
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.total += time.perf_counter() - self._t0
-        self.count += 1
-        self._t0 = None
-
-    @property
-    def avg(self) -> float:
-        return self.total / max(self.count, 1)
 
 
 class StepTimer:
@@ -141,3 +134,69 @@ def device_trace(log_dir: Optional[str]):
             else "self_cpu_time_total")
     with open(os.path.join(log_dir, "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=60))
+
+
+class Span(NamedTuple):
+    """One recorded span: ``parent`` is the ``id`` of the span that was
+    open on the same thread when it began, ``item`` the index of the
+    fan-out's work item it served (None outside one)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: Optional[int]
+    item: Optional[int]
+    id: int
+
+
+#: every span recorded in the process, in the order they ended, as the
+#: plain tuples of :class:`Span`'s fields (cheaper to make)
+_SPANS: List[tuple] = []
+_ids = itertools.count()
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack: List[tuple] = []
+
+
+_open = _OpenSpans()
+
+
+def span_begin(name: str, item: Optional[int] = None) -> tuple:
+    """Open the span ``name`` on this thread; its work item is ``item``, or
+    else its parent's. Call it only where ``profiler._is_profiler_enabled``
+    holds, and hand what it returns to :func:`span_end`::
+
+        sp = profiler._is_profiler_enabled and span_begin("chunk.h2d")
+        ...
+        if sp:
+            span_end(sp)
+    """
+    stack = _open.stack
+    parent = stack[-1] if stack else None
+    if item is None and parent is not None:
+        item = parent[3]
+    sp = (name, next(_ids), parent[1] if parent else None, item,
+          time.time_ns())
+    stack.append(sp)
+    return sp
+
+
+def span_end(sp: tuple) -> None:
+    """Close ``sp`` (and any span opened inside it that an exception left
+    open) and record it."""
+    end = time.time_ns()
+    stack = _open.stack
+    while stack and stack.pop() is not sp:
+        pass
+    name, sid, parent, item, start = sp
+    _SPANS.append((name, start, end, threading.get_ident(), parent, item,
+                   sid))
+
+
+def spans_between(lo_ns: int, hi_ns: int) -> List[Span]:
+    """The recorded spans that lie within ``[lo_ns, hi_ns]`` (nanoseconds
+    of ``time.time_ns()``)."""
+    return [Span._make(s) for s in list(_SPANS)
+            if s[1] >= lo_ns and s[2] <= hi_ns]
