@@ -3,6 +3,8 @@
 // (action_detection_torch/utils/native.py). The same functions as
 // native/adt_native.cpp of the JAX package, kept as the port's own copy.
 // The numpy bodies in ops/nms.py and ops/tag.py are their plain versions.
+// Besides, the row gather that builds a scoring chunk in its staging slot
+// (infer/scorer.py); utils/native.py:gather_rows_plain is its plain version.
 //
 // Build (done by utils/native.py at first use, into _build/):
 //   g++ -O2 -std=c++17 -shared -fPIC -o libadt_native_<hash>.so adt_native.cpp
@@ -10,6 +12,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <numeric>
 #include <vector>
 
@@ -137,6 +140,17 @@ int64_t adt_tag_box_search(const int64_t* labels, const double* scores,
     }
   }
   return rows;
+}
+
+// Row gather: rows[i] (row_bytes each) copied to dst + i * row_bytes, for
+// i < n. One call builds a whole chunk, so the caller's thread gives up
+// Python's GIL once for it, not once a row. Returns n.
+int64_t adt_gather_rows(uint8_t* dst, const uint8_t* const* rows, int64_t n,
+                        int64_t row_bytes) {
+  for (int64_t i = 0; i < n; ++i) {
+    std::memcpy(dst + i * row_bytes, rows[i], static_cast<size_t>(row_bytes));
+  }
+  return n;
 }
 
 }  // extern "C"

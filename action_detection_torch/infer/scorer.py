@@ -22,14 +22,20 @@
   first chunk is elected once and shared, so the scores do not depend on
   the device count. ``make_sharded_frame_scorer`` splits one video's frames
   over the devices instead.
+* A chunk is built in a slot of the scorer's :class:`StagingRing`, reused
+  host buffers (pinned on a CUDA device; a packed chunk's rows gathered
+  in one native call, ``utils/native.py:gather_rows``), and copied from
+  it on a copy stream of the ring's own, which the model step waits on.
 * Under a profiler the scoring thread's host work is recorded as spans
-  (``utils/meters.py``): per chunk ``chunk.stack`` (building it),
-  ``chunk.h2d`` (the pageable copy) and ``chunk.launch`` (enqueueing the
-  model step); per work item ``pack.finish`` (pooling and readback).
+  (``utils/meters.py``): per chunk ``chunk.stack`` (building it in its
+  slot), ``chunk.h2d`` (enqueueing its copy) and ``chunk.launch``
+  (enqueueing the model step); per work item ``pack.finish`` (pooling and
+  readback).
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import threading
@@ -47,10 +53,111 @@ from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
                         reorganized_stpp_pool)
 from ..utils.meters import profiler, span_begin, span_end
+from ..utils.native import gather_rows
 from .features import CropFeatureScorer, fan_out, on_device
 
 #: videos a ``--pack`` work item holds (bounds the host memory of a pack)
 PACK_GROUP = 16
+#: slots of a staging ring, per chunk shape: one is filled while the
+#: other's copy is in flight, and that copy (0.34 ms for a 16.7 MB chunk
+#: on an H100) ends long before its slot is written again, a chunk (15 ms
+#: or more) later
+STAGING_SLOTS = 2
+
+
+@dataclasses.dataclass
+class StagingSlot:
+    """A reused host buffer of a :class:`StagingRing`: ``host`` (pinned
+    for a CUDA device), ``array`` its numpy view, ``key`` its shape and
+    dtype, and ``event`` the event of its last copy until the host has
+    waited on it."""
+    host: torch.Tensor
+    array: np.ndarray
+    key: tuple
+    event: object = None
+
+
+def _wait(slot: StagingSlot) -> None:
+    if slot.event is not None:
+        slot.event.synchronize()
+        slot.event = None
+
+
+class StagingRing:
+    """The host buffers a scorer's chunks reach its device from.
+
+    Each chunk shape and dtype gets :data:`STAGING_SLOTS` slots, made on
+    its first chunk and used in turn. On a CUDA device the slots are
+    pinned and copied with ``non_blocking`` on the ring's own copy stream:
+    the compute stream waits on the copy's event, and the device tensor is
+    recorded on the compute stream, so the caching allocator does not hand
+    its memory out while the model step may still read it. On the CPU a
+    slot is a plain tensor and its copy a clone.
+
+    The host never writes a slot whose last copy may still be in flight:
+    :meth:`take` waits on that copy's event, and :meth:`send` has already
+    waited for the next slot of its key, so the wait falls in the copy's
+    enqueue. ``staged`` counts the chunks sent, ``allocated`` the slots
+    made; both outlive :meth:`release`.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+        self._rings: Dict[tuple, collections.deque] = {}
+        self.staged = 0
+        self.allocated = 0
+
+    def take(self, shape, dtype) -> StagingSlot:
+        """The slot that the next chunk of ``shape`` and ``dtype`` is to be
+        written into, its last copy done."""
+        key = (tuple(shape), np.dtype(dtype))
+        ring = self._rings.get(key)
+        if ring is None:
+            torch_dtype = torch.from_numpy(np.empty(0, key[1])).dtype
+            ring = self._rings[key] = collections.deque()
+            for _ in range(STAGING_SLOTS):
+                host = torch.empty(key[0], dtype=torch_dtype,
+                                   pin_memory=self._stream is not None)
+                ring.append(StagingSlot(host, host.numpy(), key))
+            self.allocated += STAGING_SLOTS
+        slot = ring[0]
+        _wait(slot)
+        return slot
+
+    def send(self, slot: StagingSlot) -> torch.Tensor:
+        """``slot``, the one :meth:`take` gave last for its key, copied to
+        the device (enqueued, on a CUDA device); the next slot of its key
+        is free to write on return."""
+        ring = self._rings[slot.key]
+        if ring[0] is not slot:
+            raise ValueError("a staging slot is sent in the order taken")
+        frames, slot.event = self._copy(slot.host)
+        self.staged += 1
+        ring.rotate(-1)
+        _wait(ring[0])
+        return frames
+
+    def _copy(self, host: torch.Tensor):
+        """``host`` on the device, and the event that marks the copy's end
+        (None where the copy has ended on return)."""
+        if self._stream is None:
+            return host.clone(), None
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            frames = host.to(self.device, non_blocking=True)
+            event = self._stream.record_event()
+        compute.wait_event(event)
+        frames.record_stream(compute)
+        return frames, event
+
+    def release(self) -> None:
+        """Give the slots back (after their copies), keeping the counts."""
+        for ring in self._rings.values():
+            for slot in ring:
+                _wait(slot)
+        self._rings.clear()
 
 
 @dataclasses.dataclass
@@ -120,6 +227,14 @@ class ProposalScorer(CropFeatureScorer):
             act_len=K + 1, comp_len=K, reg_len=2 * K,
             feat_multiplier=self.stpp.feat_multiplier,
             with_regression=with_regression)
+        #: the host buffers chunks are built in and copied from
+        self.staging = StagingRing(self.device)
+
+    def close(self) -> None:
+        """Shut down the decode pool it owns and give back the staging
+        slots (idempotent)."""
+        super().close()
+        self.staging.release()
 
     def _score_chunk(self, frames_u8: torch.Tensor,
                      n_stacks: int) -> torch.Tensor:
@@ -139,11 +254,11 @@ class ProposalScorer(CropFeatureScorer):
             span_end(sp)
         return scores
 
-    def _to_device(self, chunk: np.ndarray) -> torch.Tensor:
-        """A host chunk on the device (a pageable copy, which waits for the
-        stream)."""
+    def _to_device(self, slot: StagingSlot) -> torch.Tensor:
+        """A chunk built in ``slot`` on the device: a copy enqueued on the
+        staging ring's copy stream, which the compute stream waits for."""
         sp = profiler._is_profiler_enabled and span_begin("chunk.h2d")
-        frames = torch.from_numpy(chunk).to(self.device)
+        frames = self.staging.send(slot)
         if sp:
             span_end(sp)
         return frames
@@ -178,9 +293,11 @@ class ProposalScorer(CropFeatureScorer):
             n_real = chunk.shape[0] // host_crops
             sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
             chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
+            slot = self.staging.take(chunk.shape, chunk.dtype)
+            slot.array[...] = chunk
             if sp:
                 span_end(sp)
-            out_chunks.append(self._score_chunk(self._to_device(chunk),
+            out_chunks.append(self._score_chunk(self._to_device(slot),
                                                 self.chunk_frames))
             filled += n_real
             self.device_ticks += self.chunk_frames
@@ -247,11 +364,14 @@ class ProposalScorer(CropFeatureScorer):
 
         def flush(buf) -> None:
             sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
-            chunk = pad_chunk_ticks(np.stack([a for _, _, a in buf]), 1,
-                                    self.chunk_frames)
+            tick = buf[0][2]
+            slot = self.staging.take((self.chunk_frames,) + tick.shape,
+                                     tick.dtype)
+            gather_rows(slot.array, [a for _, _, a in buf])
+            slot.array[len(buf):] = 0       # a partial chunk's padding
             if sp:
                 span_end(sp)
-            scores = self._score_chunk(self._to_device(chunk),
+            scores = self._score_chunk(self._to_device(slot),
                                        self.chunk_frames)
             self.device_ticks += self.chunk_frames
             self.real_ticks += len(buf)

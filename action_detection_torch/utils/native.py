@@ -1,5 +1,6 @@
 """ctypes bindings to the port's C++ host kernels (``csrc/adt_native.cpp``):
-greedy temporal NMS and the TAG box search.
+greedy temporal NMS, the TAG box search, and the row gather that builds a
+scoring chunk in its staging slot (``infer/scorer.py``).
 
 The library builds at first call, not at import, with one
 ``g++ -O2 -std=c++17 -shared -fPIC`` (``$CXX`` picks another compiler) into
@@ -7,12 +8,13 @@ The library builds at first call, not at import, with one
 command. A failed build raises ``ImportError`` with the compiler's log, which
 is also kept beside the library as ``<library>.log``: nothing falls back to
 numpy. The numpy bodies in ``ops/nms.py`` and ``ops/tag.py``
-(``temporal_nms_indices_plain``, ``tag_box_search_plain``) are the plain
-versions the tests hold these against.
+(``temporal_nms_indices_plain``, ``tag_box_search_plain``) and
+:func:`gather_rows_plain` are the plain versions the tests hold these
+against.
 
 Each wrapper adds one to its ``launches`` where it calls into the library
-(``kernels.launch_counts()`` lists them as ``host_nms`` and
-``host_tag_search``).
+(``kernels.launch_counts()`` lists them as ``host_nms``,
+``host_tag_search`` and ``host_gather_rows``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ SIGNATURES = {
                          _L],
     # labels, scores, length, up, down, n_up, tol, n_tol, out, capacity_rows
     "adt_tag_box_search": [_L, _D, _I64, _L, _L, _I64, _D, _I64, _D, _I64],
+    # dst, row pointers, n, row_bytes
+    "adt_gather_rows": [ctypes.c_void_p, ctypes.c_void_p, _I64, _I64],
 }
 
 
@@ -104,5 +108,37 @@ def tag_box_search(labels, scores, up, down, tol) -> np.ndarray:
     return out[:rows].copy()
 
 
+def gather_rows(out: np.ndarray, rows) -> None:
+    """``out[i] = rows[i]`` for each row (a partial ``out`` keeps its other
+    rows), in one call with the GIL released: a copy a row through numpy
+    gives the GIL up and takes it back once a row, and the decode pool's
+    threads take it in between. Each row has ``out``'s row shape and
+    dtype (others raise ``ValueError``); ``out`` is C-contiguous."""
+    if not (isinstance(out, np.ndarray) and out.flags.c_contiguous
+            and out.flags.writeable):
+        raise ValueError("gather_rows: out is not a writeable C-contiguous "
+                         "array")
+    if len(rows) > out.shape[0]:
+        raise ValueError(f"gather_rows: {len(rows)} rows into "
+                         f"{out.shape[0]}")
+    rows = [np.ascontiguousarray(r) for r in rows]
+    for r in rows:
+        if r.shape != out.shape[1:] or r.dtype != out.dtype:
+            raise ValueError(f"gather_rows: a row of {r.shape} {r.dtype} "
+                             f"into rows of {out.shape[1:]} {out.dtype}")
+    ptrs = (ctypes.c_void_p * len(rows))(*[r.ctypes.data for r in rows])
+    lib = load_native()
+    gather_rows.launches += 1
+    lib.adt_gather_rows(out.ctypes.data, ptrs, len(rows),
+                        out[0].nbytes if len(out) else 0)
+
+
+def gather_rows_plain(out: np.ndarray, rows) -> None:
+    """:func:`gather_rows`'s plain version: one numpy copy a row."""
+    for i, r in enumerate(rows):
+        out[i] = r
+
+
 nms_indices.launches = 0
 tag_box_search.launches = 0
+gather_rows.launches = 0
