@@ -344,6 +344,15 @@ def get_train_augmentation(input_size: int, modality: str) -> Compose:
     raise ValueError(f"unknown modality {modality}")
 
 
+@functools.lru_cache(maxsize=64)
+def _channel_stats(values: tuple, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once: a copy from the host
+    cannot be captured into a CUDA graph (``infer/step_graph.py``), so the
+    step's warm-up makes it and every captured step reads it."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
+
+
 def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,
                     div255: bool = False, channels_per_image: int = 3,
                     dtype: torch.dtype = None) -> torch.Tensor:
@@ -362,8 +371,8 @@ def normalize_stack(frames: torch.Tensor, mean, std, bgr: bool = False,
         x = x.reshape(x.shape[:-1] + (n_img, channels_per_image))
         x = x.flip(-1)
         x = x.reshape(x.shape[:-2] + (c_total,))
-    mean = torch.as_tensor(mean, dtype=dtype, device=x.device)
-    std = torch.as_tensor(std, dtype=dtype, device=x.device)
+    mean = _channel_stats(tuple(float(v) for v in mean), dtype, x.device)
+    std = _channel_stats(tuple(float(v) for v in std), dtype, x.device)
     mean = mean.repeat(c_total // mean.shape[0])
     std = std.repeat(c_total // std.shape[0])
     return (x - mean) / std

@@ -25,7 +25,14 @@
 * A chunk is built in a slot of the scorer's :class:`StagingRing`, reused
   host buffers (pinned on a CUDA device; a packed chunk's rows gathered
   in one native call, ``utils/native.py:gather_rows``), and copied from
-  it on a copy stream of the ring's own, which the model step waits on.
+  it on its device's copy stream, which the model step waits on.
+* On a CUDA device with the calibrated int8-e2e backbone the model step
+  of a chunk key (shape, dtype) runs eagerly on the key's first chunk,
+  which warms cuDNN and cuBLAS up, is captured as one CUDA graph before
+  the second, and is replayed from then on (``infer/step_graph.py``): each
+  chunk is copied into the graph's static input, and its scores are a
+  clone of the static output. Elsewhere (the CPU, ``perlayer``, the float
+  backbones, a scorer still to calibrate) the step stays eager.
 * Under a profiler the scoring thread's host work is recorded as spans
   (``utils/meters.py``): per chunk ``chunk.stack`` (building it in its
   slot), ``chunk.h2d`` (enqueueing its copy) and ``chunk.launch``
@@ -48,6 +55,7 @@ from ..data.pipeline import (iter_windowed_decode, load_scaled_stack,
                              pad_chunk_ticks)
 from ..data.ssn_dataset import SSNDataset, TestSample
 from ..data.transforms import preprocess_frames
+from ..kernels import add_launch_counts, tally_launches
 from ..models.backbones import InputSpec
 from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
@@ -55,6 +63,7 @@ from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
 from ..utils.meters import profiler, span_begin, span_end
 from ..utils.native import gather_rows
 from .features import CropFeatureScorer, fan_out, on_device
+from .step_graph import CudaStepGraph
 
 #: videos a ``--pack`` work item holds (bounds the host memory of a pack)
 PACK_GROUP = 16
@@ -63,6 +72,12 @@ PACK_GROUP = 16
 #: on an H100) ends long before its slot is written again, a chunk (15 ms
 #: or more) later
 STAGING_SLOTS = 2
+#: per CUDA device: the stream its staging rings copy on, one a device: the
+#: caching allocator hands a freed block out again only on the stream that
+#: allocated it, so with a stream a ring no later scorer would reuse the
+#: blocks of a scorer's chunks
+_COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_COPY_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -77,6 +92,15 @@ class StagingSlot:
     event: object = None
 
 
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _COPY_LOCK:
+        if device not in _COPY_STREAMS:
+            _COPY_STREAMS[device] = torch.cuda.Stream(device)
+        return _COPY_STREAMS[device]
+
+
 def _wait(slot: StagingSlot) -> None:
     if slot.event is not None:
         slot.event.synchronize()
@@ -88,7 +112,7 @@ class StagingRing:
 
     Each chunk shape and dtype gets :data:`STAGING_SLOTS` slots, made on
     its first chunk and used in turn. On a CUDA device the slots are
-    pinned and copied with ``non_blocking`` on the ring's own copy stream:
+    pinned and copied with ``non_blocking`` on the device's copy stream:
     the compute stream waits on the copy's event, and the device tensor is
     recorded on the compute stream, so the caching allocator does not hand
     its memory out while the model step may still read it. On the CPU a
@@ -103,7 +127,7 @@ class StagingRing:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+        self._stream = (_copy_stream(device) if device.type == "cuda"
                         else None)
         self._rings: Dict[tuple, collections.deque] = {}
         self.staged = 0
@@ -175,9 +199,26 @@ class ScoredVideo:
                 self.reg_scores)
 
 
+@dataclasses.dataclass
+class CapturedStep:
+    """A chunk key's model step as a CUDA graph: ``static_in``, which each
+    chunk is copied into, ``static_out``, which each replay rewrites, and
+    ``launches``, the counted kernel launches (by counter) of one replay."""
+    graph: object
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: Dict[str, int]
+
+
 class ProposalScorer(CropFeatureScorer):
     """Holds the fused test FC, the (quantized) backbone and the decode pool
     (the feature step is :class:`~.features.CropFeatureScorer`'s)."""
+
+    #: ``device ->`` a graph to capture a model step into
+    #: (``capture(step)``, which returns the step's output, and ``replay()``)
+    graph_factory = CudaStepGraph
+    #: the device types whose scorers replay their model steps as graphs
+    graph_devices = ("cuda",)
 
     def __init__(self, model: SSN, input_spec: InputSpec,
                  reg_stats: Optional[np.ndarray] = None,
@@ -229,30 +270,76 @@ class ProposalScorer(CropFeatureScorer):
             with_regression=with_regression)
         #: the host buffers chunks are built in and copied from
         self.staging = StagingRing(self.device)
+        #: model steps captured as CUDA graphs, and chunks scored by a
+        #: replay; both outlive :meth:`close`
+        self.graph_captures = 0
+        self.graph_replays = 0
+        # by chunk key: its captured step, or None after its first chunk
+        self._steps: Dict[tuple, Optional[CapturedStep]] = {}
 
     def close(self) -> None:
-        """Shut down the decode pool it owns and give back the staging
-        slots (idempotent)."""
+        """Shut down the decode pool it owns, give back the staging slots
+        and drop the captured steps, whose memory the device's later graphs
+        reuse (idempotent)."""
         super().close()
         self.staging.release()
+        self._steps.clear()
 
     def _score_chunk(self, frames_u8: torch.Tensor,
                      n_stacks: int) -> torch.Tensor:
         """uint8 frames on the device (``(n_stacks, H_scale, W_scale, C)``,
         or ``test_crops * n_stacks`` host crops) -> ``(n_stacks, D)``
-        crop-mean fused scores.
-
-        Crops are mean-reduced on *features* before the fused FC — identical
-        by linearity.
-        """
+        crop-mean fused scores: the model step, replayed as its chunk key's
+        CUDA graph where it can be (the module's docstring)."""
         sp = profiler._is_profiler_enabled and span_begin("chunk.launch")
-        feats = self._crop_features(frames_u8)
-        with torch.no_grad():
-            feats = feats.reshape(self.test_crops, n_stacks, -1).mean(dim=0)
-            scores = torch.matmul(feats, self._kernel) + self._bias
+        if (self.device.type in self.graph_devices
+                and self._quantize_mode == "e2e"
+                and not self.needs_lazy_calibration):
+            scores = self._graph_step(frames_u8, n_stacks)
+        else:
+            scores = self._model_step(frames_u8, n_stacks)
         if sp:
             span_end(sp)
         return scores
+
+    def _model_step(self, frames_u8: torch.Tensor,
+                    n_stacks: int) -> torch.Tensor:
+        """The model step, eager. Crops are mean-reduced on *features*
+        before the fused FC — identical by linearity."""
+        feats = self._crop_features(frames_u8)
+        with torch.no_grad():
+            feats = feats.reshape(self.test_crops, n_stacks, -1).mean(dim=0)
+            return torch.matmul(feats, self._kernel) + self._bias
+
+    def _graph_step(self, frames_u8: torch.Tensor,
+                    n_stacks: int) -> torch.Tensor:
+        """The model step as its key's graph: eager on the key's first
+        chunk, captured on its second, replayed from then on."""
+        key = (tuple(frames_u8.shape), frames_u8.dtype, n_stacks)
+        if key not in self._steps:
+            self._steps[key] = None
+            return self._model_step(frames_u8, n_stacks)
+        step = self._steps[key] or self._capture(key, frames_u8, n_stacks)
+        step.static_in.copy_(frames_u8)
+        step.graph.replay()
+        add_launch_counts(step.launches)
+        self.graph_replays += 1
+        # a later replay rewrites the static output
+        return step.static_out.clone()
+
+    def _capture(self, key: tuple, frames_u8: torch.Tensor,
+                 n_stacks: int) -> CapturedStep:
+        """Capture the model step of ``key``; the launches it counts go to
+        its tally, which each replay adds to the counters."""
+        graph = self.graph_factory(self.device)
+        static_in = torch.empty_like(frames_u8)
+        with tally_launches() as launches:
+            static_out = graph.capture(
+                lambda: self._model_step(static_in, n_stacks))
+        step = CapturedStep(graph, static_in, static_out, launches)
+        self._steps[key] = step
+        self.graph_captures += 1
+        return step
 
     def _to_device(self, slot: StagingSlot) -> torch.Tensor:
         """A chunk built in ``slot`` on the device: a copy enqueued on the

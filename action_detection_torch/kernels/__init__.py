@@ -10,9 +10,10 @@ directories calls."""
 
 from ..data.image import DECODES
 from ..utils.native import gather_rows, nms_indices, tag_box_search
-from .int8 import (int8_avg_pool, int8_avg_pool_exclude_pad,
-                   int8_avg_pool_plain, int8_conv, int8_conv_plain,
-                   int8_max_pool, int8_max_pool_plain)
+from .int8 import (COUNT_LOCK, count_launch, int8_avg_pool,
+                   int8_avg_pool_exclude_pad, int8_avg_pool_plain, int8_conv,
+                   int8_conv_plain, int8_max_pool, int8_max_pool_plain,
+                   tally_launches)
 from .pool_bwd import max_pool_bwd, max_pool_bwd_plain
 
 #: every counted wrapper by its counter's name; each adds one to its
@@ -36,3 +37,11 @@ def launch_counts() -> dict:
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts["max_pool_bwd/bf16"] = max_pool_bwd.bf16_launches
     return counts
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (by counter name; negative to take launches back) to
+    the counters: the launches a replayed CUDA graph made once more."""
+    with COUNT_LOCK:
+        for name, n in counts.items():
+            KERNELS[name].launches += n

@@ -41,7 +41,9 @@ and to ``_ForwardOps._conv_layer``, ``max_pool`` and ``avg_pool_same`` of
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import threading
 from typing import Optional, Tuple, Union
 
 import torch
@@ -233,6 +235,38 @@ def _check_launch(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+#: guards the counters' ``+=`` (a ``fan_out``'s scorers launch from threads
+#: of their own)
+COUNT_LOCK = threading.Lock()
+# per thread: the tally of the CUDA graph it captures, if it captures one
+_capturing = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """One launch more of ``wrapper``: on its ``launches``, or on the tally
+    of :func:`tally_launches` while this thread captures a CUDA graph."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        with COUNT_LOCK:
+            wrapper.launches += 1
+    else:
+        tally[wrapper.__name__] = tally.get(wrapper.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within it, this thread's launches are counted in the dict it yields
+    (by counter name) and not on the counters: a CUDA graph's capture runs
+    nothing on the card, and each of its replays adds the tally
+    (``kernels.add_launch_counts``). Other threads count as before."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
 def int8_conv_refusal(x: torch.Tensor, w: torch.Tensor) -> Optional[str]:
     """Why K1 on the card would refuse these operands, or None: it needs
     ``C % 16 == 0``, an NHWC ``x`` (or a channel slice of one) whose pixel
@@ -312,7 +346,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             Ho, Wo, plan.bn, int(out_dtype == torch.bfloat16),
             _stream_ptr())
     _check_launch(rc, "int8_conv")
-    int8_conv.launches += 1
+    count_launch(int8_conv)
     return out
 
 
@@ -360,7 +394,7 @@ def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
             x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, stride, t,
             plan.tile_h, plan.tile_w, plan.slab, _stream_ptr())
     _check_launch(rc, "int8_max_pool")
-    int8_max_pool.launches += 1
+    count_launch(int8_max_pool)
     return out
 
 
@@ -390,7 +424,7 @@ def _avg_pool(wrapper, x: torch.Tensor, kernel: int, stride: int, pad: int,
             plan.tile_w, plan.slab, int(not count_include_pad),
             _stream_ptr())
     _check_launch(rc, name)
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out
 
 

@@ -30,7 +30,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .int8 import _check_launch, _cuda_or_cpu, _require, _stream_ptr
+from .int8 import (_check_launch, _cuda_or_cpu, _require, _stream_ptr,
+                   count_launch)
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -219,7 +220,7 @@ def max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
             x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), ints,
             len(plan), _stream_ptr())
     _check_launch(rc, "max_pool_bwd")
-    max_pool_bwd.launches += 1
+    count_launch(max_pool_bwd)
     if x.dtype == torch.bfloat16:
         max_pool_bwd.bf16_launches += 1
     return dx

@@ -70,7 +70,8 @@ before the final line):
               hybrid_stem=False)`` scored through the shared-stem scorer's
               ``prequantized=`` (one video, a path of its own: K1-K3, K1
               and K2 also at the stem), its 640-crop step timed beside the
-              hybrid one in turns, its stem and trunk on the card
+              hybrid one in turns, eager and replayed (``_eager_and_replay``),
+              its stem and trunk on the card
               bit-exact against the plain kernels on the CPU, its features
               against float (min cos > 0.99, rel < 0.12) and against the
               hybrid stem's; ``quantization_report`` in both modes on
@@ -195,8 +196,11 @@ before the final line):
               resize time of a 64-tick InceptionV3 chunk; and the
               steady-state times of one 640-crop scoring step (BNInception
               int8-e2e, perlayer and float, InceptionV3 int8 and float,
-              BNInception RGBDiff, BNInception and InceptionV3 Flow) and
-              of one training step.
+              BNInception RGBDiff, BNInception and InceptionV3 Flow; each
+              int8-e2e step both eager and as its CUDA graph's replay, with
+              its launches a step, which must be equal, and the replay's
+              device trace, which must name each K1-K3 kernel as often as
+              the eager step launched it) and of one training step.
 
 ``python3 chip_smoke.py --kernels-of CHECKOUT`` runs phase 3 alone on the
 kernels of another checkout (e.g. a ``git archive`` of an earlier commit),
@@ -2716,16 +2720,85 @@ def _int8_checks(name, model, qe, x, stem_quantized, trunk_ops, trunk,
           f"{cos.item():.6f}, rel rms {rel:.5f}", flush=True)
 
 
+#: the kernel a K1-K3 launch counter counts, as a device trace names it
+_KERNEL_SYMBOLS = {"int8_conv": "int8_conv_kernel",
+                   "int8_max_pool": "int8_max_pool3_kernel",
+                   "int8_avg_pool": "int8_avg_pool3_kernel",
+                   "int8_avg_pool_exclude_pad": "int8_avg_pool3_kernel"}
+
+
+def _eager_and_replay(name, scorer, chunk, n=64):
+    """The model step of ``scorer`` (int8-e2e, calibrated) on ``chunk``,
+    eager (``_model_step``) and as its CUDA graph's replay
+    (``_score_chunk``, from its third call on where the scorer has not
+    captured the step yet): the median ms of 10 of each
+    (CUDA events) and the launches a step, which must be equal; then a
+    replay under the profiler (after one it warms up on), whose device trace
+    must name each K1-K3 kernel that the eager step launched, and none more
+    often. The trace can drop records: on an H100, in a process that had
+    run the profiler before, it named 27 of a replay's 48 K1 launches
+    without the warm-up. Returns
+    ``(eager_ms, replay_ms, launches)``."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from action_detection_torch.kernels import (launch_counts,
+                                                reset_launch_counts)
+
+    eager = lambda: scorer._model_step(chunk, n)       # noqa: E731
+    replay = lambda: scorer._score_chunk(chunk, n)     # noqa: E731
+    eager_ms = _time_ms(eager, reps=10, warmup=1)
+    replays = scorer.graph_replays
+    replay_ms = _time_ms(replay, reps=10, warmup=2)
+    if scorer.graph_captures != 1 or scorer.graph_replays - replays < 10:
+        raise AssertionError(f"{name}: {scorer.graph_captures} captures, "
+                             f"{scorer.graph_replays - replays} replays of "
+                             "12 steps")
+    counts = {}
+    for mode, fn in (("eager", eager), ("replay", replay)):
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts[mode] = {k: v for k, v in launch_counts().items() if v}
+    if counts["eager"] != counts["replay"]:
+        raise AssertionError(f"{name}: launches a step eager "
+                             f"{counts['eager']}, replayed {counts['replay']}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            replay()
+            torch.cuda.synchronize()
+            prof.step()
+    traced, launched = collections.Counter(), collections.Counter()
+    for _, _, kernel in _device_intervals(prof):
+        traced.update(sym for sym in set(_KERNEL_SYMBOLS.values())
+                      if sym in kernel)
+    for counter, k in counts["eager"].items():
+        if counter in _KERNEL_SYMBOLS:
+            launched[_KERNEL_SYMBOLS[counter]] += k
+    if (not launched or set(traced) != set(launched)
+            or any(traced[k] > launched[k] for k in traced)):
+        raise AssertionError(f"{name}: a replayed step's device trace names "
+                             f"{dict(traced)}, the eager step launched "
+                             f"{dict(launched)}")
+    print(f"check: {name} a replayed step's device trace names "
+          f"{dict(traced)}, the eager step launched {dict(launched)}",
+          flush=True)
+    return eager_ms, replay_ms, counts["eager"]
+
+
 def _time_steps(name, model, frames, calib, smi, modality="RGB"):
-    """Steady-state 640-crop step of the int8-e2e shared-stem scorer and of
-    the float backbone (TF32 off) on one chunk of scale-size frames.
-    Returns the int8 scorer and its step function."""
+    """Steady-state 640-crop step of the int8-e2e shared-stem scorer, eager
+    and replayed (:func:`_eager_and_replay`), and of the float backbone
+    (TF32 off) on one chunk of scale-size frames. Returns the int8 scorer
+    and its step function (a replay)."""
     import numpy as np
     import torch
 
     from action_detection_torch.infer.scorer import ProposalScorer
-    from action_detection_torch.kernels import (launch_counts,
-                                                reset_launch_counts)
 
     spec = model.input_spec
     kw = dict(reg_stats=np.asarray(REG_STATS, np.float32),
@@ -2735,13 +2808,11 @@ def _time_steps(name, model, frames, calib, smi, modality="RGB"):
                             calibration_frames=calib, shared_stem=True, **kw)
     chunk = torch.as_tensor(frames).cuda()
     step = lambda: scorer._score_chunk(chunk, 64)      # noqa: E731
-    step_ms = _time_ms(step, reps=10, warmup=2)
-    reset_launch_counts()
-    step()
-    per_step = {k: n for k, n in launch_counts().items() if n}
+    eager_ms, step_ms, per_step = _eager_and_replay(name, scorer, chunk)
     line = (f"step: {name} int8-e2e shared-stem {step_ms:.2f} ms per "
-            f"{SLICE_N}-crop step = {SLICE_N / step_ms * 1e3:.0f} crops/s, "
-            f"launches per step {per_step}")
+            f"{SLICE_N}-crop step replayed = {SLICE_N / step_ms * 1e3:.0f} "
+            f"crops/s, {eager_ms:.2f} ms eager, launches per step "
+            f"{per_step} (eager and replayed)")
     if modality == "RGB":
         fscorer = ProposalScorer(model, spec, quantize=False, **kw)
         float_ms = _time_ms(lambda: fscorer._score_chunk(chunk, 64), reps=5,
@@ -3025,8 +3096,6 @@ def run_int8_stem(d: str, models: dict, smi: str) -> dict:
     from action_detection_torch.data.transforms import (
         device_oversample_normed)
     from action_detection_torch.infer.scorer import ProposalScorer
-    from action_detection_torch.kernels import (launch_counts,
-                                                reset_launch_counts)
     from action_detection_torch.models.backbones import (
         bn_inception_int8 as bq)
     from action_detection_torch.models.backbones import (
@@ -3099,18 +3168,19 @@ def run_int8_stem(d: str, models: dict, smi: str) -> dict:
             ms[name].append(_time_ms(
                 lambda sc=steps[name]: sc._score_chunk(chunk, 64), reps=10,
                 warmup=2))
+        eager_ms = {}
         for name, sc in steps.items():
-            reset_launch_counts()
-            sc._score_chunk(chunk, 64)
-            torch.cuda.synchronize()
-            per_step[name] = {k: n for k, n in launch_counts().items() if n}
+            eager_ms[name], _, per_step[name] = _eager_and_replay(
+                f"{model.arch} {modality} {name} stem", sc, chunk)
         more = tuple(per_step["all-int8"].get(k, 0) - per_step["hybrid"].get(
             k, 0) for k in ("int8_conv", "int8_max_pool"))
         th, t8 = (" / ".join(f"{t:.2f}" for t in ms[n]) for n in steps)
         print(f"step: {model.arch} {modality} {SLICE_N}-crop shared-stem "
-              f"step, hybrid stem {th} ms, all-int8 stem {t8} ms (turns "
-              f"hybrid, int8, int8, hybrid; median of 10 each); launches a "
-              f"step hybrid {per_step['hybrid']}, all-int8 "
+              f"step replayed, hybrid stem {th} ms, all-int8 stem {t8} ms "
+              f"(turns hybrid, int8, int8, hybrid; median of 10 each); "
+              f"eager, hybrid {eager_ms['hybrid']:.2f} ms, all-int8 "
+              f"{eager_ms['all-int8']:.2f} ms; launches a step (eager and "
+              f"replayed) hybrid {per_step['hybrid']}, all-int8 "
               f"{per_step['all-int8']} ({smi})", flush=True)
         if more != (stem_convs, 2):
             raise AssertionError(f"int8_stem {key}: the all-int8 step "

@@ -521,7 +521,8 @@ def test_cuda_pool_modes_route(cuda_device, mode, stride, a1_launches):
     try:
         grads = []
         for dev in ("cpu", cuda_device):
-            xd = x.to(dev).requires_grad_()
+            # a leaf of its own on each device (``x.to("cpu")`` is ``x``)
+            xd = x.clone().to(dev).requires_grad_()
             before = a1.max_pool_bwd.launches
             pooling.max_pool_2d(xd, 3, stride, pad).sum().backward()
             torch.cuda.synchronize()

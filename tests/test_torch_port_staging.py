@@ -338,6 +338,9 @@ def test_staging_reuse_share_entry():
                      "better": "higher", "source": "program_counter",
                      "layer": "H2D copy", "moves": "score_ticks_per_s",
                      "workloads": ["bni_thumos14.score_decoded"]}
-    assert bench["per_layer"][-1] is entry
+    # the metrics appended after it
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names[names.index(entry["name"]) + 1:] == [
+        "graph_replay_share.score"]
     layers = {m["name"]: m["layer"] for m in bench["per_layer"]}
     assert layers["h2d_ms.score"] == entry["layer"]
