@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from ..data.binary_dataset import BinaryTestSample
-from ..data.pipeline import pad_chunk_ticks
 from ..models.backbones import InputSpec
 from ..models.binary import BinaryClassifier
 from .features import CropFeatureScorer, fan_out
@@ -30,7 +29,8 @@ from .features import CropFeatureScorer, fan_out
 
 class ActionnessScorer(CropFeatureScorer):
     """Holds ``classifier_fc``, the (quantized) backbone and the decode pool
-    (the feature step is :class:`~.features.CropFeatureScorer`'s)."""
+    (the feature step and the chunk path are
+    :class:`~.features.CropFeatureScorer`'s)."""
 
     def __init__(self, model: BinaryClassifier, input_spec: InputSpec,
                  test_crops: int = 10, chunk_frames: int = 64,
@@ -54,35 +54,29 @@ class ActionnessScorer(CropFeatureScorer):
             self._kernel = fc.weight.t().contiguous().float().to(self.device)
             self._bias = fc.bias.float().to(self.device)
 
-    def _score_chunk(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 frames on the device (``(ticks, H_scale, W_scale, C)``, or
-        ``crops * ticks`` host crops) -> ``(ticks, crops, K)`` logits, one
-        per crop."""
+    def _model_step(self, frames_u8: torch.Tensor,
+                    n_stacks: int) -> torch.Tensor:
+        """uint8 frames on the device (``(n_stacks, H_scale, W_scale, C)``,
+        or ``crops * n_stacks`` host crops) -> ``(n_stacks, crops, K)``
+        logits, one per crop."""
         feats = self._crop_features(frames_u8)
         with torch.no_grad():
             logits = torch.matmul(feats, self._kernel) + self._bias
-            return logits.reshape(self.test_crops, -1,
+            return logits.reshape(self.test_crops, n_stacks,
                                   self.num_class).transpose(0, 1)
 
     def score_video(self, sample: BinaryTestSample, provider) -> np.ndarray:
         """``(T, crops, K)`` float32 logits of every tick of one video; a
         video with no ticks gives an empty ``(0, crops, K)`` array."""
-        T = len(sample.frame_ticks)
-        if T == 0:
-            return np.zeros((0, self.test_crops, self.num_class), np.float32)
-        chunks, host_crops = self._frame_chunks(sample, provider)
-        out = []
-        for chunk in chunks:
-            n_real = chunk.shape[0] // host_crops
-            chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
-            frames = torch.from_numpy(chunk).to(self.device)
-            out.append(self._score_chunk(frames)[:n_real])
-            self.device_ticks += self.chunk_frames
-            self.real_ticks += n_real
-        scores = torch.cat(out, dim=0).cpu().numpy()
-        if scores.shape[0] != T:
-            raise RuntimeError(f"scored {scores.shape[0]} of {T} ticks of "
-                               f"{sample.video_id}")
+        scores = np.zeros((len(sample.frame_ticks), self.test_crops,
+                           self.num_class), np.float32)
+        parts, rows = [], []
+        for frames, keys in self._chunks([sample], provider):
+            parts.append(self._score_chunk(frames, self.chunk_frames)
+                         [:len(keys)])
+            rows += [row for _, row in keys]
+        if parts:
+            scores[rows] = torch.cat(parts).cpu().numpy()
         return scores
 
 

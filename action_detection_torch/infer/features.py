@@ -1,5 +1,5 @@
-"""The feature step the two scorers share: uint8 frames on the device ->
-per-crop backbone features.
+"""What the two scorers share: the path from a list of samples to each
+chunk's scores on the device, and the feature step on it.
 
 :class:`CropFeatureScorer` holds the backbone (float, int8-e2e after
 calibration, or per-layer int8), the crop path, the shared-stem choice and
@@ -10,9 +10,25 @@ with ``device_crops=False``: the host cuts them through
 ``make_test_transform``). :class:`~.scorer.ProposalScorer` (SSN proposal
 scoring) means the features over the crops before its fused FC;
 :class:`~.actionness.ActionnessScorer` (dense actionness for TAG) keeps
-every crop's score. Constructing either turns TF32 off for cuDNN and
-matmuls, for parity with the JAX package's float32 convs and
-``Precision.HIGHEST`` heads.
+every crop's score; each adds only its head (``_model_step``) and its
+readout. Constructing either turns TF32 off for cuDNN and matmuls, for
+parity with the JAX package's float32 convs and ``Precision.HIGHEST``
+heads.
+
+* :meth:`CropFeatureScorer._chunks` builds each chunk in a slot of a
+  :class:`StagingRing` (reused host buffers, pinned on a CUDA device) and
+  copies it on the device's copy stream. With device crops the ticks of
+  several samples share chunks: decoded on the decode pool, one buffer a
+  scale shape, gathered in one native call
+  (``utils/native.py:gather_rows``), a partial chunk padded with zero
+  ticks. With host crops a chunk holds one sample's crop-major crops.
+* :meth:`CropFeatureScorer._score_chunk` replays the model step as its
+  chunk key's CUDA graph (``infer/step_graph.py``) on a CUDA device with
+  the calibrated int8-e2e backbone, and runs it eagerly elsewhere (the
+  CPU, ``perlayer``, the float backbones, a scorer still to calibrate).
+* Under a profiler each chunk's host work is a span (``utils/meters.py``):
+  ``chunk.stack`` (building it in its slot), ``chunk.h2d`` (enqueueing its
+  copy) and ``chunk.launch`` (enqueueing the model step).
 
 Several scorers may score at once, one per device and thread (the
 fan-out of ``infer/scorer.py:score_videos`` and ``binary_test``): each
@@ -24,18 +40,20 @@ decode pool may be shared (``decode_pool=``) so the decode threads stay
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import dataclasses
 import queue
 import threading
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..data.pipeline import (iter_scaled_frame_chunks,
-                             iter_test_frame_batches, make_decode_pool,
-                             make_test_transform)
+from ..data.pipeline import (iter_test_frame_batches, iter_windowed_decode,
+                             load_scaled_stack, make_decode_pool,
+                             make_test_transform, pad_chunk_ticks)
 from ..data.transforms import (device_normed_pair, device_oversample_normed,
                                preprocess_frames)
 from ..models.backbones import InputSpec
@@ -49,6 +67,20 @@ from ..models.backbones.quantize import (calibrate_e2e_backbone,
                                          supports_shared_stem)
 from ..train.trainer import float32_convs_and_matmuls
 from ..utils.meters import profiler, span_begin, span_end
+from ..utils.native import gather_rows
+from .step_graph import CudaStepGraph, StepGraphs
+
+#: slots of a staging ring, per chunk shape: one is filled while the
+#: other's copy is in flight, and that copy (0.34 ms for a 16.7 MB chunk
+#: on an H100) ends long before its slot is written again, a chunk (15 ms
+#: or more) later
+STAGING_SLOTS = 2
+#: per CUDA device: the stream its staging rings copy on, one a device: the
+#: caching allocator hands a freed block out again only on the stream that
+#: allocated it, so with a stream a ring no later scorer would reuse the
+#: blocks of a scorer's chunks
+_COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_COPY_LOCK = threading.Lock()
 
 
 def resolve_device(device) -> torch.device:
@@ -59,6 +91,110 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
                            "device")
     return dev
+
+
+@dataclasses.dataclass
+class StagingSlot:
+    """A reused host buffer of a :class:`StagingRing`: ``host`` (pinned
+    for a CUDA device), ``array`` its numpy view, ``key`` its shape and
+    dtype, and ``event`` the event of its last copy until the host has
+    waited on it."""
+    host: torch.Tensor
+    array: np.ndarray
+    key: tuple
+    event: object = None
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _COPY_LOCK:
+        if device not in _COPY_STREAMS:
+            _COPY_STREAMS[device] = torch.cuda.Stream(device)
+        return _COPY_STREAMS[device]
+
+
+def _wait(slot: StagingSlot) -> None:
+    if slot.event is not None:
+        slot.event.synchronize()
+        slot.event = None
+
+
+class StagingRing:
+    """The host buffers a scorer's chunks reach its device from.
+
+    Each chunk shape and dtype gets :data:`STAGING_SLOTS` slots, made on
+    its first chunk and used in turn. On a CUDA device the slots are
+    pinned and copied with ``non_blocking`` on the device's copy stream:
+    the compute stream waits on the copy's event, and the device tensor is
+    recorded on the compute stream, so the caching allocator does not hand
+    its memory out while the model step may still read it. On the CPU a
+    slot is a plain tensor and its copy a clone.
+
+    The host never writes a slot whose last copy may still be in flight:
+    :meth:`take` waits on that copy's event, and :meth:`send` has already
+    waited for the next slot of its key, so the wait falls in the copy's
+    enqueue. ``staged`` counts the chunks sent, ``allocated`` the slots
+    made; both outlive :meth:`release`.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._stream = (_copy_stream(device) if device.type == "cuda"
+                        else None)
+        self._rings: Dict[tuple, collections.deque] = {}
+        self.staged = 0
+        self.allocated = 0
+
+    def take(self, shape, dtype) -> StagingSlot:
+        """The slot that the next chunk of ``shape`` and ``dtype`` is to be
+        written into, its last copy done."""
+        key = (tuple(shape), np.dtype(dtype))
+        ring = self._rings.get(key)
+        if ring is None:
+            torch_dtype = torch.from_numpy(np.empty(0, key[1])).dtype
+            ring = self._rings[key] = collections.deque()
+            for _ in range(STAGING_SLOTS):
+                host = torch.empty(key[0], dtype=torch_dtype,
+                                   pin_memory=self._stream is not None)
+                ring.append(StagingSlot(host, host.numpy(), key))
+            self.allocated += STAGING_SLOTS
+        slot = ring[0]
+        _wait(slot)
+        return slot
+
+    def send(self, slot: StagingSlot) -> torch.Tensor:
+        """``slot``, the one :meth:`take` gave last for its key, copied to
+        the device (enqueued, on a CUDA device); the next slot of its key
+        is free to write on return."""
+        ring = self._rings[slot.key]
+        if ring[0] is not slot:
+            raise ValueError("a staging slot is sent in the order taken")
+        frames, slot.event = self._copy(slot.host)
+        self.staged += 1
+        ring.rotate(-1)
+        _wait(ring[0])
+        return frames
+
+    def _copy(self, host: torch.Tensor):
+        """``host`` on the device, and the event that marks the copy's end
+        (None where the copy has ended on return)."""
+        if self._stream is None:
+            return host.clone(), None
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            frames = host.to(self.device, non_blocking=True)
+            event = self._stream.record_event()
+        compute.wait_event(event)
+        frames.record_stream(compute)
+        return frames, event
+
+    def release(self) -> None:
+        """Give the slots back (after their copies), keeping the counts."""
+        for ring in self._rings.values():
+            for slot in ring:
+                _wait(slot)
+        self._rings.clear()
 
 
 class CropFeatureScorer:
@@ -75,8 +211,15 @@ class CropFeatureScorer:
     stays where it is, so scorers on several devices can share it).
     ``decode_pool``: a decode executor shared with other scorers, which
     :meth:`close` leaves running (default: a pool of its own of
-    ``decode_threads``).
+    ``decode_threads``). A subclass defines ``_model_step(frames_u8,
+    n_stacks)``, a chunk's scores from its uint8 frames on the device.
     """
+
+    #: ``device ->`` a graph to capture a model step into
+    #: (``capture(step)``, which returns the step's output, and ``replay()``)
+    graph_factory = CudaStepGraph
+    #: the device types whose scorers replay their model steps as graphs
+    graph_devices = ("cuda",)
 
     def __init__(self, model, input_spec: InputSpec, test_crops: int = 10,
                  chunk_frames: int = 32, modality: str = "RGB",
@@ -112,6 +255,9 @@ class CropFeatureScorer:
         #: real ones among them
         self.device_ticks = 0
         self.real_ticks = 0
+        #: the host buffers chunks are built in and copied from
+        self.staging = StagingRing(self.device)
+        self._graphs = StepGraphs()
 
         can_share = self.device_crops and supports_shared_stem(self.arch)
         self.shared_stem = bool(shared_stem) and can_share
@@ -189,11 +335,24 @@ class CropFeatureScorer:
             self._act_scales = tree_to(scales, self.device)
         self._qp = None
 
+    @property
+    def graph_captures(self) -> int:
+        """Model steps captured as CUDA graphs (outlives :meth:`close`)."""
+        return self._graphs.captures
+
+    @property
+    def graph_replays(self) -> int:
+        """Chunks scored by a replay (outlives :meth:`close`)."""
+        return self._graphs.replays
+
     def close(self) -> None:
-        """Shut down the decode thread pool it owns (idempotent)."""
+        """Shut down the decode pool it owns, give back the staging slots
+        and drop the captured steps (idempotent)."""
         if self._decode_pool is not None and self._owns_pool:
             self._decode_pool.shutdown(wait=False)
         self._decode_pool = None
+        self.staging.release()
+        self._graphs.steps.clear()
 
     def __enter__(self):
         return self
@@ -231,21 +390,88 @@ class CropFeatureScorer:
         return preprocess_frames(frames, self.input_spec, self.modality,
                                  self.new_length)
 
-    def _frame_chunks(self, sample, provider):
-        """One video's uint8 chunks and the crops each tick brings:
-        ``(n_ticks, H_scale, W_scale, C)`` scale-size frames and 1 on the
-        device-crop path, crop-major ``(test_crops * n_ticks, crop, crop,
-        C)`` host crops and ``test_crops`` on the host-crop path."""
-        if self.device_crops:
-            return iter_scaled_frame_chunks(
-                provider, sample.video_id, sample.frame_ticks,
-                sample.num_frames, self.input_spec.scale_size,
-                new_length=self.new_length, batch_ticks=self.chunk_frames,
-                executor=self._decode_pool), 1
-        return iter_test_frame_batches(
-            provider, sample.video_id, sample.frame_ticks, sample.num_frames,
-            self._transform, new_length=self.new_length,
-            batch_ticks=self.chunk_frames), self.test_crops
+    def _chunks(self, samples, provider) -> Iterator[tuple]:
+        """Each chunk of ``samples``' ticks on the device, uint8
+        ``(chunk_frames, H_scale, W_scale, C)`` scale-size frames (device
+        crops) or crop-major ``(test_crops * chunk_frames, crop, crop, C)``
+        host crops, with the ``(sample index, tick row)`` of its real rows
+        (the module's docstring)."""
+        cf = self.chunk_frames
+        crops = 1 if self.device_crops else self.test_crops
+        for rows, ticks in self._chunk_ticks(samples, provider):
+            sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
+            slot = self.staging.take((crops * cf,) + ticks[0].shape,
+                                     ticks[0].dtype)
+            if self.device_crops:
+                gather_rows(slot.array, ticks)
+                slot.array[len(ticks):] = 0     # a partial chunk's padding
+            else:
+                slot.array[...] = pad_chunk_ticks(ticks, crops, cf)
+            if sp:
+                span_end(sp)
+            sp = profiler._is_profiler_enabled and span_begin("chunk.h2d")
+            frames = self.staging.send(slot)
+            if sp:
+                span_end(sp)
+            self.device_ticks += cf
+            self.real_ticks += len(rows)
+            yield frames, rows
+
+    def _chunk_ticks(self, samples, provider) -> Iterator[tuple]:
+        """Each chunk's real rows and its host frames: a list of scale-size
+        ticks, ``samples``' ticks in order, each scale shape's chunk given
+        as it fills and the partial ones last; or a sample's crop-major
+        host crops of up to ``chunk_frames`` ticks."""
+        cf = self.chunk_frames
+        if not self.device_crops:
+            for si, s in enumerate(samples):
+                batches = iter_test_frame_batches(
+                    provider, s.video_id, s.frame_ticks, s.num_frames,
+                    self._transform, new_length=self.new_length,
+                    batch_ticks=cf)
+                for lo, batch in zip(range(0, len(s.frame_ticks), cf),
+                                     batches):
+                    n = batch.shape[0] // self.test_crops
+                    yield [(si, lo + r) for r in range(n)], batch
+            return
+        scale = self.input_spec.scale_size
+
+        def load_one(job) -> np.ndarray:
+            s = samples[job[0]]
+            return load_scaled_stack(provider, s.video_id, job[2],
+                                     s.num_frames, scale, self.new_length)
+
+        jobs = [(si, row, tick) for si, s in enumerate(samples)
+                for row, tick in enumerate(s.frame_ticks)]
+        decoded = iter_windowed_decode(jobs, load_one, self._decode_pool,
+                                       window=4 * cf)
+        buffers: Dict[tuple, tuple] = {}        # per scale shape
+        for (si, row, _), arr in zip(jobs, decoded):
+            rows, ticks = buffers.setdefault(arr.shape, ([], []))
+            rows.append((si, row))
+            ticks.append(arr)
+            if len(ticks) == cf:
+                yield rows, ticks
+                buffers[arr.shape] = ([], [])
+        yield from (b for b in buffers.values() if b[0])    # partial chunks
+
+    def _score_chunk(self, frames_u8: torch.Tensor,
+                     n_stacks: int) -> torch.Tensor:
+        """A chunk's scores from its uint8 frames on the device: the model
+        step, replayed as its chunk key's CUDA graph where it can be (the
+        module's docstring)."""
+        sp = profiler._is_profiler_enabled and span_begin("chunk.launch")
+        if (self.device.type in self.graph_devices
+                and self._quantize_mode == "e2e"
+                and not self.needs_lazy_calibration):
+            scores = self._graphs.run(
+                lambda f: self._model_step(f, n_stacks), frames_u8,
+                (n_stacks,), lambda: self.graph_factory(self.device))
+        else:
+            scores = self._model_step(frames_u8, n_stacks)
+        if sp:
+            span_end(sp)
+        return scores
 
     def _crop_features(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """uint8 frames on the device -> ``(test_crops * N, D)`` features,

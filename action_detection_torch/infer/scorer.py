@@ -8,8 +8,8 @@
   run on the device. With the shared stem (the int8-e2e default) the stem
   runs once per frame and its flip, and the 10 crop windows are cut from
   its output. ``test_crops=1`` (or ``device_crops=False``) cuts the crops
-  on the host (``infer/features.py``).
-* Frame chunks are padded to a fixed tick count, as in the JAX package.
+  on the host (``infer/features.py``). Frame chunks are padded to a
+  fixed tick count, as in the JAX package.
 * Proposal pooling is the cumsum-gather STPP on the device
   (``ops/stpp.py``), with part bounds from the host.
 * ``score_video_pack`` (``--pack``) packs ticks of several videos into the
@@ -22,27 +22,15 @@
   first chunk is elected once and shared, so the scores do not depend on
   the device count. ``make_sharded_frame_scorer`` splits one video's frames
   over the devices instead.
-* A chunk is built in a slot of the scorer's :class:`StagingRing`, reused
-  host buffers (pinned on a CUDA device; a packed chunk's rows gathered
-  in one native call, ``utils/native.py:gather_rows``), and copied from
-  it on its device's copy stream, which the model step waits on.
-* On a CUDA device with the calibrated int8-e2e backbone the model step
-  of a chunk key (shape, dtype) runs eagerly on the key's first chunk,
-  which warms cuDNN and cuBLAS up, is captured as one CUDA graph before
-  the second, and is replayed from then on (``infer/step_graph.py``): each
-  chunk is copied into the graph's static input, and its scores are a
-  clone of the static output. Elsewhere (the CPU, ``perlayer``, the float
-  backbones, a scorer still to calibrate) the step stays eager.
-* Under a profiler the scoring thread's host work is recorded as spans
-  (``utils/meters.py``): per chunk ``chunk.stack`` (building it in its
-  slot), ``chunk.h2d`` (enqueueing its copy) and ``chunk.launch``
-  (enqueueing the model step); per work item ``pack.finish`` (pooling and
-  readback).
+* Chunks are built, sent and scored on the path both scorers share
+  (``infer/features.py:CropFeatureScorer``: the staging ring, the chunk
+  feed, the model step replayed as a CUDA graph); this scorer adds the
+  crop mean and the fused FC, and pools and reads back each video under a
+  ``pack.finish`` span.
 """
 
 from __future__ import annotations
 
-import collections
 import copy
 import dataclasses
 import threading
@@ -51,137 +39,17 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.pipeline import (iter_windowed_decode, load_scaled_stack,
-                             pad_chunk_ticks)
 from ..data.ssn_dataset import SSNDataset, TestSample
 from ..data.transforms import preprocess_frames
-from ..kernels import add_launch_counts, tally_launches
 from ..models.backbones import InputSpec
 from ..models.ssn import SSN, fuse_test_heads
 from ..ops.stpp import (ReorganizedScoreLayout, StppConfig,
                         reorganized_stpp_pool)
 from ..utils.meters import profiler, span_begin, span_end
-from ..utils.native import gather_rows
 from .features import CropFeatureScorer, fan_out, on_device
-from .step_graph import CudaStepGraph
 
 #: videos a ``--pack`` work item holds (bounds the host memory of a pack)
 PACK_GROUP = 16
-#: slots of a staging ring, per chunk shape: one is filled while the
-#: other's copy is in flight, and that copy (0.34 ms for a 16.7 MB chunk
-#: on an H100) ends long before its slot is written again, a chunk (15 ms
-#: or more) later
-STAGING_SLOTS = 2
-#: per CUDA device: the stream its staging rings copy on, one a device: the
-#: caching allocator hands a freed block out again only on the stream that
-#: allocated it, so with a stream a ring no later scorer would reuse the
-#: blocks of a scorer's chunks
-_COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-_COPY_LOCK = threading.Lock()
-
-
-@dataclasses.dataclass
-class StagingSlot:
-    """A reused host buffer of a :class:`StagingRing`: ``host`` (pinned
-    for a CUDA device), ``array`` its numpy view, ``key`` its shape and
-    dtype, and ``event`` the event of its last copy until the host has
-    waited on it."""
-    host: torch.Tensor
-    array: np.ndarray
-    key: tuple
-    event: object = None
-
-
-def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    with _COPY_LOCK:
-        if device not in _COPY_STREAMS:
-            _COPY_STREAMS[device] = torch.cuda.Stream(device)
-        return _COPY_STREAMS[device]
-
-
-def _wait(slot: StagingSlot) -> None:
-    if slot.event is not None:
-        slot.event.synchronize()
-        slot.event = None
-
-
-class StagingRing:
-    """The host buffers a scorer's chunks reach its device from.
-
-    Each chunk shape and dtype gets :data:`STAGING_SLOTS` slots, made on
-    its first chunk and used in turn. On a CUDA device the slots are
-    pinned and copied with ``non_blocking`` on the device's copy stream:
-    the compute stream waits on the copy's event, and the device tensor is
-    recorded on the compute stream, so the caching allocator does not hand
-    its memory out while the model step may still read it. On the CPU a
-    slot is a plain tensor and its copy a clone.
-
-    The host never writes a slot whose last copy may still be in flight:
-    :meth:`take` waits on that copy's event, and :meth:`send` has already
-    waited for the next slot of its key, so the wait falls in the copy's
-    enqueue. ``staged`` counts the chunks sent, ``allocated`` the slots
-    made; both outlive :meth:`release`.
-    """
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._stream = (_copy_stream(device) if device.type == "cuda"
-                        else None)
-        self._rings: Dict[tuple, collections.deque] = {}
-        self.staged = 0
-        self.allocated = 0
-
-    def take(self, shape, dtype) -> StagingSlot:
-        """The slot that the next chunk of ``shape`` and ``dtype`` is to be
-        written into, its last copy done."""
-        key = (tuple(shape), np.dtype(dtype))
-        ring = self._rings.get(key)
-        if ring is None:
-            torch_dtype = torch.from_numpy(np.empty(0, key[1])).dtype
-            ring = self._rings[key] = collections.deque()
-            for _ in range(STAGING_SLOTS):
-                host = torch.empty(key[0], dtype=torch_dtype,
-                                   pin_memory=self._stream is not None)
-                ring.append(StagingSlot(host, host.numpy(), key))
-            self.allocated += STAGING_SLOTS
-        slot = ring[0]
-        _wait(slot)
-        return slot
-
-    def send(self, slot: StagingSlot) -> torch.Tensor:
-        """``slot``, the one :meth:`take` gave last for its key, copied to
-        the device (enqueued, on a CUDA device); the next slot of its key
-        is free to write on return."""
-        ring = self._rings[slot.key]
-        if ring[0] is not slot:
-            raise ValueError("a staging slot is sent in the order taken")
-        frames, slot.event = self._copy(slot.host)
-        self.staged += 1
-        ring.rotate(-1)
-        _wait(ring[0])
-        return frames
-
-    def _copy(self, host: torch.Tensor):
-        """``host`` on the device, and the event that marks the copy's end
-        (None where the copy has ended on return)."""
-        if self._stream is None:
-            return host.clone(), None
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._stream):
-            frames = host.to(self.device, non_blocking=True)
-            event = self._stream.record_event()
-        compute.wait_event(event)
-        frames.record_stream(compute)
-        return frames, event
-
-    def release(self) -> None:
-        """Give the slots back (after their copies), keeping the counts."""
-        for ring in self._rings.values():
-            for slot in ring:
-                _wait(slot)
-        self._rings.clear()
 
 
 @dataclasses.dataclass
@@ -199,26 +67,10 @@ class ScoredVideo:
                 self.reg_scores)
 
 
-@dataclasses.dataclass
-class CapturedStep:
-    """A chunk key's model step as a CUDA graph: ``static_in``, which each
-    chunk is copied into, ``static_out``, which each replay rewrites, and
-    ``launches``, the counted kernel launches (by counter) of one replay."""
-    graph: object
-    static_in: torch.Tensor
-    static_out: torch.Tensor
-    launches: Dict[str, int]
-
-
 class ProposalScorer(CropFeatureScorer):
     """Holds the fused test FC, the (quantized) backbone and the decode pool
-    (the feature step is :class:`~.features.CropFeatureScorer`'s)."""
-
-    #: ``device ->`` a graph to capture a model step into
-    #: (``capture(step)``, which returns the step's output, and ``replay()``)
-    graph_factory = CudaStepGraph
-    #: the device types whose scorers replay their model steps as graphs
-    graph_devices = ("cuda",)
+    (the feature step and the chunk path are
+    :class:`~.features.CropFeatureScorer`'s)."""
 
     def __init__(self, model: SSN, input_spec: InputSpec,
                  reg_stats: Optional[np.ndarray] = None,
@@ -268,87 +120,17 @@ class ProposalScorer(CropFeatureScorer):
             act_len=K + 1, comp_len=K, reg_len=2 * K,
             feat_multiplier=self.stpp.feat_multiplier,
             with_regression=with_regression)
-        #: the host buffers chunks are built in and copied from
-        self.staging = StagingRing(self.device)
-        #: model steps captured as CUDA graphs, and chunks scored by a
-        #: replay; both outlive :meth:`close`
-        self.graph_captures = 0
-        self.graph_replays = 0
-        # by chunk key: its captured step, or None after its first chunk
-        self._steps: Dict[tuple, Optional[CapturedStep]] = {}
-
-    def close(self) -> None:
-        """Shut down the decode pool it owns, give back the staging slots
-        and drop the captured steps, whose memory the device's later graphs
-        reuse (idempotent)."""
-        super().close()
-        self.staging.release()
-        self._steps.clear()
-
-    def _score_chunk(self, frames_u8: torch.Tensor,
-                     n_stacks: int) -> torch.Tensor:
-        """uint8 frames on the device (``(n_stacks, H_scale, W_scale, C)``,
-        or ``test_crops * n_stacks`` host crops) -> ``(n_stacks, D)``
-        crop-mean fused scores: the model step, replayed as its chunk key's
-        CUDA graph where it can be (the module's docstring)."""
-        sp = profiler._is_profiler_enabled and span_begin("chunk.launch")
-        if (self.device.type in self.graph_devices
-                and self._quantize_mode == "e2e"
-                and not self.needs_lazy_calibration):
-            scores = self._graph_step(frames_u8, n_stacks)
-        else:
-            scores = self._model_step(frames_u8, n_stacks)
-        if sp:
-            span_end(sp)
-        return scores
 
     def _model_step(self, frames_u8: torch.Tensor,
                     n_stacks: int) -> torch.Tensor:
-        """The model step, eager. Crops are mean-reduced on *features*
-        before the fused FC — identical by linearity."""
+        """uint8 frames on the device (``(n_stacks, H_scale, W_scale, C)``,
+        or ``test_crops * n_stacks`` host crops) -> ``(n_stacks, D)``
+        crop-mean fused scores. Crops are mean-reduced on *features* before
+        the fused FC — identical by linearity."""
         feats = self._crop_features(frames_u8)
         with torch.no_grad():
             feats = feats.reshape(self.test_crops, n_stacks, -1).mean(dim=0)
             return torch.matmul(feats, self._kernel) + self._bias
-
-    def _graph_step(self, frames_u8: torch.Tensor,
-                    n_stacks: int) -> torch.Tensor:
-        """The model step as its key's graph: eager on the key's first
-        chunk, captured on its second, replayed from then on."""
-        key = (tuple(frames_u8.shape), frames_u8.dtype, n_stacks)
-        if key not in self._steps:
-            self._steps[key] = None
-            return self._model_step(frames_u8, n_stacks)
-        step = self._steps[key] or self._capture(key, frames_u8, n_stacks)
-        step.static_in.copy_(frames_u8)
-        step.graph.replay()
-        add_launch_counts(step.launches)
-        self.graph_replays += 1
-        # a later replay rewrites the static output
-        return step.static_out.clone()
-
-    def _capture(self, key: tuple, frames_u8: torch.Tensor,
-                 n_stacks: int) -> CapturedStep:
-        """Capture the model step of ``key``; the launches it counts go to
-        its tally, which each replay adds to the counters."""
-        graph = self.graph_factory(self.device)
-        static_in = torch.empty_like(frames_u8)
-        with tally_launches() as launches:
-            static_out = graph.capture(
-                lambda: self._model_step(static_in, n_stacks))
-        step = CapturedStep(graph, static_in, static_out, launches)
-        self._steps[key] = step
-        self.graph_captures += 1
-        return step
-
-    def _to_device(self, slot: StagingSlot) -> torch.Tensor:
-        """A chunk built in ``slot`` on the device: a copy enqueued on the
-        staging ring's copy stream, which the compute stream waits for."""
-        sp = profiler._is_profiler_enabled and span_begin("chunk.h2d")
-        frames = self.staging.send(slot)
-        if sp:
-            span_end(sp)
-        return frames
 
     # --- host orchestration ---
 
@@ -369,35 +151,9 @@ class ProposalScorer(CropFeatureScorer):
     def score_video(self, sample: TestSample, provider,
                     keep_raw: bool = False) -> ScoredVideo:
         """Score every sampled frame, pool per proposal, denormalize
-        regression."""
-        if len(sample.frame_ticks) == 0:
-            return self._empty_scored(sample, keep_raw=keep_raw)
-        chunks, host_crops = self._frame_chunks(sample, provider)
-        T = len(sample.frame_ticks)
-        out_chunks = []
-        filled = 0
-        for chunk in chunks:
-            n_real = chunk.shape[0] // host_crops
-            sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
-            chunk = pad_chunk_ticks(chunk, host_crops, self.chunk_frames)
-            slot = self.staging.take(chunk.shape, chunk.dtype)
-            slot.array[...] = chunk
-            if sp:
-                span_end(sp)
-            out_chunks.append(self._score_chunk(self._to_device(slot),
-                                                self.chunk_frames))
-            filled += n_real
-            self.device_ticks += self.chunk_frames
-            self.real_ticks += n_real
-        if filled != T:
-            raise RuntimeError(f"scored {filled} of {T} ticks of "
-                               f"{sample.video_id}")
-        sp = profiler._is_profiler_enabled and span_begin("pack.finish")
-        out = self._pool_video(sample, torch.cat(out_chunks, dim=0), T,
-                               keep_raw=keep_raw)
-        if sp:
-            span_end(sp)
-        return out
+        regression: the pack of one video, so its chunks are its own."""
+        return self.score_video_pack([sample], provider,
+                                     keep_raw=keep_raw)[0]
 
     def _pool_video(self, sample: TestSample, frame_scores: torch.Tensor,
                     T: int, keep_raw: bool = False) -> ScoredVideo:
@@ -425,55 +181,16 @@ class ProposalScorer(CropFeatureScorer):
         ``chunk_frames``; here ticks of consecutive videos share chunks, so
         a pack pays that padding once (per scale shape: videos whose
         scaled frames differ in shape pack in separate buffers, and each
-        buffer's partial last chunk is padded). Every row of a chunk is
-        scored on its own, so the scores equal per-video scoring. The rows
-        come back to per-video matrices on the device: one
-        ``index_select`` over the chunks' scores and an appended zero row,
-        with indices computed on the host; each matrix has the row count
-        ``score_video`` gives the pool. The host-crop path scores per
-        video (its chunks are crop-major per video).
+        buffer's partial last chunk is padded;
+        ``CropFeatureScorer._chunks``). Every row of a chunk is scored on
+        its own, so the scores equal per-video scoring. The rows come back
+        to per-video matrices on the device: one ``index_select`` over the
+        chunks' scores and an appended zero row, with indices computed on
+        the host; each matrix has a whole number of chunks' rows. The
+        host-crop path's chunks hold one video each (they are crop-major).
         """
-        if not self.device_crops:
-            return [self.score_video(s, provider, keep_raw=keep_raw)
-                    for s in samples]
-        scale = self.input_spec.scale_size
-
-        def load_one(job) -> np.ndarray:
-            s = samples[job[0]]
-            return load_scaled_stack(provider, s.video_id, job[2],
-                                     s.num_frames, scale, self.new_length)
-
-        jobs = [(si, row, tick) for si, s in enumerate(samples)
-                for row, tick in enumerate(s.frame_ticks)]
-        decoded = iter_windowed_decode(jobs, load_one, self._decode_pool,
-                                       window=4 * self.chunk_frames)
-        pending = []        # (chunk scores on the device, [(video, row)])
-
-        def flush(buf) -> None:
-            sp = profiler._is_profiler_enabled and span_begin("chunk.stack")
-            tick = buf[0][2]
-            slot = self.staging.take((self.chunk_frames,) + tick.shape,
-                                     tick.dtype)
-            gather_rows(slot.array, [a for _, _, a in buf])
-            slot.array[len(buf):] = 0       # a partial chunk's padding
-            if sp:
-                span_end(sp)
-            scores = self._score_chunk(self._to_device(slot),
-                                       self.chunk_frames)
-            self.device_ticks += self.chunk_frames
-            self.real_ticks += len(buf)
-            pending.append((scores, [(si, row) for si, row, _ in buf]))
-
-        buffers: Dict[tuple, list] = {}        # per scale shape
-        for (si, row, _), arr in zip(jobs, decoded):
-            buf = buffers.setdefault(arr.shape, [])
-            buf.append((si, row, arr))
-            if len(buf) == self.chunk_frames:
-                flush(buf)
-                buffers[arr.shape] = []
-        for buf in buffers.values():            # partial chunks, padded
-            if buf:
-                flush(buf)
+        pending = [(self._score_chunk(frames, self.chunk_frames), rows)
+                   for frames, rows in self._chunks(samples, provider)]
         if not pending:
             return [self._empty_scored(s, keep_raw=keep_raw)
                     for s in samples]

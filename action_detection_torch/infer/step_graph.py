@@ -1,10 +1,11 @@
 """CUDA graphs of the scoring path's model step
-(``infer/scorer.py:ProposalScorer._score_chunk``).
+(``infer/features.py:CropFeatureScorer._score_chunk``).
 
-A scorer captures the step of a chunk key (shape, dtype) once and replays
-it for every later chunk of that key: one launch in place of the few
-hundred that the step's Python enqueues one op at a time, with the GIL
-released while the card's work is enqueued.
+A scorer's :class:`StepGraphs` runs the step of a chunk key (shape, dtype,
+stacks) eagerly on the key's first chunk, which warms cuDNN and cuBLAS up,
+captures it before the second and replays it for every later chunk of that
+key: one launch in place of the few hundred that the step's Python enqueues
+one op at a time, with the GIL released while the card's work is enqueued.
 
 :meth:`CudaStepGraph.capture` captures the step on its device's capture
 stream in ``thread_local`` mode, so the decode pool and the scorers of
@@ -25,10 +26,13 @@ once no graph holds it, and captures into it no more after that (a
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..kernels import add_launch_counts, tally_launches
 
 #: one capture at a time in the process
 _LOCK = threading.Lock()
@@ -77,3 +81,54 @@ def _capture(graph, stream, pool, step):
             return step()
         finally:
             graph.capture_end()
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """A chunk key's model step as a graph: ``static_in``, which each chunk
+    is copied into, ``static_out``, which each replay rewrites, and
+    ``launches``, the counted kernel launches (by counter) of one replay."""
+    graph: object
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: Dict[str, int]
+
+
+class StepGraphs:
+    """A scorer's model steps by chunk key: ``steps`` maps a key to None
+    after its first chunk, then to its :class:`CapturedStep`. ``captures``
+    counts the steps captured and ``replays`` the chunks replayed; both
+    outlive clearing ``steps``, which drops the graphs (their memory goes
+    to the device's later graphs)."""
+
+    def __init__(self):
+        self.steps: Dict[tuple, Optional[CapturedStep]] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, step: Callable[[torch.Tensor], torch.Tensor],
+            frames: torch.Tensor, key: tuple,
+            make_graph: Callable[[], object]) -> torch.Tensor:
+        """``step(frames)``: eager on the first chunk of ``frames``' shape
+        and dtype and ``key``, then captured into ``make_graph()`` (the
+        launches it counts go to its tally, which each replay adds to the
+        counters) and replayed."""
+        key = (tuple(frames.shape), frames.dtype) + key
+        if key not in self.steps:
+            self.steps[key] = None
+            return step(frames)
+        captured = self.steps[key]
+        if captured is None:
+            graph = make_graph()
+            static_in = torch.empty_like(frames)
+            with tally_launches() as launches:
+                static_out = graph.capture(lambda: step(static_in))
+            captured = self.steps[key] = CapturedStep(graph, static_in,
+                                                      static_out, launches)
+            self.captures += 1
+        captured.static_in.copy_(frames)
+        captured.graph.replay()
+        add_launch_counts(captured.launches)
+        self.replays += 1
+        # a later replay rewrites the static output
+        return captured.static_out.clone()

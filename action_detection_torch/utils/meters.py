@@ -12,8 +12,8 @@ and ``score.item`` (``infer/features.py:fan_out``), ``frames.wait``
 (``data/pipeline.py:iter_windowed_decode``), ``chunk.stack`` (a chunk
 built in its staging slot), ``chunk.h2d`` (its copy enqueued on the
 staging ring's copy stream, a wait for the slot's last copy included),
-``chunk.launch`` (the model step enqueued) and ``pack.finish`` (pooling
-and readback) (``infer/scorer.py``). They are recorded only while a torch
+``chunk.launch`` (the model step enqueued) (``infer/features.py``) and
+``pack.finish`` (pooling and readback) (``infer/scorer.py``). They are recorded only while a torch
 profiler is active in the process: a span site reads
 ``profiler._is_profiler_enabled`` (torch's own flag) and does nothing more
 when it is False. Their clock is ``time.time_ns()``, the clock of the

@@ -1,6 +1,6 @@
 """ctypes bindings to the port's C++ host kernels (``csrc/adt_native.cpp``):
 greedy temporal NMS, the TAG box search, and the row gather that builds a
-scoring chunk in its staging slot (``infer/scorer.py``).
+scoring chunk in its staging slot (``infer/features.py``).
 
 The library builds at first call, not at import, with one
 ``g++ -O2 -std=c++17 -shared -fPIC`` (``$CXX`` picks another compiler) into

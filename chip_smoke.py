@@ -2651,7 +2651,8 @@ def run_pipeline(d: str, smi: str) -> dict:
 
 def time_actionness(model, smi) -> None:
     """Device time of one steady-state 64-tick actionness chunk (640 crops,
-    int8-e2e shared stem, per-crop logits): CUDA events, median of 10."""
+    int8-e2e shared stem, per-crop logits, replayed as its CUDA graph from
+    the third call on): CUDA events, median of 10."""
     import numpy as np
     import torch
 
@@ -2667,7 +2668,7 @@ def time_actionness(model, smi) -> None:
                           calibration_frames=calib,
                           shared_stem=True) as scorer:
         chunk = torch.as_tensor(frames).cuda()
-        step = lambda: scorer._score_chunk(chunk)      # noqa: E731
+        step = lambda: scorer._score_chunk(chunk, 64)  # noqa: E731
         out = step()
         if out.shape != (64, 10, 2) or not torch.isfinite(out).all():
             raise AssertionError(f"actionness chunk {tuple(out.shape)}")

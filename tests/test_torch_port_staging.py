@@ -1,17 +1,20 @@
-"""The scorer's staging ring (``infer/scorer.py:StagingRing``), on the CPU.
+"""The scorers' staging ring (``infer/features.py:StagingRing``), on the
+CPU.
 
 A seeded TinyConv SSN scores three videos of 15 ticks (interval 40) in
 chunks of 4, two of them at one scale shape and the middle one at
 another, so packing fills 8 chunks of one shape and 4 of the other,
 interleaved, each shape ending in a partial chunk, and every ring of 2
 slots turns over several times. Packed scores equal per-video ones bit
-for bit; every chunk sent holds exactly the bytes ``np.stack`` and
+for bit; every chunk sent, packed or per video, holds exactly the bytes
+``np.stack`` (``iter_scaled_frame_chunks`` per video) and
 ``pad_chunk_ticks`` give, so a slot reused for a partial chunk after a
 full one sends zeros in its tail rows; the counters count the chunks and
-the slots. With fake copy events, no slot is handed out to be written
-before the event of its last copy has been waited on. The row gather that
-packing builds a chunk with (``utils/native.py:gather_rows``, C++) equals
-its plain version and refuses rows it cannot take. The benchmark's
+the slots, for the actionness scorer too. With fake copy events, no slot
+is handed out to be written before the event of its last copy has been
+waited on. The row gather that every device-crop chunk is built with
+(``utils/native.py:gather_rows``, C++) equals its plain version and
+refuses rows it cannot take. The benchmark's
 ``staging_reuse_share.score`` reads those counters. No JAX is
 imported."""
 
@@ -25,15 +28,19 @@ import pytest
 import torch
 
 from action_detection_torch.config import SamplingConfig
+from action_detection_torch.data.binary_dataset import BinaryTestSample
 from action_detection_torch.data.pipeline import (SyntheticFrameProvider,
+                                                  iter_scaled_frame_chunks,
                                                   load_scaled_stack,
                                                   pad_chunk_ticks)
 from action_detection_torch.data.ssn_dataset import SSNDataset
-from action_detection_torch.infer import scorer as scorer_mod
+from action_detection_torch.infer import features as features_mod
+from action_detection_torch.infer.actionness import ActionnessScorer
+from action_detection_torch.infer.features import StagingRing
+from action_detection_torch.infer.scorer import ProposalScorer
 from action_detection_torch.kernels import launch_counts, reset_launch_counts
-from action_detection_torch.infer.scorer import (ProposalScorer,
-                                                 StagingRing)
-from action_detection_torch.models import SSN, seeded_init
+from action_detection_torch.models import (SSN, BinaryClassifier,
+                                           seeded_init)
 from action_detection_torch.models.backbones import get_backbone
 from action_detection_torch.utils.native import gather_rows, gather_rows_plain
 
@@ -73,9 +80,16 @@ def setup(tmp_path_factory):
                               chunk_frames=CHUNK, device="cpu",
                               decode_threads=1)
 
+    binary = seeded_init(BinaryClassifier(base_model="TinyConv",
+                                          dropout=0.0), seed=5)
+
+    def make_actionness():
+        return ActionnessScorer(binary, spec, chunk_frames=CHUNK,
+                                device="cpu", decode_threads=1)
+
     samples = [ds.get_test_sample(i) for i in range(len(ds.video_list))]
-    return dict(ds=ds, make=make, samples=samples, spec=spec,
-                provider=TwoShapes())
+    return dict(ds=ds, make=make, make_actionness=make_actionness,
+                samples=samples, spec=spec, provider=TwoShapes())
 
 
 class Spy:
@@ -105,12 +119,17 @@ class Spy:
         ring._copy = fake_copy
 
 
-def _expected_chunks(setup):
+def _expected_chunks(setup, pack=True):
     """The chunks packing sends, built as ``np.stack`` and
     ``pad_chunk_ticks`` build them: each scale shape's ticks in job order,
     in chunks of :data:`CHUNK`, flushed as they fill, the partial ones
-    last."""
+    last. Per video, each video's ``iter_scaled_frame_chunks``, padded."""
     scale = setup["spec"].scale_size
+    if not pack:
+        return [pad_chunk_ticks(c, 1, CHUNK) for s in setup["samples"]
+                for c in iter_scaled_frame_chunks(
+                    setup["provider"], s.video_id, s.frame_ticks,
+                    s.num_frames, scale, batch_ticks=CHUNK)]
     buffers, chunks = {}, []
     for s in setup["samples"]:
         for tick in s.frame_ticks:
@@ -142,18 +161,26 @@ def test_pack_through_the_ring_equals_per_video(setup):
     assert (a.staging.allocated, b.staging.allocated) == (4, 4)
 
 
-def test_every_chunk_sent_is_the_stacked_padded_chunk(setup):
+@pytest.mark.parametrize("pack", [True, False])
+def test_every_chunk_sent_is_the_stacked_padded_chunk(setup, pack):
+    """Packed, and per video (each chunk sent once, through the ring)."""
     scorer = setup["make"]()
     spy = Spy(scorer.staging)
-    scorer.score_video_pack(setup["samples"], setup["provider"])
-    want = _expected_chunks(setup)
-    assert len(spy.sent) == len(want) == 12
+    if pack:
+        scorer.score_video_pack(setup["samples"], setup["provider"])
+    else:
+        for s in setup["samples"]:
+            scorer.score_video(s, setup["provider"])
+    want = _expected_chunks(setup, pack)
+    assert len(spy.sent) == len(want) == scorer.staging.staged == 12
     for (_, got), ref in zip(spy.sent, want):
         np.testing.assert_array_equal(got, ref)
-    # the two shapes took turns, and each ring of 2 turned over
+    # the two shapes took turns (packed: interleaved; per video: the
+    # middle video's), and each ring of 2 turned over
     shapes = [got.shape for _, got in spy.sent]
     assert len(set(shapes)) == 2
-    assert sum(a != b for a, b in zip(shapes, shapes[1:])) >= 3
+    assert sum(a != b for a, b in zip(shapes, shapes[1:])) >= (3 if pack
+                                                               else 2)
     assert all(len(e) >= 2 for e in spy.events.values())
     assert len(spy.events) == 4
     scorer.close()
@@ -179,13 +206,25 @@ def test_a_partial_chunk_after_a_full_one_sends_zero_tail_rows(setup):
     scorer.close()
 
 
-def test_counters_and_release(setup):
-    """A call's counts; ``release`` gives the slots back and keeps the
-    counts; the next chunk of a shape makes its slots anew."""
-    scorer = setup["make"]()
+@pytest.mark.parametrize("kind", ["proposal", "actionness"])
+def test_counters_and_release(setup, kind):
+    """A call's counts (a packed proposal call; the actionness scorer's
+    per-video calls, 4 chunks each); ``release`` gives the slots back and
+    keeps the counts; the next chunk of a shape makes its slots anew."""
+    if kind == "proposal":
+        scorer = setup["make"]()
+    else:
+        scorer = setup["make_actionness"]()
     ring = scorer.staging
     assert (ring.staged, ring.allocated) == (0, 0)
-    scorer.score_video_pack(setup["samples"], setup["provider"])
+    if kind == "proposal":
+        scorer.score_video_pack(setup["samples"], setup["provider"])
+    else:
+        for s in setup["samples"]:
+            out = scorer.score_video(
+                BinaryTestSample(s.video_id, s.frame_ticks, s.num_frames),
+                setup["provider"])
+            assert out.shape == (15, 10, 2)
     assert (ring.staged, ring.allocated) == (12, 4)
     scorer.close()
     assert (ring.staged, ring.allocated) == (12, 4)
@@ -220,7 +259,7 @@ def test_no_slot_is_written_before_its_last_copy_is_waited_on(
     (the only way a chunk reaches a slot) has had the event of its last
     copy waited on, over a packed call and per-video calls, with two and
     three slots a shape."""
-    monkeypatch.setattr(scorer_mod, "STAGING_SLOTS", slots)
+    monkeypatch.setattr(features_mod, "STAGING_SLOTS", slots)
     scorer = setup["make"]()
     spy = Spy(scorer.staging)
     take = scorer.staging.take
@@ -284,13 +323,13 @@ def test_gather_rows_refuses_what_it_cannot_take():
 
 
 def test_packing_gathers_each_chunk_once(setup):
-    """One native gather a packed chunk, none per video."""
+    """One native gather a chunk, packed or per video (4 chunks)."""
     reset_launch_counts()
     with setup["make"]() as scorer:
         scorer.score_video_pack(setup["samples"], setup["provider"])
         assert launch_counts()["host_gather_rows"] == 12
         scorer.score_video(setup["samples"][0], setup["provider"])
-    assert launch_counts()["host_gather_rows"] == 12
+    assert launch_counts()["host_gather_rows"] == 12 + 4
 
 
 def _reader():

@@ -1,27 +1,30 @@
-"""The scorer's model step as a CUDA graph (``infer/scorer.py:
-ProposalScorer._graph_step``, ``infer/step_graph.py``).
+"""The scorers' model step as a CUDA graph (``infer/features.py:
+CropFeatureScorer._score_chunk``, ``infer/step_graph.py:StepGraphs``).
 
-On the CPU a fake graph (``ProposalScorer.graph_factory``, the seam the
-scorer makes its graphs through) records each call: its capture runs the
-step once and leaves NaN in the static output, as a real capture computes
-nothing, and its replay runs the step again into that output. A seeded
-BNInception SSN at 64^2 crops (int8-e2e, the shared stem) scores two
-videos of 8 ticks in chunks of 3, one video at another scale shape: two
-chunk keys, a partial last chunk each. The first chunk of a key runs
+On the CPU a fake graph (``CropFeatureScorer.graph_factory``, the seam the
+scorers make their graphs through) records each call: its capture runs
+the step once and leaves NaN in the static output, as a real capture
+computes nothing, and its replay runs the step again into that output. A
+seeded BNInception SSN at 64^2 crops (int8-e2e, the shared stem) scores
+two videos of 8 ticks in chunks of 3, one video at another scale shape:
+two chunk keys, a partial last chunk each; so does a seeded BNInception
+actionness classifier, video by video. The first chunk of a key runs
 eagerly, the second captures and replays, later ones replay; the scores
-equal the eager scores bit for bit (so the static input is refreshed and
-each chunk's output is a clone); a scorer that calibrates lazily captures
-nothing before its calibration; each key captures once; the counters
-count and outlive ``close``, which drops the graphs; ``launch_counts()``
-grows by a capture's launches on each replay, and a capture's tally holds
-none of another thread's launches; the CPU, ``perlayer`` and float scorers
-never capture. ``graph_replay_share.score`` reads the counters.
+and the actionness logits equal the eager ones bit for bit (so the static
+input is refreshed and each chunk's output is a clone); a scorer that
+calibrates lazily captures nothing before its calibration; each key
+captures once; the counters count and outlive ``close``, which drops the
+graphs; ``launch_counts()`` grows by a capture's launches on each replay,
+and a capture's tally holds none of another thread's launches; the CPU,
+``perlayer`` and float scorers of either kind never capture.
+``graph_replay_share.score`` reads the counters.
 
 The cases marked ``cuda`` run the real graphs on the card and skip here:
-graph and eager scores of a packed call are bit-identical, the harness's
-planted faults still change the scores under replay, and the peak memory,
-the reserved memory and the graph pool of the 5th of 5 calls equal the
-2nd's. The file imports no JAX:
+graph and eager scores of a packed call, and graph and eager actionness
+logits, are bit-identical, the harness's planted faults still change the
+scores under replay, and the peak memory, the reserved memory and the
+graph pool of the 5th of 5 calls equal the 2nd's. The file imports no
+JAX:
 
     python -m pytest tests/test_torch_port_step_graph.py -m cuda
 """
@@ -40,15 +43,19 @@ import pytest
 import torch
 
 from action_detection_torch.config import SamplingConfig
+from action_detection_torch.data.binary_dataset import BinaryTestSample
 from action_detection_torch.data.pipeline import SyntheticFrameProvider
 from action_detection_torch.data.ssn_dataset import SSNDataset
-from action_detection_torch.infer.features import shared_prequantized
+from action_detection_torch.infer.actionness import (ActionnessScorer,
+                                                     score_actionness)
+from action_detection_torch.infer.features import (CropFeatureScorer,
+                                                   shared_prequantized)
 from action_detection_torch.infer.scorer import ProposalScorer, score_videos
 from action_detection_torch.kernels import (KERNELS, add_launch_counts,
                                             count_launch, launch_counts,
                                             reset_launch_counts)
 from action_detection_torch.kernels.int8 import int8_conv
-from action_detection_torch.models import SSN, seeded_init
+from action_detection_torch.models import SSN, BinaryClassifier, seeded_init
 from action_detection_torch.models.backbones import InputSpec, get_backbone
 from action_detection_torch.utils.native import gather_rows
 
@@ -128,10 +135,10 @@ def fake_factory(monkeypatch, check=None, graph=FakeGraph, on_cpu=True):
             check(device)
         return graph(log, device)
 
-    monkeypatch.setattr(ProposalScorer, "graph_factory",
+    monkeypatch.setattr(CropFeatureScorer, "graph_factory",
                         staticmethod(factory))
     if on_cpu:
-        monkeypatch.setattr(ProposalScorer, "graph_devices", ("cpu",))
+        monkeypatch.setattr(CropFeatureScorer, "graph_devices", ("cpu",))
     return log
 
 
@@ -160,11 +167,36 @@ def setup(tmp_path_factory):
                               calibration_frames=calib if calibrate
                               else None, **kw)
 
+    binary = seeded_init(BinaryClassifier(dropout=0.0), seed=4)
+
+    def make_actionness(quantize="e2e", calibrate=True):
+        return ActionnessScorer(binary, spec, chunk_frames=CHUNK,
+                                device="cpu", quantize=quantize,
+                                shared_stem=quantize == "e2e",
+                                decode_threads=1,
+                                calibration_frames=calib if calibrate
+                                else None)
+
+    bsamples = [BinaryTestSample(s.video_id, s.frame_ticks, s.num_frames)
+                for s in samples]
     with make() as eager:
         ref = eager.score_video_pack(samples, provider, keep_raw=True)
+    with make_actionness() as eager:
+        bref = [eager.score_video(s, provider) for s in bsamples]
     assert [len(s.frame_ticks) for s in samples] == [8, 8]
     return dict(make=make, samples=samples, provider=provider, ref=ref,
-                model=model, spec=spec)
+                model=model, spec=spec, make_actionness=make_actionness,
+                bsamples=bsamples, bref=bref)
+
+
+def score_all(setup, scorer, kind, **kw):
+    """A packed proposal call, or the actionness scorer's per-video
+    calls."""
+    if kind == "proposal":
+        return scorer.score_video_pack(setup["samples"], setup["provider"],
+                                       **kw)
+    return [scorer.score_video(s, setup["provider"])
+            for s in setup["bsamples"]]
 
 
 def assert_equal_scores(got, ref):
@@ -191,13 +223,15 @@ def test_first_chunk_eager_second_captures_later_replay(setup, monkeypatch):
     scorer.close()
 
 
-def test_packed_call_equals_eager_bit_for_bit(setup, monkeypatch):
+@pytest.mark.parametrize("kind", ["proposal", "actionness"])
+def test_packed_call_equals_eager_bit_for_bit(setup, monkeypatch, kind):
     """Every chunk is copied into the static input before its replay and
     comes back as a clone: a packed call (two keys, each with a partial
-    chunk) gives the eager scores, with 2 captures and 4 replays of 6
+    chunk) gives the eager scores, and the actionness scorer's two videos
+    (the same keys) its eager logits, with 2 captures and 4 replays of 6
     chunks."""
     log = fake_factory(monkeypatch)
-    scorer = setup["make"]()
+    scorer = setup["make" if kind == "proposal" else "make_actionness"]()
     returned = []
     score = scorer._score_chunk
 
@@ -207,9 +241,13 @@ def test_packed_call_equals_eager_bit_for_bit(setup, monkeypatch):
         return out
 
     scorer._score_chunk = spy
-    got = scorer.score_video_pack(setup["samples"], setup["provider"],
-                                  keep_raw=True)
-    assert_equal_scores(got, setup["ref"])
+    if kind == "proposal":
+        got = score_all(setup, scorer, kind, keep_raw=True)
+        assert_equal_scores(got, setup["ref"])
+    else:
+        for g, r in zip(score_all(setup, scorer, kind), setup["bref"]):
+            assert g.shape == (8, 10, 2)
+            np.testing.assert_array_equal(g, r)
     assert scorer.device_ticks == 6 * CHUNK
     assert (scorer.graph_captures, scorer.graph_replays) == (2, 4)
     graphs = [g for e, g in log if e == "make"]
@@ -235,7 +273,7 @@ def test_each_key_captures_once(setup, monkeypatch):
         scorer._score_chunk(one_chunk(dtype), CHUNK)
     graphs = [g for e, g in log if e == "make"]
     assert len(graphs) == scorer.graph_captures == 3
-    assert set(scorer._steps) == {
+    assert set(scorer._graphs.steps) == {
         ((CHUNK, 73, 81, 3), torch.uint8, CHUNK),
         ((CHUNK, 81, 73, 3), torch.uint8, CHUNK),
         ((CHUNK, 73, 81, 3), torch.float32, CHUNK)}
@@ -289,7 +327,7 @@ def test_close_drops_the_graphs(setup, monkeypatch):
     scorer.close()
     gc.collect()
     assert len(graphs) == 2 and all(g() is None for g in graphs)
-    assert not scorer._steps
+    assert not scorer._graphs.steps
     scorer.close()
     got = scorer.score_video_pack(setup["samples"], setup["provider"],
                                   keep_raw=True)
@@ -322,7 +360,7 @@ def test_replays_count_the_captured_launches(setup, monkeypatch):
     assert counts["int8_conv"] == 2 * 6
     # 6 chunks' gathers, the 2 eager steps' and the 2 captures' stand-ins
     assert counts["host_gather_rows"] == 6 + 4
-    assert [s.launches for s in scorer._steps.values()] == [
+    assert [s.launches for s in scorer._graphs.steps.values()] == [
         {"int8_conv": 2}] * 2
     assert events(log).count("replay") == 4
     scorer.close()
@@ -364,7 +402,7 @@ def test_capture_tallies_only_its_own_threads_launches(setup, monkeypatch):
     for _ in range(3):
         scorer._score_chunk(frames, CHUNK)
     assert events(log) == ["make", "capture", "replay", "replay"]
-    (step,) = scorer._steps.values()
+    (step,) = scorer._graphs.steps.values()
     assert step.launches == {"int8_conv": 2}
     assert launch_counts()["int8_conv"] == 3 * 2 + 5
     scorer.close()
@@ -389,19 +427,21 @@ def test_counts_from_threads_add_up():
     reset_launch_counts()
 
 
+@pytest.mark.parametrize("scorer_kind", ["proposal", "actionness"])
 @pytest.mark.parametrize("kind", ["cpu", "perlayer", "float"])
-def test_cpu_perlayer_and_float_never_capture(setup, monkeypatch, kind):
+def test_cpu_perlayer_and_float_never_capture(setup, monkeypatch, kind,
+                                              scorer_kind):
     """The CPU runs no CUDA graphs; ``perlayer`` and the float backbone
     stay eager on a device that does."""
+    make = setup["make" if scorer_kind == "proposal" else "make_actionness"]
     if kind == "cpu":
-        assert ProposalScorer.graph_devices == ("cuda",)
+        assert CropFeatureScorer.graph_devices == ("cuda",)
         log = fake_factory(monkeypatch, on_cpu=False)
-        scorer = setup["make"]()
+        scorer = make()
     else:
         log = fake_factory(monkeypatch)
-        scorer = setup["make"](quantize=False if kind == "float"
-                               else kind)
-    scorer.score_video_pack(setup["samples"], setup["provider"])
+        scorer = make(quantize=False if kind == "float" else kind)
+    score_all(setup, scorer, scorer_kind)
     assert not log
     assert (scorer.graph_captures, scorer.graph_replays) == (0, 0)
     scorer.close()
@@ -470,7 +510,8 @@ def card(tmp_path_factory):
     """A seeded BNInception SSN at its published 224^2 crops of 340x256
     frames, int8-e2e with the shared stem: three videos of 15 ticks
     scored packed in chunks of 8 (6 chunks, the last one partial: one
-    eager, five replays)."""
+    eager, five replays); and a seeded BNInception actionness classifier
+    the same way, video by video (6 chunks of one key, 2 a video)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the model step's graphs hold the "
                     "CUDA kernels K1-K3, which have no CPU mode")
@@ -489,26 +530,41 @@ def card(tmp_path_factory):
                               calibration_frames=calib,
                               prequantized=prequantized, decode_threads=2)
 
-    return dict(ds=ds, provider=provider, make_scorer=make_scorer)
+    binary = seeded_init(BinaryClassifier(dropout=0.0), seed=4)
+
+    def make_actionness(device, prequantized):
+        return ActionnessScorer(binary, spec, chunk_frames=8, device=device,
+                                quantize="e2e", shared_stem=True,
+                                calibration_frames=calib,
+                                prequantized=prequantized, decode_threads=2)
+
+    return dict(ds=ds, provider=provider, make_scorer=make_scorer,
+                make_actionness=make_actionness)
 
 
-def _score(card, factory=None):
-    """A packed ``score_videos`` call on the card, with a scorer factory of
-    its own; its tuples by video and the scorers it built."""
+def _score(card, factory=None, kind="proposal"):
+    """A packed ``score_videos`` call on the card (``score_actionness``
+    for the actionness scorer), with a scorer factory of its own; its
+    tuples (logits) by video and the scorers it built."""
     built = []
+    made = card["make_scorer" if kind == "proposal" else "make_actionness"]
 
     def make(device, prequantized):
-        built.append(card["make_scorer"](device, prequantized))
+        built.append(made(device, prequantized))
         return built[-1]
 
     factory = factory or shared_prequantized(make, True)
+    if kind == "actionness":
+        out = score_actionness(factory, card["ds"], card["provider"],
+                               devices=["cuda"])
+        return {v: (r,) for v, r in out.items()}, built
     out = score_videos(factory, card["ds"], card["provider"],
                        devices=["cuda"], pack=True)
     return {v: r.as_tuple() for v, r in out.items()}, built
 
 
 def _eager(monkeypatch):
-    monkeypatch.setattr(ProposalScorer, "graph_devices", ())
+    monkeypatch.setattr(CropFeatureScorer, "graph_devices", ())
 
 
 def _assert_same(a, b):
@@ -519,15 +575,16 @@ def _assert_same(a, b):
 
 
 @pytest.mark.cuda
-def test_cuda_graph_scores_equal_eager_bit_for_bit(card, monkeypatch):
-    graph, built = _score(card)
+@pytest.mark.parametrize("kind", ["proposal", "actionness"])
+def test_cuda_graph_scores_equal_eager_bit_for_bit(card, monkeypatch, kind):
+    graph, built = _score(card, kind=kind)
     assert [(s.graph_captures, s.graph_replays) for s in built] == [(1, 5)]
     reset_launch_counts()
-    again, _ = _score(card)
+    again, _ = _score(card, kind=kind)
     graphed_counts = launch_counts()
     _eager(monkeypatch)
     reset_launch_counts()
-    eager, built = _score(card)
+    eager, built = _score(card, kind=kind)
     assert [(s.graph_captures, s.graph_replays) for s in built] == [(0, 0)]
     _assert_same(graph, eager)
     _assert_same(again, eager)
