@@ -47,7 +47,16 @@
 //
 // The input may be a channel slice of a wider NHWC tensor (the fused
 // branch-entry conv's split outputs): x_pix_stride is the element distance
-// between neighbouring pixels.
+// between neighbouring pixels. So may the output (an Inception module's
+// buffer, which each branch's last conv fills at its channel offset, so the
+// module needs no concat): out_pix_stride is its pixel distance. The output
+// columns may also go to two places: columns below split to out, the rest
+// to out2 (pixels out2_pix_stride apart): the fused entry conv's 1x1 branch
+// into the module's buffer and its reduce heads apart. Where both pixel
+// strides are 16-byte multiples (the wrapper makes sure of it for a slice,
+// as for the split: split * esize % 16 == 0, and the 16-byte alignment),
+// rows go out in 16-byte writes, a slice's last partial chunk byte by byte;
+// else (a contiguous output of O * esize % 16 != 0) element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +74,7 @@ struct ConvShape {
   int N, H, W, C, x_pix_stride;
   int O, KH, KW, stride, pad_h, pad_w;
   int Ho, Wo;
+  int out_pix_stride, out2_pix_stride, split;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -214,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, void* __restrict__ out,
-                 ConvShape s) {
+                 void* __restrict__ out2, ConvShape s) {
   constexpr int kAStage = kBM * kBK;
   constexpr int kStage = kAStage + BN * kBK;
   extern __shared__ uint8_t smem_raw[];
@@ -350,26 +360,46 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   const int rows = min(kBM, M - m0);
   const int cols = min(BN, s.O - o0);
-  const long long out_pitch = (long long)s.O * kEsize;
-  uint8_t* obase = static_cast<uint8_t*>(out) + (long long)m0 * out_pitch +
-                   (long long)o0 * kEsize;
-  if (out_pitch % 16 == 0) {  // every output row starts 16-byte aligned
+  const long long pitch = (long long)s.out_pix_stride * kEsize;
+  const long long pitch2 = (long long)s.out2_pix_stride * kEsize;
+  if (pitch % 16 == 0 && pitch2 % 16 == 0) {  // 16-byte aligned rows
+    // thread tid stores 16-byte chunk c = tid % kCPR of rows tid / kCPR,
+    // + kRowStep, ...: its destination (out below split, else out2), pitch
+    // and chunk width are the same for all its rows
     constexpr int kCPR = kRowBytes / 16;
-    for (int idx = tid; idx < kBM * kCPR; idx += kThreads) {
-      const int r = idx / kCPR, c = idx % kCPR;
-      if (r < rows && c * 16 < cols * kEsize)
-        *reinterpret_cast<int4*>(obase + r * out_pitch + c * 16) =
-            *reinterpret_cast<const int4*>(tile + r * kPitch + c * 16);
+    constexpr int kRowStep = kThreads / kCPR;
+    static_assert(kThreads % kCPR == 0, "a thread keeps its chunk column");
+    const int c = tid % kCPR;
+    const int left = cols * kEsize - c * 16;  // row bytes from chunk c on
+    if (left > 0) {
+      const int o = o0 + c * (16 / kEsize);
+      const bool first = o < s.split;
+      const long long p = first ? pitch : pitch2;
+      uint8_t* d = first ? static_cast<uint8_t*>(out) + (long long)o * kEsize
+                         : static_cast<uint8_t*>(out2) +
+                               (long long)(o - s.split) * kEsize;
+      d += m0 * p;
+      const uint8_t* t = tile + c * 16;
+      for (int r = tid / kCPR; r < rows; r += kRowStep) {
+        if (left >= 16)
+          *reinterpret_cast<int4*>(d + r * p) =
+              *reinterpret_cast<const int4*>(t + r * kPitch);
+        else  // a channel slice's last, partial chunk
+          for (int b = 0; b < left; ++b) d[r * p + b] = t[r * kPitch + b];
+      }
     }
-  } else {
+  } else {  // one contiguous output (the wrapper gives a slice or a split
+            // only 16-byte-multiple pixel strides)
+    uint8_t* obase = static_cast<uint8_t*>(out) + m0 * pitch +
+                     (long long)o0 * kEsize;
     for (int idx = tid; idx < kBM * BN; idx += kThreads) {
       const int r = idx / BN, c = idx % BN;
       if (r < rows && c < cols) {
         if (kBf16Out)
-          *reinterpret_cast<uint16_t*>(obase + r * out_pitch + 2 * c) =
+          *reinterpret_cast<uint16_t*>(obase + r * pitch + 2 * c) =
               *reinterpret_cast<const uint16_t*>(tile + r * kPitch + 2 * c);
         else
-          obase[r * out_pitch + c] = tile[r * kPitch + c];
+          obase[r * pitch + c] = tile[r * kPitch + c];
       }
     }
   }
@@ -377,8 +407,8 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 template <int BN, bool kBf16Out>
 cudaError_t launch(const void* x, const void* w, const float* scale,
-                   const float* bias, void* out, const ConvShape& s,
-                   cudaStream_t st) {
+                   const float* bias, void* out, void* out2,
+                   const ConvShape& s, cudaStream_t st) {
   // the ring slots a depth of nk stages uses (a shallow 1x1 conv uses one
   // or two, and more of its blocks then fit on an SM), at least the output
   // tile, + 1024 for the alignment
@@ -397,7 +427,7 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
                   (unsigned)((M + kBM - 1) / kBM));
   int8_conv_kernel<BN, kBf16Out><<<grid, kThreads, smem, st>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale,
-      bias, out, s);
+      bias, out, out2, s);
   return cudaGetLastError();
 }
 
@@ -406,24 +436,29 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
 // x: (N, H, W, C) int8 NHWC, pixels x_pix_stride elements apart, 16-byte
 // aligned, C % 16 == 0; w: (O, KH, KW, C) int8 contiguous, 16-byte aligned;
 // scale, bias: (O,) f32; zero padding pad_h / pad_w on both sides of each
-// axis; out: (N, Ho, Wo, O) int8, or bf16 when out_bf16; bn: the column
-// tile, 32, 64 or 128. N * Ho * Wo < 2**31 and its row tiles fit gridDim.y.
-// Returns the launch's cudaError_t.
+// axis; the output (N, Ho, Wo, O), int8, or bf16 when out_bf16: columns
+// [0, split) to out, [split, O) to out2, pixels out_pix_stride and
+// out2_pix_stride elements apart (a contiguous output: out2 = out, both
+// strides O, split O); bn: the column tile, 32, 64 or 128. N * Ho * Wo <
+// 2**31 and its row tiles fit gridDim.y. Returns the launch's cudaError_t.
 extern "C" int adt_int8_conv(const void* x, const void* w, const float* scale,
-                             const float* bias, void* out, int N, int H,
-                             int W, int C, int x_pix_stride, int O, int KH,
-                             int KW, int stride, int pad_h, int pad_w, int Ho,
-                             int Wo, int bn, int out_bf16, void* stream) {
+                             const float* bias, void* out, void* out2, int N,
+                             int H, int W, int C, int x_pix_stride, int O,
+                             int KH, int KW, int stride, int pad_h, int pad_w,
+                             int Ho, int Wo, int out_pix_stride,
+                             int out2_pix_stride, int split, int bn,
+                             int out_bf16, void* stream) {
   const ConvShape s{N, H, W, C, x_pix_stride, O, KH, KW, stride, pad_h, pad_w,
-                    Ho, Wo};
+                    Ho, Wo, out_pix_stride, out2_pix_stride, split};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  void* o2 = out2;
   switch (bn * 2 + (out_bf16 ? 1 : 0)) {
-    case 64: return (int)launch<32, false>(x, w, scale, bias, out, s, st);
-    case 65: return (int)launch<32, true>(x, w, scale, bias, out, s, st);
-    case 128: return (int)launch<64, false>(x, w, scale, bias, out, s, st);
-    case 129: return (int)launch<64, true>(x, w, scale, bias, out, s, st);
-    case 256: return (int)launch<128, false>(x, w, scale, bias, out, s, st);
-    case 257: return (int)launch<128, true>(x, w, scale, bias, out, s, st);
+    case 64: return (int)launch<32, false>(x, w, scale, bias, out, o2, s, st);
+    case 65: return (int)launch<32, true>(x, w, scale, bias, out, o2, s, st);
+    case 128: return (int)launch<64, false>(x, w, scale, bias, out, o2, s, st);
+    case 129: return (int)launch<64, true>(x, w, scale, bias, out, o2, s, st);
+    case 256: return (int)launch<128, false>(x, w, scale, bias, out, o2, s, st);
+    case 257: return (int)launch<128, true>(x, w, scale, bias, out, o2, s, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -83,8 +83,8 @@ __device__ __forceinline__ int4 max3(const int4 a, const int4 b,
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 int8_max_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                      int H, int W, int C, int Ho, int Wo, int pad,
-                      int tile_h, int tile_w, int tiles_w) {
+                      int H, int W, int C, int Ho, int Wo, int out_pix_stride,
+                      int pad, int tile_h, int tile_w, int tiles_w) {
   extern __shared__ int4 cells[];  // rows x cols x slab staged input cells
   const int slab = blockDim.x;
   const int c = threadIdx.x;
@@ -118,7 +118,8 @@ int8_max_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int ox = ox0 + tx;
   if (ox >= Wo) return;
-  int8_t* dst = out + ((long long)blockIdx.z * Ho * Wo + ox) * C + cbyte;
+  int8_t* dst =
+      out + ((long long)blockIdx.z * Ho * Wo + ox) * out_pix_stride + cbyte;
   int4 up2 = make_int4(neg, neg, neg, neg);  // row maxima of the two
   int4 up1 = up2;                            // staged rows above
   for (int r = 0; r < rows; ++r) {
@@ -126,7 +127,8 @@ int8_max_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int4 row = max3(p[0], p[slab], p[2 * slab]);
     if (r >= 2 && (r - 2) % S == 0) {
       const int oy = oy0 + (r - 2) / S;
-      *reinterpret_cast<int4*>(dst + oy * Wo * C) = max3(up2, up1, row);
+      *reinterpret_cast<int4*>(dst + oy * Wo * out_pix_stride) =
+          max3(up2, up1, row);
     }
     up2 = up1;
     up1 = row;
@@ -243,14 +245,17 @@ int8_avg_pool3_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 }  // namespace
 
 // x: (N, H, W, C) int8 contiguous, 16-byte aligned, C % 16 == 0; out:
-// (N, Ho, Wo, C). A 3x3 max pool at stride 1 or 2 whose windows start at
+// (N, Ho, Wo, C), pixels out_pix_stride bytes apart (a multiple of 16: out
+// may be a channel slice of an Inception module's buffer), 16-byte aligned.
+// A 3x3 max pool at stride 1 or 2 whose windows start at
 // o * stride - pad; cells outside the input are -128 (never the max). The
 // tile (tile_h x tile_w output cells, slab 16-byte chunks dividing C / 16,
 // slab * tile_w <= 256 threads, the staged cells within 48 KB) comes from
 // kernels/int8.py:int8_pool_plan. Returns the launch's cudaError_t.
 extern "C" int adt_int8_max_pool(const void* x, void* out, int N, int H,
-                                 int W, int C, int Ho, int Wo, int stride,
-                                 int pad, int tile_h, int tile_w, int slab,
+                                 int W, int C, int Ho, int Wo,
+                                 int out_pix_stride, int stride, int pad,
+                                 int tile_h, int tile_w, int slab,
                                  void* stream) {
   const int tiles_w = (Wo + tile_w - 1) / tile_w;
   const int tiles = ((Ho + tile_h - 1) / tile_h) * tiles_w;
@@ -263,10 +268,10 @@ extern "C" int adt_int8_max_pool(const void* x, void* out, int N, int H,
   int8_t* o = static_cast<int8_t*>(out);
   if (stride == 1)
     int8_max_pool3_kernel<1><<<grid, block, smem, s>>>(
-        xi, o, H, W, C, Ho, Wo, pad, tile_h, tile_w, tiles_w);
+        xi, o, H, W, C, Ho, Wo, out_pix_stride, pad, tile_h, tile_w, tiles_w);
   else if (stride == 2)
     int8_max_pool3_kernel<2><<<grid, block, smem, s>>>(
-        xi, o, H, W, C, Ho, Wo, pad, tile_h, tile_w, tiles_w);
+        xi, o, H, W, C, Ho, Wo, out_pix_stride, pad, tile_h, tile_w, tiles_w);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -29,11 +29,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # x, w, scale, bias, out, N, H, W, C, x_pix_stride, O, KH, KW, stride,
-    # pad_h, pad_w, Ho, Wo, bn, out_bf16, stream
-    "adt_int8_conv": [_P] * 5 + [_I] * 15 + [_P],
-    # x, out, N, H, W, C, Ho, Wo, stride, pad, tile_h, tile_w, slab, stream
-    "adt_int8_max_pool": [_P] * 2 + [_I] * 11 + [_P],
+    # x, w, scale, bias, out, out2, N, H, W, C, x_pix_stride, O, KH, KW,
+    # stride, pad_h, pad_w, Ho, Wo, out_pix_stride, out2_pix_stride, split,
+    # bn, out_bf16, stream
+    "adt_int8_conv": [_P] * 6 + [_I] * 18 + [_P],
+    # x, out, N, H, W, C, Ho, Wo, out_pix_stride, stride, pad, tile_h,
+    # tile_w, slab, stream
+    "adt_int8_max_pool": [_P] * 2 + [_I] * 12 + [_P],
     # x, out, N, H, W, C, tile_h, tile_w, slab, exclude_pad, stream
     "adt_int8_avg_pool": [_P] * 2 + [_I] * 8 + [_P],
     # x, y, dy, dx, plan (kernels/pool_bwd.py:PLAN_FIELDS), len(plan), stream

@@ -31,6 +31,12 @@ and addresses that are multiples of 16 (:func:`int8_conv_refusal`,
 :func:`_check_pool_input`; every conv and pool of both trunks meets it);
 the CPU path keeps the looser checks of the plain versions.
 
+K1 and K2 write into an ``out=`` channel slice where given (the pixel
+stride, as K1 reads ``x``), so an Inception module's branches fill one
+buffer (:func:`channel_slots`) and its concat is a view of it
+(:func:`concat_channels`, which counts the concats assembled in place and
+those that copied).
+
 Every function keeps the JAX package's NHWC layout and its exact rounding:
 the plain versions are bit-identical to ``_conv_i8_e2e``, ``_conv_int8``,
 ``_max_pool_i8`` and ``_avg_pool_i8_include_pad`` of ``bn_inception_int8``
@@ -55,6 +61,9 @@ _OUT_DTYPES = (torch.int8, torch.bfloat16)
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 #: a conv's symmetric padding: one int for both axes, or (pad_h, pad_w)
 ConvPad = Union[int, Tuple[int, int]]
+#: where K1 writes (:func:`int8_conv`): a new tensor (None), a tensor, or a
+#: pair (head, tail) splitting the output channels
+ConvOut = Union[None, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 # K1's tile (csrc/int8_conv.cu: kBM, kBK, kStages); the column tile (32,
@@ -90,30 +99,50 @@ def conv_pads(pad: ConvPad) -> Tuple[int, int]:
 
 def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor, stride: int = 1, pad: ConvPad = 0,
-                    out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.int8,
+                    out: ConvOut = None) -> ConvOut:
     """K1's plain version: a float64 conv on int-valued tensors (exact: every
     partial sum is an integer far below 2**53), then the same f32 epilogue
-    ops as the JAX package — y*scale and +bias round separately."""
+    ops as the JAX package — y*scale and +bias round separately. Written
+    into ``out`` where given (:func:`int8_conv`)."""
     y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
                  w.permute(0, 3, 1, 2).to(torch.float64),
                  stride=stride, padding=conv_pads(pad))
     y = y.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32)
-    out = torch.clamp_min(y * scale + bias, 0.0)
+    y = torch.clamp_min(y * scale + bias, 0.0)
     if out_dtype == torch.int8:
-        out = torch.clamp(torch.round(out), 0.0, 127.0).to(torch.int8)
+        y = torch.clamp(torch.round(y), 0.0, 127.0).to(torch.int8)
     else:
-        out = out.to(torch.bfloat16)
-    return out.contiguous()
+        y = y.to(torch.bfloat16)
+    return _write(y, out)
 
 
 def int8_max_pool_plain(x: torch.Tensor, kernel: int, stride: int,
-                        pads: Pads) -> torch.Tensor:
-    """K2's plain version: -128-padded max pool, exact through float32."""
+                        pads: Pads, out: torch.Tensor = None
+                        ) -> torch.Tensor:
+    """K2's plain version: -128-padded max pool, exact through float32;
+    written into ``out`` where given (:func:`int8_max_pool`)."""
     (t, b), (l, r) = pads
     xf = F.pad(x.permute(0, 3, 1, 2).to(torch.float32), (l, r, t, b),
                value=-128.0)
     y = F.max_pool2d(xf, kernel, stride)
-    return y.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+    return _write(y.to(torch.int8).permute(0, 2, 3, 1), out)
+
+
+def _write(y: torch.Tensor, out: ConvOut) -> ConvOut:
+    """``y`` as a contiguous tensor, or copied into ``out``: one tensor, or
+    a pair ``(head, tail)`` that takes ``y``'s first ``head.shape[-1]``
+    channels and the rest."""
+    if out is None:
+        return y.contiguous()
+    if isinstance(out, torch.Tensor):
+        out.copy_(y)
+        return out
+    head, tail = out
+    split = head.shape[-1]
+    head.copy_(y[..., :split])
+    tail.copy_(y[..., split:])
+    return out
 
 
 def int8_avg_pool_plain(x: torch.Tensor, kernel: int, stride: int,
@@ -290,9 +319,60 @@ def int8_conv_refusal(x: torch.Tensor, w: torch.Tensor) -> Optional[str]:
     return None
 
 
+def _dests(out: ConvOut) -> tuple:
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
+def _check_out(out: ConvOut, shape: tuple, dtype: torch.dtype,
+               device: torch.device) -> None:
+    """``out`` (one tensor, or a pair on K1) can hold an ``shape`` result of
+    ``dtype``: each part (N, Ho, Wo, channels) of that dtype on that device,
+    the channels adding up."""
+    dests = _dests(out)
+    _require(1 <= len(dests) <= 2 and all(isinstance(d, torch.Tensor)
+                                          for d in dests),
+             "out must be a tensor or a pair of tensors")
+    for d in dests:
+        _require(d.dim() == 4 and tuple(d.shape[:3]) == tuple(shape[:3])
+                 and d.dtype == dtype and d.device == device,
+                 f"out {tuple(d.shape)} {d.dtype} on {d.device} cannot hold "
+                 f"a {tuple(shape)} {dtype} result on {device}")
+    _require(sum(d.shape[3] for d in dests) == shape[3],
+             f"out's channels {[d.shape[3] for d in dests]} do not add up "
+             f"to {shape[3]}")
+
+
+def int8_out_refusal(out: ConvOut) -> Optional[str]:
+    """Why K1 or K2 on the card would refuse to write into ``out``, or
+    None: each part is NHWC or a channel slice of an NHWC tensor whose pixel
+    stride is a multiple of 16 bytes and whose data starts 16-byte aligned
+    (:func:`int8_conv_refusal`'s rule for ``x``, so 16-byte stores never
+    straddle a pixel), and a pair's head spans a multiple of 16 bytes, so
+    that each 16-byte store lands wholly in one part. Device-independent, so
+    the CPU tests can walk the trunks through it."""
+    dests = _dests(out)
+    for d in dests:
+        N, H, W, C = d.shape
+        ps, esize = d.stride(2), d.element_size()
+        if not (d.stride(3) == 1 and ps >= C and ps * esize % 16 == 0
+                and (H == 1 or d.stride(1) == W * ps)
+                and (N == 1 or d.stride(0) == H * W * ps)):
+            return (f"out on CUDA must be NHWC or a channel slice of one with "
+                    f"a pixel stride of 16-byte multiples (strides "
+                    f"{d.stride()})")
+        if d.data_ptr() % 16:
+            return ("out on CUDA must start 16-byte aligned (a channel slice "
+                    "at a multiple of 16 bytes)")
+    if len(dests) == 2 and dests[0].shape[3] * dests[0].element_size() % 16:
+        return (f"a split out's head on CUDA must span a multiple of 16 "
+                f"bytes, got {dests[0].shape[3]} channels")
+    return None
+
+
 def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
               bias: torch.Tensor, stride: int = 1, pad: ConvPad = 0,
-              out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.int8,
+              out: ConvOut = None) -> ConvOut:
     """(N, H, W, C) int8 ⊛ (O, KH, KW, C) int8 -> (N, Ho, Wo, O), zero
     padding ``pad`` (both axes) or ``(pad_h, pad_w)`` on each side.
 
@@ -301,6 +381,14 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     ``bf16(max(y*scale + bias, 0))`` (``scale = sx*sw``, the calibration
     conv). ``x`` may be a channel slice of a wider NHWC tensor; ``C`` must be
     a multiple of 4, and on CUDA of 16 (:func:`int8_conv_refusal`).
+
+    ``out``: None (a new tensor, returned), an (N, Ho, Wo, O) tensor or a
+    channel slice of a wider one (an Inception module's output buffer), or
+    a pair ``(head, tail)`` of such whose channels add up to ``O``: the
+    first ``head.shape[-1]`` output channels go to ``head``, the rest to
+    ``tail`` (the fused branch-entry conv: its 1x1 branch into the module's
+    buffer, the reduce heads apart). ``out`` is returned. On CUDA each part
+    meets :func:`int8_out_refusal`.
     """
     on_cuda = _cuda_or_cpu(x, w, scale, bias)
     _require(x.dim() == 4 and w.dim() == 4, "x must be NHWC, w (O,KH,KW,C)")
@@ -320,8 +408,11 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     _require(Ho > 0 and Wo > 0, f"empty output for {tuple(x.shape)} "
              f"k{KH}x{KW} s{stride} p{pad}")
     _require(C % 4 == 0, f"int8_conv needs C % 4 == 0, got C={C}")
+    if out is not None:
+        _check_out(out, (N, Ho, Wo, O), out_dtype, x.device)
     if not on_cuda:
-        return int8_conv_plain(x, w, scale, bias, stride, pad, out_dtype)
+        return int8_conv_plain(x, w, scale, bias, stride, pad, out_dtype,
+                               out)
 
     refusal = int8_conv_refusal(x, w)
     _require(refusal is None, refusal)
@@ -333,8 +424,13 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
              and H * W * ps < 2 ** 31 and O * plan.K < 2 ** 31,
              f"int8_conv: {tuple(x.shape)} -> {O} exceeds the kernel's "
              "32-bit offsets")
-    out = torch.empty((N, Ho, Wo, O), dtype=out_dtype, device=x.device)
-    if out.numel() == 0:
+    if out is None:
+        out = torch.empty((N, Ho, Wo, O), dtype=out_dtype, device=x.device)
+    else:
+        refusal = int8_out_refusal(out)
+        _require(refusal is None, refusal)
+    head, tail = (out, out) if isinstance(out, torch.Tensor) else out
+    if N * Ho * Wo * O == 0:
         return out
     from .build import load_library
 
@@ -342,9 +438,10 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.adt_int8_conv(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), N, H, W, C, ps, O, KH, KW, stride, pad_h, pad_w,
-            Ho, Wo, plan.bn, int(out_dtype == torch.bfloat16),
-            _stream_ptr())
+            head.data_ptr(), tail.data_ptr(), N, H, W, C, ps, O, KH, KW,
+            stride, pad_h, pad_w, Ho, Wo, head.stride(2), tail.stride(2),
+            O if head is tail else head.shape[3], plan.bn,
+            int(out_dtype == torch.bfloat16), _stream_ptr())
     _check_launch(rc, "int8_conv")
     count_launch(int8_conv)
     return out
@@ -363,27 +460,40 @@ def _check_pool_input(name: str, x: torch.Tensor) -> None:
 
 
 def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
-                  pads: Pads) -> torch.Tensor:
+                  pads: Pads, out: torch.Tensor = None) -> torch.Tensor:
     """int8 NHWC max pool over ``pads = ((top, bottom), (left, right))``;
     padding never wins (-128, the reduce init). On CUDA: 3x3 at stride 1
-    or 2, ``top == left``, pads below 3, ``C % 16 == 0``."""
+    or 2, ``top == left``, pads below 3, ``C % 16 == 0``. ``out``: None (a
+    new tensor), or an (N, Ho, Wo, C) int8 tensor or channel slice of a
+    wider one to write into (a stride-2 module's passthrough branch), on
+    CUDA under :func:`int8_out_refusal`'s rule; returned."""
     on_cuda = _cuda_or_cpu(x)
     _require(x.dim() == 4 and x.dtype == torch.int8, "x must be int8 NHWC")
-    if not on_cuda:
-        return int8_max_pool_plain(x, kernel, stride, pads)
-
     N, H, W, C = x.shape
     (t, b), (l, r) = pads
+    Ho = (H + t + b - kernel) // stride + 1
+    Wo = (W + l + r - kernel) // stride + 1
+    if out is not None:
+        _require(isinstance(out, torch.Tensor), "out must be a tensor")
+        _check_out(out, (N, Ho, Wo, C), torch.int8, x.device)
+    if not on_cuda:
+        return int8_max_pool_plain(x, kernel, stride, pads, out)
+
     _require(kernel == 3 and stride in (1, 2) and t == l
              and all(0 <= p < 3 for p in (t, b, l, r)),
              "int8_max_pool on CUDA takes 3x3 pools at stride 1 or 2 with "
              f"top == left padding, got k{kernel} s{stride} pads {pads}")
-    Ho = (H + t + b - kernel) // stride + 1
-    Wo = (W + l + r - kernel) // stride + 1
     _require(Ho > 0 and Wo > 0, f"int8_max_pool: empty output for "
              f"{tuple(x.shape)} s{stride} pads {pads}")
     _check_pool_input("int8_max_pool", x)
-    out = torch.empty((N, Ho, Wo, C), dtype=torch.int8, device=x.device)
+    if out is None:
+        out = torch.empty((N, Ho, Wo, C), dtype=torch.int8, device=x.device)
+    else:
+        refusal = int8_out_refusal(out)
+        _require(refusal is None, refusal)
+    ops = out.stride(2)
+    _require(Ho * Wo * ops < 2 ** 31,
+             "int8_max_pool: output images of 2**31 bytes or more")
     if out.numel() == 0:
         return out
     plan = int8_pool_plan(Ho, Wo, C, stride)
@@ -391,8 +501,8 @@ def int8_max_pool(x: torch.Tensor, kernel: int, stride: int,
 
     with torch.cuda.device(x.device):
         rc = load_library().adt_int8_max_pool(
-            x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, stride, t,
-            plan.tile_h, plan.tile_w, plan.slab, _stream_ptr())
+            x.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo, ops, stride,
+            t, plan.tile_h, plan.tile_w, plan.slab, _stream_ptr())
     _check_launch(rc, "int8_max_pool")
     count_launch(int8_max_pool)
     return out
@@ -443,6 +553,61 @@ def int8_avg_pool_exclude_pad(x: torch.Tensor, kernel: int, stride: int,
     even: K3's second mode."""
     return _avg_pool(int8_avg_pool_exclude_pad, x, kernel, stride, pad,
                      False)
+
+
+# --- in-place module assembly ----------------------------------------------
+
+
+class NamedCount:
+    """A counter of something other than a kernel's launches, which
+    :func:`count_launch` and :func:`tally_launches` take as they take a
+    wrapper: its count on ``launches``, under ``name``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+#: the walks' concats that cost nothing, their parts already adjacent
+#: channel slices of one buffer, and those that copied (``torch.cat``)
+CONCAT_IN_PLACE = NamedCount("concat_in_place")
+CONCAT_COPIED = NamedCount("concat_copied")
+
+
+def channel_slots(shape: Tuple[int, int, int], widths, device
+                  ) -> Optional[list]:
+    """An Inception module's output assembled in place: one new (N, Ho, Wo,
+    sum(widths)) int8 buffer (``shape`` = (N, Ho, Wo)), cut into adjacent
+    channel slices of ``widths``, which each branch's last K1 or K2 launch
+    writes through ``out=``; :func:`concat_channels` then joins them at no
+    cost. None where a width is not a multiple of 16, since a slice must
+    start 16-byte aligned on the card (:func:`int8_out_refusal`): the
+    branches then write tensors of their own, and the concat copies."""
+    widths = [int(c) for c in widths]
+    if any(c % 16 for c in widths):
+        return None
+    buf = torch.empty(tuple(shape) + (sum(widths),), dtype=torch.int8,
+                      device=device)
+    return list(torch.split(buf, widths, dim=-1))
+
+
+def concat_channels(parts, slots=None) -> torch.Tensor:
+    """NHWC concat along the channels of ``parts``, which the walk wrote
+    into ``slots``: adjacent channel slices of one module buffer
+    (:func:`channel_slots`; a nested concat's, a run of them), or Nones
+    where the module has no buffer. With slots it is the slice they span,
+    a view, counted on ``concat_in_place``; else ``torch.cat``, counted on
+    ``concat_copied``. Counted on either device (the walk, not a kernel,
+    decides), through :func:`count_launch`, so a captured step's concats
+    count on each replay."""
+    if slots is None or slots[0] is None:
+        count_launch(CONCAT_COPIED)
+        return torch.cat(parts, dim=-1)
+    count_launch(CONCAT_IN_PLACE)
+    first = slots[0]
+    return first.as_strided(tuple(first.shape[:3])
+                            + (sum(s.shape[3] for s in slots),),
+                            first.stride())
 
 
 for _k in (int8_conv, int8_max_pool, int8_avg_pool,

@@ -9,9 +9,12 @@ two int8 modes:
   per-channel activation scales and quantize per output channel; the
   epilogue ``m = sw/so``, ``bq = bias/so`` requantizes each conv's output to
   its own calibrated scale.
-* **One topology walk** (:func:`_walk_stem`, :func:`_walk_trunk`, copied)
-  interpreted by several ops faces, so branch order and pool choices are
-  written once.
+* **One topology walk** (:func:`_walk_stem`, :func:`_walk_trunk`, the
+  JAX package's) interpreted by several ops faces, so branch order and pool
+  choices are written once. The trunk's walk also asks each face for a
+  module's output slots (``module_slots``) and hands each branch's last op
+  its slot (``out=``): the int8 face assembles the module in place, the
+  others return no slots and concatenate.
 * **e2e, the scoring default**: ``_E2EOps`` (int8 activations end to end
   through the hand-written kernels K1-K3 of ``kernels/int8.py``, with the
   fused branch-entry conv), calibrated by :func:`calibrate_e2e`. Its stem
@@ -48,7 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...kernels.int8 import int8_avg_pool, int8_conv, int8_max_pool
+from ...kernels.int8 import (channel_slots, concat_channels, int8_avg_pool,
+                             int8_conv, int8_max_pool)
 from .bn_inception import (_INCEPTION_CFG, max_pool, pool_pads,
                            stem_feature_hw)
 
@@ -135,30 +139,73 @@ def _entry_names(name: str, c1) -> list:
 def _walk_trunk(ops, x):
     for (name, c1, _c3r, _c3, _d3r, _d31, _d32, _proj, pool, stride) \
             in _INCEPTION_CFG:
-        heads = ops.entry(x, name, _entry_names(name, c1))
+        # each branch's last conv or pool (None: the passthrough pool)
+        ends = ([f"{name}_1x1"] if c1 is not None else []) + [
+            f"{name}_3x3", f"{name}_double_3x3_2",
+            f"{name}_pool_proj" if stride == 1 else None]
+        slots = ops.module_slots(x, ends, stride)
+        heads = ops.entry(x, name, _entry_names(name, c1),
+                          out=slots[0] if c1 is not None else None)
         branches = list(heads[:1]) if c1 is not None else []
         i = 1 if c1 is not None else 0
-        b3 = ops.conv(heads[i], f"{name}_3x3", stride=stride, pad=1)
+        b3 = ops.conv(heads[i], f"{name}_3x3", stride=stride, pad=1,
+                      out=slots[-3])
         branches.append(b3)
         bd = ops.conv(heads[i + 1], f"{name}_double_3x3_1", pad=1)
-        bd = ops.conv(bd, f"{name}_double_3x3_2", stride=stride, pad=1)
+        bd = ops.conv(bd, f"{name}_double_3x3_2", stride=stride, pad=1,
+                      out=slots[-2])
         branches.append(bd)
         if stride == 1:
             bp = (ops.avg_pool(x, 3, 1, 1) if pool == "avg"
                   else ops.max_pool(x, 3, 1, pad=1))
-            branches.append(ops.conv(bp, f"{name}_pool_proj"))
+            branches.append(ops.conv(bp, f"{name}_pool_proj", out=slots[-1]))
         else:
             # stride-2 modules: passthrough ceil-mode max pool branch
-            branches.append(ops.max_pool(x, 3, 2, ceil=True))
-        x = ops.concat(branches)
+            branches.append(ops.max_pool(x, 3, 2, ceil=True, out=slots[-1]))
+        x = ops.concat(branches, slots)
     return x
 
 
 class _EntryDefault:
-    """Default branch-entry behavior: the entry convs run separately."""
+    """Defaults of the walks' faces: the entry convs run separately, and a
+    module's branches write tensors of their own, which ``concat`` joins
+    (no slots: every ``out=`` the walk hands on is None)."""
 
-    def entry(self, x, module, names):
-        return [self.conv(x, n) for n in names]
+    def entry(self, x, module, names, out=None):
+        """The entry convs' outputs; the first written into ``out``."""
+        return [self.conv(x, n, out=out if i == 0 else None)
+                for i, n in enumerate(names)]
+
+    def module_slots(self, x, ends, stride=1, pad=1):
+        """Where a module's branches write their outputs, one slot a name of
+        ``ends`` (each branch's last conv, in concat order; None for a
+        passthrough pool): here None for each."""
+        return [None] * len(ends)
+
+
+class _InPlaceModules:
+    """The int8 faces' module assembly: one int8 buffer a module, whose
+    channel slices the branches' last K1 or K2 launches write
+    (``kernels.int8.channel_slots``), so the concat, handed the slots, is
+    a view (``concat_channels``). The walk decides from the widths alone:
+    where one is not a multiple of 16 the branches write tensors of their
+    own and the concat copies; both counted (``concat_in_place``,
+    ``concat_copied``)."""
+
+    def module_slots(self, x, ends, stride=1, pad=1):
+        """``ends``' slots in the module's buffer: each a conv's output
+        channels (None: the input's, a passthrough pool's). The module's
+        output grid is that of a 3x3 window at ``stride`` over ``pad``
+        (every branch's last op keeps it)."""
+        N, H, W, C = x.shape
+        widths = [C if n is None else self.qe[n]["wq"].shape[0]
+                  for n in ends]
+        grid = (N, (H + 2 * pad - 3) // stride + 1,
+                (W + 2 * pad - 3) // stride + 1)
+        return channel_slots(grid, widths, x.device) or [None] * len(ends)
+
+    def concat(self, parts, slots=None):
+        return concat_channels(parts, slots)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +284,7 @@ class _ScaleOps(_EntryDefault):
         self.s = s
         self.out = out
 
-    def conv(self, sx, name, stride=1, pad=0):
+    def conv(self, sx, name, stride=1, pad=0, out=None):
         w = np.asarray(self.folded[name]["kernel"], np.float64)
         sx_vec = np.broadcast_to(np.asarray(sx, np.float64), (w.shape[2],))
         w = w * sx_vec[None, None, :, None]
@@ -252,13 +299,13 @@ class _ScaleOps(_EntryDefault):
                                          np.float64) / so, np.float32)}
         return np.full(w.shape[3], so)
 
-    def max_pool(self, sx, kernel, stride, ceil=False, pad=0):
+    def max_pool(self, sx, kernel, stride, ceil=False, pad=0, out=None):
         return sx
 
     def avg_pool(self, sx, kernel, stride, pad):
         return sx
 
-    def concat(self, parts):
+    def concat(self, parts, slots=None):
         return np.concatenate([np.atleast_1d(p) for p in parts])
 
 
@@ -317,40 +364,48 @@ def tree_to(tree, device) -> Any:
 # ---------------------------------------------------------------------------
 
 
-class _E2EOps(_EntryDefault):
-    """int8 NHWC activations end to end, through kernels K1-K3."""
+def _fused_entry(conv, qe: QuantizedParams, xq: torch.Tensor, module: str,
+                 names, out=None):
+    """Branch-entry fusion: one ``conv`` (K1's wrapper) over the module's
+    concatenated 1x1 weights, bit-identical to the separate convs (shared
+    input scales, exact s32 sums, per-output-channel epilogue). The heads
+    are channel slices that K1 reads in place; with ``out`` the first head
+    is written there (the module's buffer) and the others into a tensor of
+    their own."""
+    f = qe["__entry__"][module]
+    widths = [int(qe[n]["wq"].shape[0]) for n in names]
+    if out is None:
+        return torch.split(conv(xq, f["wq"], f["m"], f["bq"]), widths,
+                           dim=-1)
+    rest = xq.new_empty(tuple(xq.shape[:3]) + (sum(widths[1:]),))
+    conv(xq, f["wq"], f["m"], f["bq"], out=(out, rest))
+    return [out, *torch.split(rest, widths[1:], dim=-1)]
+
+
+class _E2EOps(_InPlaceModules, _EntryDefault):
+    """int8 NHWC activations end to end, through kernels K1-K3, each
+    module assembled in place."""
 
     def __init__(self, qe: QuantizedParams):
         self.qe = qe
 
-    def conv(self, xq, name, stride=1, pad=0):
+    def conv(self, xq, name, stride=1, pad=0, out=None):
         layer = self.qe[name]
         return int8_conv(xq, layer["wq"], layer["m"], layer["bq"],
-                         stride=stride, pad=pad)
+                         stride=stride, pad=pad, out=out)
 
-    def entry(self, xq, module, names):
-        # branch-entry fusion: one conv over the concatenated 1x1 weights,
-        # bit-identical to the separate convs (shared input scales, exact
-        # s32 sums, per-output-channel epilogue); the split heads are
-        # channel slices that K1 reads in place
-        fz = self.qe.get("__entry__")
-        if fz is None or module not in fz:
-            return super().entry(xq, module, names)
-        f = fz[module]
-        y = int8_conv(xq, f["wq"], f["m"], f["bq"])
-        return torch.split(y, [int(self.qe[n]["wq"].shape[0])
-                               for n in names], dim=-1)
+    def entry(self, xq, module, names, out=None):
+        if module not in self.qe.get("__entry__", ()):
+            return super().entry(xq, module, names, out)
+        return _fused_entry(int8_conv, self.qe, xq, module, names, out)
 
-    def max_pool(self, x, kernel, stride, ceil=False, pad=0):
+    def max_pool(self, x, kernel, stride, ceil=False, pad=0, out=None):
         return int8_max_pool(x, kernel, stride,
                              pool_pads(x.shape[1], x.shape[2], kernel, stride,
-                                       ceil, pad))
+                                       ceil, pad), out=out)
 
     def avg_pool(self, x, kernel, stride, pad):
         return int8_avg_pool(x, kernel, stride, pad)
-
-    def concat(self, parts):
-        return torch.cat(parts, dim=-1)
 
 
 class _StemBf16Ops:
@@ -483,7 +538,7 @@ class _PerLayerOps(_EntryDefault):
                 sx = torch.clamp_min(m / 127.0, 1e-8)
         return _quantize_input(x, sx, self.q[name]["wq"].shape[-1]), sx
 
-    def conv(self, x, name, stride=1, pad=0):
+    def conv(self, x, name, stride=1, pad=0, out=None):
         layer = self.q[name]
         xq, sx = self.quantize(x, name)
         out = int8_conv(xq, layer["wq"], sx * layer["sw"], layer["bias"],
@@ -493,14 +548,14 @@ class _PerLayerOps(_EntryDefault):
             self.output_maxes[name] = out.amax().float()
         return out
 
-    def max_pool(self, x, kernel, stride, ceil=False, pad=0):
+    def max_pool(self, x, kernel, stride, ceil=False, pad=0, out=None):
         return max_pool(x.permute(0, 3, 1, 2), kernel, stride, ceil=ceil,
                         pad=pad).permute(0, 2, 3, 1)
 
     def avg_pool(self, x, kernel, stride, pad):
         return _avg_pool_bf16(x, kernel, stride, pad)
 
-    def concat(self, parts):
+    def concat(self, parts, slots=None):
         return torch.cat(parts, dim=-1)
 
 

@@ -8,8 +8,10 @@ consumer absorbs its input's per-channel scales into its weights, so branch
 concats (Mixed_7b/7c's nested ones included) and pools need no
 requantization.
 
-The topology is written once (:func:`_walk_stem`, :func:`_walk_trunk`, copied
-from the JAX package) and interpreted by several ops faces:
+The topology is written once (:func:`_walk_stem`, :func:`_walk_trunk`, the
+JAX package's, which also hands each branch's last op its slot of the
+module's output: ``module_slots`` and ``out=``, as in
+``bn_inception_int8``) and interpreted by several ops faces:
 
 * ``_CalibOps`` — the float forward in bf16 on the BN-folded weights
   (cuDNN on the card), recording each conv's post-ReLU output max;
@@ -18,7 +20,9 @@ from the JAX package) and interpreted by several ops faces:
 * ``_ForwardOps`` — the int8 runtime on the hand-written kernels: K1 with
   per-axis padding (1x7/7x1/1x3/3x1/5x5) and the fused branch-entry conv, K2
   without padding (the VALID 3x3 s2 pools), K3 in its exclude-pad mode (the
-  3x3 s1 SAME pools divide by 9, 6 or 4 in-image cells);
+  3x3 s1 SAME pools divide by 9, 6 or 4 in-image cells); each module
+  assembled in place, Mixed_7b/7c's nested concats as adjacent slices of
+  the module's buffer;
 * ``_StemBf16Ops`` — the hybrid stem (Conv2d_1a .. Conv2d_4a) in bf16,
   quantized once at its output.
 
@@ -42,8 +46,8 @@ import torch.nn.functional as F
 from ...kernels.int8 import int8_avg_pool_exclude_pad, int8_conv, int8_max_pool
 from . import bn_inception_int8 as bn_int8
 from .bn_inception_int8 import (QuantizedParams, _EntryDefault,
-                                _fuse_entry_convs, _host, _quantize_input,
-                                tensor_tree)
+                                _fuse_entry_convs, _fused_entry, _host,
+                                _InPlaceModules, _quantize_input, tensor_tree)
 
 _SAME3 = ((1, 1), (1, 1))
 _NOPAD = ((0, 0), (0, 0))
@@ -91,7 +95,7 @@ def fold_bn_iv3(state_dict: Mapping[str, Any],
 
 
 # ---------------------------------------------------------------------------
-# Single topology walk, interpreted through an ops interface (copied).
+# Single topology walk, interpreted through an ops interface.
 # ---------------------------------------------------------------------------
 
 
@@ -123,50 +127,72 @@ def _entry_names(name: str) -> list:
 
 
 def _walk_trunk(ops, x):
-    """IV3 Mixed modules: (35x35, 192) -> features."""
+    """IV3 Mixed modules: (35x35, 192) -> features. Each module's
+    ``module_slots`` name its branches' last convs (None: the passthrough
+    pool) in concat order; each concat gets the slots its parts fill."""
     for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d"):     # 35x35 modules
-        b0, b1, b2 = ops.entry(x, name, _entry_names(name))
-        b1 = ops.conv(b1, f"{name}/branch5x5_2", pad=((2, 2), (2, 2)))
+        s = ops.module_slots(x, [f"{name}/{b}" for b in (
+            "branch1x1", "branch5x5_2", "branch3x3dbl_3", "branch_pool")])
+        b0, b1, b2 = ops.entry(x, name, _entry_names(name), out=s[0])
+        b1 = ops.conv(b1, f"{name}/branch5x5_2", pad=((2, 2), (2, 2)),
+                      out=s[1])
         b2 = ops.conv(b2, f"{name}/branch3x3dbl_2", pad=_SAME3)
-        b2 = ops.conv(b2, f"{name}/branch3x3dbl_3", pad=_SAME3)
-        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool")
-        x = ops.concat([b0, b1, b2, b3])
+        b2 = ops.conv(b2, f"{name}/branch3x3dbl_3", pad=_SAME3, out=s[2])
+        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool", out=s[3])
+        x = ops.concat([b0, b1, b2, b3], s)
 
-    b0 = ops.conv(x, "Mixed_6a/branch3x3", stride=2)      # 17x17 downsample
+    s = ops.module_slots(x, ["Mixed_6a/branch3x3", "Mixed_6a/branch3x3dbl_3",
+                             None], stride=2, pad=0)
+    b0 = ops.conv(x, "Mixed_6a/branch3x3", stride=2,      # 17x17 downsample
+                  out=s[0])
     b1 = ops.conv(x, "Mixed_6a/branch3x3dbl_1")
     b1 = ops.conv(b1, "Mixed_6a/branch3x3dbl_2", pad=_SAME3)
-    b1 = ops.conv(b1, "Mixed_6a/branch3x3dbl_3", stride=2)
-    x = ops.concat([b0, b1, ops.max_pool(x)])
+    b1 = ops.conv(b1, "Mixed_6a/branch3x3dbl_3", stride=2, out=s[1])
+    x = ops.concat([b0, b1, ops.max_pool(x, out=s[2])], s)
 
     for name in ("Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"):
-        b0, b1, b2 = ops.entry(x, name, _entry_names(name))
+        s = ops.module_slots(x, [f"{name}/{b}" for b in (
+            "branch1x1", "branch7x7_3", "branch7x7dbl_5", "branch_pool")])
+        b0, b1, b2 = ops.entry(x, name, _entry_names(name), out=s[0])
         b1 = ops.conv(b1, f"{name}/branch7x7_2", pad=((0, 0), (3, 3)))
-        b1 = ops.conv(b1, f"{name}/branch7x7_3", pad=((3, 3), (0, 0)))
+        b1 = ops.conv(b1, f"{name}/branch7x7_3", pad=((3, 3), (0, 0)),
+                      out=s[1])
         b2 = ops.conv(b2, f"{name}/branch7x7dbl_2", pad=((3, 3), (0, 0)))
         b2 = ops.conv(b2, f"{name}/branch7x7dbl_3", pad=((0, 0), (3, 3)))
         b2 = ops.conv(b2, f"{name}/branch7x7dbl_4", pad=((3, 3), (0, 0)))
-        b2 = ops.conv(b2, f"{name}/branch7x7dbl_5", pad=((0, 0), (3, 3)))
-        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool")
-        x = ops.concat([b0, b1, b2, b3])
+        b2 = ops.conv(b2, f"{name}/branch7x7dbl_5", pad=((0, 0), (3, 3)),
+                      out=s[2])
+        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool", out=s[3])
+        x = ops.concat([b0, b1, b2, b3], s)
 
+    s = ops.module_slots(x, ["Mixed_7a/branch3x3_2", "Mixed_7a/branch7x7x3_4",
+                             None], stride=2, pad=0)
     b0, b1 = ops.entry(x, "Mixed_7a", _entry_names("Mixed_7a"))
-    b0 = ops.conv(b0, "Mixed_7a/branch3x3_2", stride=2)   # 8x8 downsample
+    b0 = ops.conv(b0, "Mixed_7a/branch3x3_2", stride=2,   # 8x8 downsample
+                  out=s[0])
     b1 = ops.conv(b1, "Mixed_7a/branch7x7x3_2", pad=((0, 0), (3, 3)))
     b1 = ops.conv(b1, "Mixed_7a/branch7x7x3_3", pad=((3, 3), (0, 0)))
-    b1 = ops.conv(b1, "Mixed_7a/branch7x7x3_4", stride=2)
-    x = ops.concat([b0, b1, ops.max_pool(x)])
+    b1 = ops.conv(b1, "Mixed_7a/branch7x7x3_4", stride=2, out=s[1])
+    x = ops.concat([b0, b1, ops.max_pool(x, out=s[2])], s)
 
     for name in ("Mixed_7b", "Mixed_7c"):                 # 8x8 expanded
-        b0, b1, b2 = ops.entry(x, name, _entry_names(name))
-        b1a = ops.conv(b1, f"{name}/branch3x3_2a", pad=((0, 0), (1, 1)))
-        b1b = ops.conv(b1, f"{name}/branch3x3_2b", pad=((1, 1), (0, 0)))
-        b1 = ops.concat([b1a, b1b])                       # nested concat
+        s = ops.module_slots(x, [f"{name}/{b}" for b in (
+            "branch1x1", "branch3x3_2a", "branch3x3_2b", "branch3x3dbl_3a",
+            "branch3x3dbl_3b", "branch_pool")])
+        b0, b1, b2 = ops.entry(x, name, _entry_names(name), out=s[0])
+        b1a = ops.conv(b1, f"{name}/branch3x3_2a", pad=((0, 0), (1, 1)),
+                       out=s[1])
+        b1b = ops.conv(b1, f"{name}/branch3x3_2b", pad=((1, 1), (0, 0)),
+                       out=s[2])
+        b1 = ops.concat([b1a, b1b], s[1:3])               # nested concat
         b2 = ops.conv(b2, f"{name}/branch3x3dbl_2", pad=_SAME3)
-        b2a = ops.conv(b2, f"{name}/branch3x3dbl_3a", pad=((0, 0), (1, 1)))
-        b2b = ops.conv(b2, f"{name}/branch3x3dbl_3b", pad=((1, 1), (0, 0)))
-        b2 = ops.concat([b2a, b2b])
-        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool")
-        x = ops.concat([b0, b1, b2, b3])
+        b2a = ops.conv(b2, f"{name}/branch3x3dbl_3a", pad=((0, 0), (1, 1)),
+                       out=s[3])
+        b2b = ops.conv(b2, f"{name}/branch3x3dbl_3b", pad=((1, 1), (0, 0)),
+                       out=s[4])
+        b2 = ops.concat([b2a, b2b], s[3:5])
+        b3 = ops.conv(ops.avg_pool_same(x), f"{name}/branch_pool", out=s[5])
+        x = ops.concat([b0, b1, b2, b3], s)
 
     return ops.finish(x)
 
@@ -192,10 +218,10 @@ class _StemBf16Ops(bn_int8._StemBf16Ops):
     s2 max pool; ``output_maxes``, when given, records each conv's post-ReLU
     max."""
 
-    def conv(self, h, name, stride=1, pad=_NOPAD):
+    def conv(self, h, name, stride=1, pad=_NOPAD, out=None):
         return super().conv(h, name, stride, _pad_hw(pad))
 
-    def max_pool(self, x):
+    def max_pool(self, x, out=None):
         return F.max_pool2d(x, 3, 2)
 
 
@@ -223,7 +249,7 @@ class _CalibOps(_EntryDefault, _StemBf16Ops):
                 acc = acc + xp[:, :, ky:ky + H, kx:kx + W]
         return acc / same_pool_counts(H, W, x.device).to(x.dtype)
 
-    def concat(self, parts):
+    def concat(self, parts, slots=None):
         return torch.cat(parts, dim=1)
 
     def finish(self, x):
@@ -251,7 +277,7 @@ class _ScaleOps(_EntryDefault):
         self.s = scales
         self.out = out
 
-    def conv(self, sx_vec, name, stride=1, pad=_NOPAD):
+    def conv(self, sx_vec, name, stride=1, pad=_NOPAD, out=None):
         f = self.folded[name]
         w = np.asarray(f["kernel"], np.float64)
         sx = np.broadcast_to(np.asarray(sx_vec, np.float64), (w.shape[2],))
@@ -267,13 +293,13 @@ class _ScaleOps(_EntryDefault):
         }
         return np.full(w.shape[3], so)
 
-    def max_pool(self, sx_vec):
+    def max_pool(self, sx_vec, out=None):
         return sx_vec
 
     def avg_pool_same(self, sx_vec):
         return sx_vec
 
-    def concat(self, parts):
+    def concat(self, parts, slots=None):
         return np.concatenate(parts)
 
     def finish(self, sx_vec):
@@ -286,37 +312,28 @@ class _ScaleOps(_EntryDefault):
 # ---------------------------------------------------------------------------
 
 
-class _ForwardOps(_EntryDefault):
-    """The int8 runtime: int8 NHWC tensors, requantizing conv epilogues."""
+class _ForwardOps(_InPlaceModules, _EntryDefault):
+    """The int8 runtime: int8 NHWC tensors, requantizing conv epilogues,
+    each module assembled in place."""
 
     def __init__(self, qe: QuantizedParams):
         self.qe = qe
 
-    def entry(self, xq, module, names):
-        # branch-entry fusion, bit-identical to the separate convs (shared
-        # input scales, exact s32 sums, per-output-channel epilogue); the
-        # split heads are channel slices that K1 reads in place
-        fz = self.qe.get("__entry__")
-        if fz is None or module not in fz:
-            return super().entry(xq, module, names)
-        f = fz[module]
-        y = int8_conv(xq, f["wq"], f["m"], f["bq"])
-        return torch.split(y, [int(self.qe[n]["wq"].shape[0])
-                               for n in names], dim=-1)
+    def entry(self, xq, module, names, out=None):
+        if module not in self.qe.get("__entry__", ()):
+            return super().entry(xq, module, names, out)
+        return _fused_entry(int8_conv, self.qe, xq, module, names, out)
 
-    def conv(self, xq, name, stride=1, pad=_NOPAD):
+    def conv(self, xq, name, stride=1, pad=_NOPAD, out=None):
         layer = self.qe[name]
         return int8_conv(xq, layer["wq"], layer["m"], layer["bq"],
-                         stride=stride, pad=_pad_hw(pad))
+                         stride=stride, pad=_pad_hw(pad), out=out)
 
-    def max_pool(self, x):
-        return int8_max_pool(x, 3, 2, _NOPAD)
+    def max_pool(self, x, out=None):
+        return int8_max_pool(x, 3, 2, _NOPAD, out=out)
 
     def avg_pool_same(self, x):
         return int8_avg_pool_exclude_pad(x, 3, 1, 1)
-
-    def concat(self, parts):
-        return torch.cat(parts, dim=-1)
 
     def finish(self, x):
         return x.float().mean(dim=(1, 2)) * self.qe["__feat_scale__"]

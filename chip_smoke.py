@@ -212,7 +212,8 @@ per-kernel device time and the device busy share of the scoring steps
 the whole ``ssn_test`` runs of BNInception and InceptionV3, with the full
 tables written to ``DIR/profile_*.txt``, and the per-layer forward's
 device time by part (quantize passes, K1, bf16 max and avg pools, concats;
-``perlayer_breakdown``).
+``perlayer_breakdown``), and the BNInception int8-e2e step's (the stem, K1,
+K2, K3, the in-place modules' buffers and concats; ``e2e_breakdown``).
 
 The second-to-last lines are a JSON summary of the kernels and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -422,6 +423,129 @@ def both_dtypes(pools, n: int) -> list:
     return ([b + (torch.float32, n) for b in pools]
             + [(f"{b[0]}/bf16",) + b[1:] + (torch.bfloat16, n)
                for b in pools])
+
+
+def check_out_slices(rows: dict, card: str, act, weights) -> None:
+    """K1 and K2 writing ``out=`` as the in-place module walk has them, at
+    the slice's crops: the fused entry conv split between the module's
+    buffer and a scratch (3a: 64 of 192 columns; 4a: 224 of 384, past the
+    128-wide column tile), 3x3s and a pool projection writing their slices
+    of a module buffer (one reading its input in place from the scratch),
+    and K2 writing 3c's and 4e's passthrough slices. Each is held EXACTLY
+    equal to its plain version writing the same slices, and to the launch
+    into a tensor of its own; the buffer's other bytes keep their sentinel.
+    Each row is timed beside that launch into a tensor of its own
+    (``contig_ms``: what the strided stores cost). Rows
+    ``int8_conv/out_slice`` and ``int8_max_pool/out_slice``; skipped where
+    the kernels take no ``out=`` (an older checkout under
+    ``--kernels-of``)."""
+    import inspect
+
+    import torch
+
+    from action_detection_torch.kernels import int8 as k
+    from action_detection_torch.models.backbones.bn_inception import pool_pads
+
+    if "out" not in inspect.signature(k.int8_conv).parameters:
+        print("kernel rows into a module's slice: skipped, these kernels "
+              "take no out=", flush=True)
+        return
+    g = torch.Generator(device="cuda").manual_seed(1)
+    sentinel = -77
+
+    def dests(grid, channels, lo, hi, tail):
+        """A sentinel-filled module buffer and ``out``: its ``[lo, hi)``
+        slice, or that and a scratch of ``tail`` channels."""
+        buf = torch.full(grid + (channels,), sentinel, dtype=torch.int8,
+                         device="cuda")
+        if not tail:
+            return buf, buf[..., lo:hi]
+        return buf, (buf[..., lo:hi], torch.full(
+            grid + (tail,), sentinel, dtype=torch.int8, device="cuda"))
+
+    def record(name, label, launch, plain, ref, grid, channels, lo, hi,
+               tail, bound):
+        buf, out = dests(grid, channels, lo, hi, tail)
+        pbuf, pout = dests(grid, channels, lo, hi, tail)
+        launch(out)
+        plain(pout)
+        torch.cuda.synchronize()
+        got = torch.cat(out, -1) if tail else out
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name}[{label}]: the slices differ from "
+                                 "the launch into a tensor of its own")
+        outside = torch.cat([buf[..., :lo], buf[..., hi:]], -1)
+        if not (outside == sentinel).all():
+            raise AssertionError(f"{name}[{label}]: bytes outside the "
+                                 "slice were written")
+        if tail:
+            buf, pbuf = (torch.cat([b, o[1]], -1) for b, o in
+                         ((buf, out), (pbuf, pout)))
+        record_row(rows, card, name, label, buf, pbuf, lambda: launch(out),
+                   lambda: plain(pout), bound)
+        row = rows[name][-1]
+        row["contig_ms"] = _time_kernel_ms(lambda: launch(None), reps=10)
+        print(f"kernel {name}[{label}]: {row['ms']:.3f} ms into the slice, "
+              f"{row['contig_ms']:.3f} ms into a tensor of its own "
+              f"({row['ms'] / row['contig_ms'] - 1:+.1%}) on {card}",
+              flush=True)
+
+    # K1: (label, x, w, stride, pad, module channels, slice, scratch)
+    rows["int8_conv/out_slice"] = []
+    scratch3a = act(SLICE_N, 28, 28, 128)
+    for label, x, w, stride, pad, channels, (lo, hi), tail in (
+            ("3a_entry_split_64_of_192", act(SLICE_N, 28, 28, 192),
+             weights(192, 1, 1, 192), 1, 0, 256, (0, 64), 128),
+            ("4a_entry_split_224_of_384", act(SLICE_N, 14, 14, 576),
+             weights(384, 1, 1, 576), 1, 0, 576, (0, 224), 160),
+            ("3a_3x3_on_slice_into_64_of_256", scratch3a[..., :64],
+             weights(64, 3, 3, 64), 1, 1, 256, (64, 128), 0),
+            ("3a_double_3x3_2_into_96_of_256", act(SLICE_N, 28, 28, 96),
+             weights(96, 3, 3, 96), 1, 1, 256, (128, 224), 0),
+            ("3a_pool_proj_into_32_of_256", act(SLICE_N, 28, 28, 192),
+             weights(32, 1, 1, 192), 1, 0, 256, (224, 256), 0),
+            ("3c_3x3_s2_into_160_of_576", act(SLICE_N, 28, 28, 128),
+             weights(160, 3, 3, 128), 2, 1, 576, (0, 160), 0)):
+        O, kh, kw, C = w.shape
+        spread = float(C * kh * kw) ** 0.5 * 64 * 73
+        m = (torch.rand(O, generator=g, device="cuda") + 0.5) * (64.0
+                                                                 / spread)
+        bq = torch.randn(O, generator=g, device="cuda") * 8.0
+
+        def launch(out, x=x, w=w, m=m, bq=bq, s=stride, p=pad):
+            return k.int8_conv(x, w, m, bq, s, p, out=out)
+
+        def plain(out, x=x, w=w, m=m, bq=bq, s=stride, p=pad):
+            return k.int8_conv_plain(x, w, m, bq, s, p, out=out)
+
+        ref = launch(None)
+        record("int8_conv/out_slice", label, launch, plain, ref,
+               tuple(ref.shape[:3]), channels, lo, hi, tail,
+               conv_work(x, w, ref))
+        del x, w, ref
+    del scratch3a
+
+    # K2: the stride-2 modules' passthrough pools into their slices
+    rows["int8_max_pool/out_slice"] = []
+    for label, shape, channels, lo in (
+            ("3c_ceil_s2_into_320_of_576", (SLICE_N, 28, 28, 320), 576, 256),
+            ("4e_ceil_s2_into_608_of_1056", (SLICE_N, 14, 14, 608), 1056,
+             448)):
+        x = act(*shape) - 64
+        a = (3, 2, pool_pads(shape[1], shape[2], 3, 2, ceil=True))
+
+        def launch(out, x=x, a=a):
+            return k.int8_max_pool(x, *a, out=out)
+
+        def plain(out, x=x, a=a):
+            return k.int8_max_pool_plain(x, *a, out=out)
+
+        ref = launch(None)
+        record("int8_max_pool/out_slice", label, launch, plain, ref,
+               tuple(ref.shape[:3]), channels, lo, lo + shape[3], 0,
+               pool_work(x, ref, 3))
+        del x, ref
+    torch.cuda.empty_cache()
 
 
 def check_kernels(card: str) -> list:
@@ -651,6 +775,9 @@ def check_kernels(card: str) -> list:
         check_max_pool("int8_max_pool", label, x, stride,
                        pool_pads(shape[1], shape[2], 3, stride, **kw))
         del x
+
+    # K1 and K2 writing their slices of a module's buffer
+    check_out_slices(rows, card, act, weights)
 
     # K3: the 3a pool branch
     x = act(SLICE_N, 28, 28, 192)
@@ -1032,7 +1159,7 @@ def main_path(card: str, smi: str, rows: dict, profile: str = None) -> dict:
             profile_cli(profile, "ssn_test", clis["bninception_rgb"][0])
             profile_cli(profile, "ssn_test_iv3", clis["inceptionv3_rgb"][0])
 
-    scorers = [check_bninception(models["bninception_rgb"], smi),
+    scorers = [check_bninception(models["bninception_rgb"], smi, profile),
                check_inceptionv3(models["inceptionv3_rgb"], smi),
                time_flow(models["bninception_flow"], smi),
                check_rgbdiff(models["bninception_rgbdiff"], smi),
@@ -2826,8 +2953,9 @@ def _time_steps(name, model, frames, calib, smi, modality="RGB"):
     return scorer, step
 
 
-def check_bninception(model, smi):
-    """BNInception RGB at 224^2 from 340x256 frames."""
+def check_bninception(model, smi, profile=None):
+    """BNInception RGB at 224^2 from 340x256 frames; with ``profile``, the
+    step's device time by part (``e2e_breakdown``)."""
     import numpy as np
     import torch
 
@@ -2846,6 +2974,9 @@ def check_bninception(model, smi):
                  bq._e2e_stem_quantized,
                  lambda qe, h: bq._walk_trunk(bq._E2EOps(qe), h),
                  bq._e2e_trunk, bq.bninception_int8_e2e_features)
+    if profile:
+        e2e_breakdown(scorer._quantized, torch.as_tensor(frames).cuda(),
+                      model.input_spec, smi)
     return scorer, step
 
 
@@ -3006,17 +3137,24 @@ def check_perlayer(model, smi, profile=None):
     return scorer, step
 
 
-def perlayer_breakdown(q, scales, x, smi) -> None:
-    """Device ms of one 640-crop per-layer forward by part: CUDA events
-    around each op on the one stream (the host runs ahead of these
-    kernels, so a pair brackets its op's kernels): the quantize passes
-    (max, divide, round, clamp, int8), K1 (a conv's time less its
-    quantize), the bf16 max pools, the bf16 avg pools, the concats, and
-    the rest (the bf16 cast, the mean)."""
-    import torch
+def _timed_face(base, parts, timed):
+    """The walk's ops face ``base`` with each method of ``parts`` ({method:
+    part}) timed under its part by ``timed(part, fn)``."""
+    def wrap(method, part):
+        def call(self, *a, **kw):
+            return timed(part, lambda: getattr(base, method)(self, *a, **kw))
+        return call
 
-    from action_detection_torch.models.backbones import (
-        bn_inception_int8 as bq)
+    return type(f"Timed{base.__name__}", (base,),
+                {m: wrap(m, p) for m, p in parts.items()})
+
+
+def _breakdown(label, forward, smi, parts_of=None) -> None:
+    """Device ms of one ``forward(timed)`` by part: CUDA events around each
+    op ``timed(part, fn)`` brackets, on the one stream (the host runs ahead
+    of these kernels, so a pair brackets its op's kernels); ``rest`` is the
+    whole less the parts. ``parts_of(parts)`` may rework the sums."""
+    import torch
 
     marks = []
 
@@ -3029,47 +3167,82 @@ def perlayer_breakdown(q, scales, x, smi) -> None:
         marks.append((part, a, b))
         return out
 
-    base = bq._PerLayerOps
-
-    class Timed(base):
-        def quantize(self, *a):
-            return timed("quantize", lambda: base.quantize(self, *a))
-
-        def conv(self, *a, **kw):
-            return timed("conv", lambda: base.conv(self, *a, **kw))
-
-        def max_pool(self, *a, **kw):
-            return timed("bf16 max pool",
-                         lambda: base.max_pool(self, *a, **kw))
-
-        def avg_pool(self, *a):
-            return timed("bf16 avg pool", lambda: base.avg_pool(self, *a))
-
-        def concat(self, parts):
-            return timed("concat", lambda: base.concat(self, parts))
-
-    def forward():
-        ops = Timed(q, act_scales=scales)
-        h = bq._walk_trunk(ops, bq._walk_stem(ops, x.to(torch.bfloat16)))
-        return h.float().mean(dim=(1, 2)).to(torch.bfloat16)
-
     with torch.no_grad():
-        forward()
+        forward(timed)
         marks.clear()
         torch.cuda.synchronize()
-        timed("total", forward)
+        timed("total", lambda: forward(timed))
         torch.cuda.synchronize()
     parts = {}
     for p, a, b in marks:
         parts[p] = parts.get(p, 0.0) + a.elapsed_time(b)
     whole = parts.pop("total")
-    parts["K1"] = parts.pop("conv") - parts["quantize"]
+    if parts_of is not None:
+        parts_of(parts)
     parts["rest"] = whole - sum(parts.values())
-    print(f"profile perlayer: {whole:.2f} ms per {x.shape[0]}-crop forward "
-          "(CUDA events): " + ", ".join(
+    print(f"profile {label}: {whole:.2f} ms (CUDA events): " + ", ".join(
               f"{p} {ms:.2f} ms ({ms / whole:.1%})"
               for p, ms in sorted(parts.items(), key=lambda kv: -kv[1]))
           + f" ({smi})", flush=True)
+
+
+def perlayer_breakdown(q, scales, x, smi) -> None:
+    """Device ms of one 640-crop per-layer forward by part: the quantize
+    passes (max, divide, round, clamp, int8), K1 (a conv's time less its
+    quantize), the bf16 max pools, the bf16 avg pools, the module slots
+    (none: this face's concats copy), the concats, and the rest (the bf16
+    cast, the mean)."""
+    import torch
+
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+
+    def forward(timed):
+        ops = _timed_face(bq._PerLayerOps, {
+            "quantize": "quantize", "conv": "conv",
+            "max_pool": "bf16 max pool", "avg_pool": "bf16 avg pool",
+            "module_slots": "module slots", "concat": "concat"},
+            timed)(q, act_scales=scales)
+        h = bq._walk_trunk(ops, bq._walk_stem(ops, x.to(torch.bfloat16)))
+        return h.float().mean(dim=(1, 2)).to(torch.bfloat16)
+
+    def parts_of(parts):
+        parts["K1"] = parts.pop("conv") - parts["quantize"]
+
+    _breakdown(f"perlayer per {x.shape[0]}-crop forward", forward, smi,
+               parts_of)
+
+
+def e2e_breakdown(qe, frames, spec, smi) -> None:
+    """Device ms of one int8-e2e shared-stem 640-crop step (``frames``: a
+    chunk of uint8 frames on the card) by part: the bf16 stem with its
+    quantize and the crop windows, K1 (the trunk's convs; the fused entry
+    convs apart), K2, K3, the modules' output buffers (``module slots``:
+    allocation only), the concats (a view each where the module was
+    assembled in place; ``torch.cat`` where not), and the rest (the
+    normalization, the mean)."""
+    from action_detection_torch.data.transforms import device_normed_pair
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+    from action_detection_torch.models.backbones.bn_inception import (
+        stem_feature_hw)
+    from action_detection_torch.models.backbones.quantize import (
+        sharedstem_crop_windows)
+
+    def forward(timed):
+        xn, flip_src = device_normed_pair(frames, spec, "RGB", 1)
+        h = timed("stem and crop windows", lambda: sharedstem_crop_windows(
+            lambda x: bq._e2e_stem_quantized(qe, x), stem_feature_hw, xn,
+            flip_src, spec.input_size))
+        ops = _timed_face(bq._E2EOps, {
+            "conv": "K1", "entry": "K1 entry", "max_pool": "K2",
+            "avg_pool": "K3", "module_slots": "module slots",
+            "concat": "concat"}, timed)(qe)
+        h = bq._walk_trunk(ops, h)
+        return h.float().mean(dim=(1, 2)) * qe["__feat_scale__"]
+
+    _breakdown(f"BNInception int8-e2e per {10 * frames.shape[0]}-crop step",
+               forward, smi)
 
 
 def run_int8_stem(d: str, models: dict, smi: str) -> dict:
@@ -3476,8 +3649,9 @@ def profile_cli(out_dir: str, name: str, cli) -> None:
 
 def kernels_of(pkg_root: str) -> int:
     """Phase 3 alone on the kernels of the checkout at ``pkg_root`` (its
-    ``action_detection_torch`` package; the wrappers' signatures are the
-    same in every version), so two versions are timed by one method."""
+    ``action_detection_torch`` package), so two versions are timed by one
+    method; rows that need arguments a version lacks (``out=``) are
+    skipped there."""
     import torch
 
     sys.path.insert(0, pkg_root)
@@ -3490,7 +3664,10 @@ def kernels_of(pkg_root: str) -> int:
     rows = check_kernels(torch.cuda.get_device_name(0))
     print(json.dumps({"kernels_of": pkg_root, "ms": {
         f"{name}[{r['label']}]": r["ms"] for name, shapes in rows.items()
-        for r in shapes}}))
+        for r in shapes}, "contig_ms": {
+        f"{name}[{r['label']}]": r["contig_ms"]
+        for name, shapes in rows.items() for r in shapes
+        if "contig_ms" in r}}))
     return 0
 
 
@@ -3558,6 +3735,10 @@ def main() -> int:
                                    "int8_max_pool"),
         "int8_max_pool/valid": (pool, f"{IV3_SRC}:300", "inceptionv3_rgb",
                                 "int8_max_pool"),
+        "int8_conv/out_slice": (conv, f"{TPU_SRC}:257", "bninception_rgb",
+                                "int8_conv"),
+        "int8_max_pool/out_slice": (pool, f"{TPU_SRC}:230",
+                                    "bninception_rgb", "int8_max_pool"),
         "int8_avg_pool": (pool, f"{TPU_SRC}:244", "bninception_rgb",
                           "int8_avg_pool"),
         "int8_avg_pool/exclude_pad": (pool, f"{IV3_SRC}:305",

@@ -512,13 +512,15 @@ class _Recorder:
     run the real (CPU) wrappers."""
 
     def __init__(self, monkeypatch, module, names):
-        self.convs, self.pools = [], []
+        self.convs, self.pools, self.outs = [], [], []
         for name in names:
             real = getattr(module, name)
             monkeypatch.setattr(module, name, self._wrap(name, real))
 
     def _wrap(self, name, real):
         def call(x, *args, **kwargs):
+            if kwargs.get("out") is not None:
+                self.outs.append((name, k.int8_out_refusal(kwargs["out"])))
             if name == "int8_conv":
                 self.convs.append((tuple(x.shape), x.stride(),
                                    x.storage_offset(),
@@ -537,6 +539,8 @@ def _assert_16_byte_rule(rec):
         assert shape[3] % 16 == 0 and strides[2] % 16 == 0
         assert offset % 16 == 0
     assert any(name == "int8_max_pool" for name, *_ in rec.pools)
+    for name, refusal in rec.outs:     # the module slots written in place
+        assert refusal is None, (name, refusal)
     for name, shape, args, contiguous in rec.pools:
         assert shape[3] % 16 == 0 and contiguous, (name, shape)
         if name.startswith("int8_avg_pool"):
@@ -555,7 +559,8 @@ def test_bninception_trunk_meets_the_16_byte_rule(monkeypatch):
     fused entry convs and their in-place slices, and the calibration face)
     and every pool: C, each entry-split width and each slice offset are
     multiples of 16, the avg pools are 3x3 s1 p1 and the max pools Caffe
-    ceil 3x3 s2 or 3x3 s1 p1."""
+    ceil 3x3 s2 or 3x3 s1 p1; every module slot a branch writes meets the
+    output rule."""
     model, _, _ = get_backbone("BNInception", "RGB")
     sd = seeded_init(model, seed=0).state_dict()
     folded = bq.fold_bn(sd)
@@ -572,6 +577,9 @@ def test_bninception_trunk_meets_the_16_byte_rule(monkeypatch):
     out = bq._walk_trunk(bq._E2EOps(qe), h)
     assert out.shape == (1, 2, 2, 1024)
     runtime_convs = len(rec.convs)
+    # each module's branch ends (8 1x1 heads, 10 3x3s, 10 double 3x3s, 8
+    # pool projections, 2 passthrough pools) write its buffer in place
+    assert len(rec.outs) == 38
     q0 = bq.quantize_backbone(sd, folded=folded)
     bq._walk_trunk(bq._PerLayerOps(q0), h.to(torch.bfloat16))
     assert len(rec.convs) > runtime_convs
@@ -582,7 +590,8 @@ def test_bninception_trunk_meets_the_16_byte_rule(monkeypatch):
 def test_inceptionv3_trunk_meets_the_16_byte_rule(monkeypatch):
     """Every conv (fused entry convs and their in-place slices, 1x7/7x1/1x3/
     3x1 pads), every exclude-pad avg pool and every VALID 3x3 s2 max pool
-    of the full-width InceptionV3 int8 trunk meets the rule."""
+    of the full-width InceptionV3 int8 trunk, and every module slot a
+    branch writes, meets the rule."""
     model, _, _ = get_backbone("InceptionV3", "RGB")
     folded = iq.fold_bn_iv3(seeded_init(model, seed=0).state_dict())
     qe = iq.quantize_iv3_e2e(folded, dict({n: 1.0 for n in folded},
@@ -597,6 +606,9 @@ def test_inceptionv3_trunk_meets_the_16_byte_rule(monkeypatch):
     out = iq._walk_trunk(iq._ForwardOps(qe), h)
     assert out.shape == (1, 2048)
     assert any(off > 0 for _, _, off, _ in rec.convs)
+    # each Mixed module's branch ends (4 a module in 5b-5d and 6b-6e, 3 in
+    # 6a and 7a, 6 in 7b and 7c) write its buffer in place
+    assert len(rec.outs) == 46
     _assert_16_byte_rule(rec)
 
 

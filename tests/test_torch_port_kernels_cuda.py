@@ -550,3 +550,114 @@ def test_cuda_int8_max_pool_2d_runs_k2(cuda_device):
         max_pool_2d(x.to(cuda_device), (3, 2), 2, pads)
     y32 = max_pool_2d(x.to(torch.int32).to(cuda_device), 3, 2, pads)
     assert torch.equal(y32.cpu(), got.cpu().to(torch.int32))
+
+
+# --- writing into a channel slice (in-place module assembly) ---------------
+
+SENTINEL = {torch.int8: -77, torch.bfloat16: -3.5}
+
+
+def _slice_of_buffer(shape, channels, dtype, device):
+    """A channel slice of ``channels`` at a 16-byte offset of a sentinel
+    buffer whose pixel stride is a 16-byte multiple with 16 bytes to
+    spare; the buffer and the slice's channel range."""
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    lo = per16
+    width = -(-(lo + channels) // per16) * per16 + per16
+    buf = torch.full(tuple(shape) + (width,), SENTINEL[dtype], dtype=dtype,
+                     device=device)
+    return buf, lo, lo + channels
+
+
+def _assert_only_slice_written(buf, lo, hi, want):
+    buf = buf.cpu()
+    assert torch.equal(buf[..., lo:hi], want)
+    assert (buf[..., :lo] == SENTINEL[buf.dtype]).all()
+    assert (buf[..., hi:] == SENTINEL[buf.dtype]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+def test_cuda_conv_writes_into_a_channel_slice(cuda_device, case, out_dtype):
+    """K1 writes its columns at a channel offset of a wider buffer (16-byte
+    stores, a slice's last partial chunk byte by byte); the bytes around
+    the slice keep their sentinel."""
+    x, w, m, b = _conv_inputs(case)
+    stride, pad = case[6], case[7]
+    ref = k.int8_conv_plain(x, w, m, b, stride, pad, out_dtype)
+    buf, lo, hi = _slice_of_buffer(ref.shape[:3], ref.shape[3], out_dtype,
+                                   cuda_device)
+    before = k.int8_conv.launches
+    got = k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)), stride,
+                      pad, out_dtype, out=buf[..., lo:hi])
+    torch.cuda.synchronize()
+    assert k.int8_conv.launches == before + 1
+    assert got.data_ptr() == buf[..., lo:hi].data_ptr()
+    _assert_only_slice_written(buf, lo, hi, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16])
+def test_cuda_entry_conv_splits_at_224_in_a_128_column_tile(cuda_device,
+                                                            out_dtype):
+    """inception_4a's fused entry conv (480 -> 224 | 64 | 96, N = 128: the
+    split falls inside the second column tile): columns below 224 into the
+    module's buffer, the rest into a tensor of their own."""
+    x, w, m, b = _conv_inputs((4, 14, 14, 480, 384, 1, 1, 0))
+    assert k.int8_conv_plan(4, 14, 14, 384, 1, 1, 480).bn == 128
+    ref = k.int8_conv_plain(x, w, m, b, out_dtype=out_dtype)
+    buf = torch.full((4, 14, 14, 528), SENTINEL[out_dtype], dtype=out_dtype,
+                     device=cuda_device)
+    tail = torch.full((4, 14, 14, 160), SENTINEL[out_dtype], dtype=out_dtype,
+                      device=cuda_device)
+    k.int8_conv(*(t.to(cuda_device) for t in (x, w, m, b)),
+                out_dtype=out_dtype, out=(buf[..., :224], tail))
+    torch.cuda.synchronize()
+    _assert_only_slice_written(buf, 0, 224, ref[..., :224])
+    assert torch.equal(tail.cpu(), ref[..., 224:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ((2, 27, 29, 336), dict(kernel=3, stride=2, ceil=True)),  # ragged tiles
+    ((2, 14, 14, 608), dict(kernel=3, stride=2, ceil=True)),  # 4e
+    ((2, 17, 17, 48), dict(kernel=3, stride=2)),              # VALID
+    ((2, 9, 11, 96), dict(kernel=3, stride=1, pad=1))])
+def test_cuda_max_pool_writes_into_a_channel_slice(cuda_device, case):
+    """K2 writes a stride-2 module's passthrough branch at its channel
+    offset; the bytes around it keep their sentinel."""
+    shape, kw = case
+    x = _signed_pool_input(shape, sum(shape))
+    args = (kw["kernel"], kw["stride"], pool_pads(*shape[1:3], **kw))
+    ref = k.int8_max_pool_plain(x, *args)
+    buf, lo, hi = _slice_of_buffer(ref.shape[:3], shape[3], torch.int8,
+                                   cuda_device)
+    buf = torch.cat([buf, buf[..., :96]], dim=-1)    # a wider pixel stride
+    before = k.int8_max_pool.launches
+    k.int8_max_pool(x.to(cuda_device), *args, out=buf[..., lo:hi])
+    torch.cuda.synchronize()
+    assert k.int8_max_pool.launches == before + 1
+    _assert_only_slice_written(buf, lo, hi, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_slices_they_cannot_write(cuda_device):
+    """K1 and K2 raise on an output slice that starts off a 16-byte
+    boundary, on a pixel stride that is not a 16-byte multiple and on a
+    split whose head is not; they never fall back."""
+    x, w, m, b = (t.to(cuda_device) for t in _conv_inputs(
+        (2, 9, 9, 32, 32, 1, 1, 0)))
+    buf = torch.zeros((2, 9, 9, 64), dtype=torch.int8, device=cuda_device)
+    odd = torch.zeros((2, 9, 9, 40), dtype=torch.int8, device=cuda_device)
+    before = k.int8_conv.launches, k.int8_max_pool.launches
+    with pytest.raises(ValueError, match="aligned"):
+        k.int8_conv(x, w, m, b, out=buf[..., 8:40])
+    with pytest.raises(ValueError, match="pixel stride"):
+        k.int8_conv(x, w, m, b, out=odd[..., :32])
+    with pytest.raises(ValueError, match="head"):
+        k.int8_conv(x, w, m, b, out=(buf[..., :24], buf[..., 32:40]))
+    pooled = torch.zeros((2, 4, 4, 64), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        k.int8_max_pool(x, 3, 2, ((0, 0), (0, 0)), out=pooled[..., 8:40])
+    assert (k.int8_conv.launches, k.int8_max_pool.launches) == before

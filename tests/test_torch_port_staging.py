@@ -380,6 +380,6 @@ def test_staging_reuse_share_entry():
     # the metrics appended after it
     names = [m["name"] for m in bench["per_layer"]]
     assert names[names.index(entry["name"]) + 1:] == [
-        "graph_replay_share.score"]
+        "graph_replay_share.score", "inplace_concat_share.score"]
     layers = {m["name"]: m["layer"] for m in bench["per_layer"]}
     assert layers["h2d_ms.score"] == entry["layer"]

@@ -51,8 +51,10 @@ from action_detection_torch.infer.actionness import (ActionnessScorer,
 from action_detection_torch.infer.features import (CropFeatureScorer,
                                                    shared_prequantized)
 from action_detection_torch.infer.scorer import ProposalScorer, score_videos
-from action_detection_torch.kernels import (KERNELS, add_launch_counts,
-                                            count_launch, launch_counts,
+from action_detection_torch.kernels import (CONCATS, KERNELS,
+                                            add_launch_counts,
+                                            concat_counts, count_launch,
+                                            launch_counts,
                                             reset_launch_counts)
 from action_detection_torch.kernels.int8 import int8_conv
 from action_detection_torch.models import SSN, BinaryClassifier, seeded_init
@@ -109,10 +111,12 @@ class FakeGraph:
 
     def replay(self):
         counts = launch_counts()
+        counts.update(concat_counts())
         out = self.step()
         for name, n in counts.items():   # a replay launches from no Python
-            if name in KERNELS:
-                KERNELS[name].launches = n
+            counter = KERNELS.get(name) or CONCATS.get(name)
+            if counter is not None:
+                counter.launches = n
         self.out.copy_(out)
         self.log.append(("replay", self))
 
@@ -340,9 +344,10 @@ def test_close_drops_the_graphs(setup, monkeypatch):
 
 def test_replays_count_the_captured_launches(setup, monkeypatch):
     """A step standing for one that launches 2 K1s (and a host gather,
-    which no capture holds): the capture tallies the K1 launches only, and
-    each replay adds them to the counter, so it counts 2 a chunk as eager
-    chunks do."""
+    which no capture holds): the capture tallies the K1 launches and the
+    trunk's 10 in-place concats (counted on the CPU too), not the gather,
+    and each replay adds them to the counters, so K1 counts 2 a chunk as
+    eager chunks do."""
     log = fake_factory(monkeypatch)
     features = ProposalScorer._crop_features
 
@@ -361,7 +366,8 @@ def test_replays_count_the_captured_launches(setup, monkeypatch):
     # 6 chunks' gathers, the 2 eager steps' and the 2 captures' stand-ins
     assert counts["host_gather_rows"] == 6 + 4
     assert [s.launches for s in scorer._graphs.steps.values()] == [
-        {"int8_conv": 2}] * 2
+        {"int8_conv": 2, "concat_in_place": 10}] * 2
+    assert concat_counts()["concat_in_place"] == 10 * 6
     assert events(log).count("replay") == 4
     scorer.close()
 
@@ -385,8 +391,9 @@ class BesideAnotherThread(FakeGraph):
 
 def test_capture_tallies_only_its_own_threads_launches(setup, monkeypatch):
     """Three chunks of a step that launches 2 K1s, the second's capture
-    beside another thread's 5: the capture tallies its own 2 only, and the
-    counter ends at 2 a chunk plus the other thread's 5."""
+    beside another thread's 5: the capture tallies its own 2 only (and its
+    trunk's 10 concats), and the counter ends at 2 a chunk plus the other
+    thread's 5."""
     log = fake_factory(monkeypatch, graph=BesideAnotherThread)
     features = ProposalScorer._crop_features
 
@@ -403,7 +410,7 @@ def test_capture_tallies_only_its_own_threads_launches(setup, monkeypatch):
         scorer._score_chunk(frames, CHUNK)
     assert events(log) == ["make", "capture", "replay", "replay"]
     (step,) = scorer._graphs.steps.values()
-    assert step.launches == {"int8_conv": 2}
+    assert step.launches == {"int8_conv": 2, "concat_in_place": 10}
     assert launch_counts()["int8_conv"] == 3 * 2 + 5
     scorer.close()
 
@@ -497,7 +504,8 @@ def test_graph_replay_share_entry():
                      "better": "higher", "source": "program_counter",
                      "layer": "model step", "moves": "score_ticks_per_s",
                      "workloads": ["bni_thumos14.score_decoded"]}
-    assert bench["per_layer"][-1] is entry
+    # appended after the 15 metrics it found (later ones follow it)
+    assert bench["per_layer"].index(entry) == 15
     layers = {m["name"]: m["layer"] for m in bench["per_layer"]}
     assert layers["launch_ms.score"] == entry["layer"]
 
@@ -639,3 +647,68 @@ def test_cuda_graph_pools_are_freed_call_to_call(card):
     assert peaks[4] == peaks[1], peaks
     assert reserved[4] == reserved[1], reserved
     assert len(pools[1]) == 1 and pools[4] == pools[1], pools
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,hw,concats", [("BNInception", 28, 10),
+                                             ("InceptionV3", 35, 15)])
+def test_cuda_captured_trunk_assembles_in_place(arch, hw, concats):
+    """An int8 trunk whose modules are assembled in place, captured as a
+    CUDA graph into the device's pool, replays bit for bit as its eager
+    walk (two inputs), which equals the plain kernels on the CPU; the
+    capture tallies its in-place concats, which each replay counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the trunk's kernels K1-K3 have no "
+                    "CPU mode")
+    from action_detection_torch.infer.step_graph import CudaStepGraph
+    from action_detection_torch.kernels import tally_launches
+    from action_detection_torch.models.backbones import (
+        bn_inception_int8 as bq)
+    from action_detection_torch.models.backbones import (
+        inception_v3_int8 as iq)
+
+    model, _, spec = get_backbone(arch, "RGB")
+    sd = seeded_init(model, seed=4).state_dict()
+    rng = np.random.RandomState(4)
+    crops = torch.from_numpy((rng.rand(2, spec.input_size, spec.input_size,
+                                       3) * 255.0 - 117.0).astype(np.float32))
+    if arch == "BNInception":
+        qe = bq.calibrate_e2e(sd, crops.cuda())
+        walk = lambda q, h: bq._walk_trunk(bq._E2EOps(q), h)  # noqa: E731
+    else:
+        class Acts(iq._ForwardOps):     # the last concat, before the mean
+            def finish(self, y):
+                return y
+
+        qe = iq.calibrate_e2e_iv3(sd, crops.cuda())
+        walk = lambda q, h: iq._walk_trunk(Acts(q), h)  # noqa: E731
+    qd = bq.tree_to(qe, "cuda")
+    g = torch.Generator().manual_seed(hw)
+    h1, h2 = (torch.randint(0, 128, (8, hw, hw, 192), generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    with torch.no_grad():
+        reset_launch_counts()
+        eager1 = walk(qd, h1.cuda())
+        eager2 = walk(qd, h2.cuda())
+        torch.cuda.synchronize()
+        assert concat_counts() == {"concat_in_place": 2 * concats,
+                                   "concat_copied": 0}
+        graph = CudaStepGraph("cuda")
+        static_in = torch.empty_like(h1, device="cuda")
+        with tally_launches() as tally:
+            static_out = graph.capture(lambda: walk(qd, static_in))
+        assert tally["concat_in_place"] == concats
+        assert "concat_copied" not in tally
+        replays = []
+        for h in (h1, h2):
+            static_in.copy_(h.cuda())
+            graph.replay()
+            add_launch_counts(tally)
+            replays.append(static_out.clone())
+        torch.cuda.synchronize()
+        assert concat_counts()["concat_in_place"] == 4 * concats
+        assert torch.equal(replays[0], eager1)
+        assert torch.equal(replays[1], eager2)
+        assert not torch.equal(eager1, eager2) and eager1.max() > 0
+        plain = walk(qe, h1[:2])
+    assert torch.equal(eager1[:2].cpu(), plain)
